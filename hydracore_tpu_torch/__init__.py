@@ -1,0 +1,16 @@
+"""hydracore_tpu_torch — the PyTorch/CUDA port of hydracore_tpu.
+
+A second package beside the JAX one: the same renderer in PyTorch, with
+every Pallas TPU kernel on the ported path rewritten by hand for NVIDIA
+Hopper (CUDA C++ under csrc/). It imports nothing of JAX or of
+hydracore_tpu and mirrors the JAX package's layout:
+
+  scene/        procedural scene builder, material/light tables, SceneData
+  bvh/          SAH BVH builder (numpy + native C++) and the cluster cut
+  ops/          RNG, intersection, cluster traversal kernels B1/B2, dispatch
+  bsdf/         BSDF sample/eval
+  lights/       light sampling, env pdf tables
+  integrators/  wavefront MIS+NEE path tracer (render, render_passes)
+  utils/        math, device choice, native builds
+  csrc/         CUDA and C++ sources, built at first use into _build/
+"""

@@ -1,0 +1,44 @@
+"""The PyTorch port imports nothing of JAX, flax or the JAX package.
+
+A source scan of every module of hydracore_tpu_torch/ and chip_smoke.py,
+and an import of every module in a fresh interpreter that must leave jax
+out of sys.modules.
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|hydracore_tpu)(\.|\s|$)", re.M)
+
+
+def _sources():
+    files = sorted((ROOT / "hydracore_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_sources_import_no_jax():
+    files = _sources()
+    assert len(files) > 15
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import importlib, pkgutil, sys, runpy\n"
+        "import hydracore_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'hydracore_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules if k.startswith(pkg.__name__)]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 15
