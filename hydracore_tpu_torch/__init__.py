@@ -5,9 +5,11 @@ every Pallas TPU kernel on the ported path rewritten by hand for NVIDIA
 Hopper (CUDA C++ under csrc/). It imports nothing of JAX or of
 hydracore_tpu and mirrors the JAX package's layout:
 
-  scene/        procedural scene builder, material/light tables, SceneData
-  bvh/          SAH BVH builder (numpy + native C++) and the cluster cut
-  ops/          RNG, intersection, cluster traversal kernels B1/B2, dispatch
+  scene/        statefile and .vsgf loaders, scene assembler, procedural
+                scene builder, material/light compilers, SceneData
+  bvh/          SAH BVH builder (numpy + native C++), the cluster cut, its
+                partition into chunks, the two-level instanced layout
+  ops/          RNG, intersection, cluster traversal kernels B1/B2/B3, dispatch
   bsdf/         BSDF sample/eval
   lights/       light sampling, env pdf tables
   integrators/  wavefront MIS+NEE path tracer (render, render_passes)

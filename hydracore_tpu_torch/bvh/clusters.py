@@ -5,8 +5,8 @@ The port's own copy of cut_clusters from the JAX package's bvh/clusters.py
 subtrees of at most K_TRIS triangles; each becomes a cluster with its tight
 AABB and a padded block of 128 triangles in Woop form. Padded clusters are
 1e30 point boxes, padded slots have u = -1, degenerate triangles get rows
-that fail every hit test. Pools past the flat limit (partitioned chunks)
-come in a later slice.
+that fail every hit test. Pools past CL_PART_CAP clusters are stacked into
+chunks (partition_clusters), as the JAX package lays big scenes out.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 from hydracore_tpu_torch.bvh.builder import FlatBVH
 
 K_TRIS = 128  # triangles per cluster (= lane width)
+CL_PART_CAP = 1024  # clusters per chunk of a partitioned pool
 
 
 @dataclass
@@ -138,3 +139,70 @@ def cut_clusters(bvh: FlatBVH, tri_v0: np.ndarray, tri_e1: np.ndarray,
     return ClusterSet(bounds_lane=bl, bounds_sub=np.ascontiguousarray(bl.T),
                       tris=tris, slot_tri=slot_tri, oct_perm=oct_perm,
                       bounds_oct=bounds_oct, num_clusters=C)
+
+
+def partition_clusters(cl: ClusterSet, cap: int) -> ClusterSet:
+    """Split a flat ClusterSet into chunks of `cap` clusters (the JAX
+    package's partition_clusters, the same bytes out).
+
+    Big-scene analogue of the reference's multi-tree traversal loop
+    (runKernel_Trace iterates up to MAXBVHTREES=4 trees per bounce,
+    GPUOCLKernels.cpp:424-512): the traversal walks the chunks in order,
+    each in its own front-to-back order, carrying the best t from chunk to
+    chunk so later chunks prune against earlier hits. Chunks follow the
+    DFS cut order, which keeps them spatially coherent.
+
+    Arrays gain a leading partition axis P; slot_tri stays FLAT in
+    partition-major padded order (slot_global = p*cap*128 + slot_local),
+    so downstream slot->tri tables need no changes.
+    """
+    if cap % 128 != 0 or cap < 128:
+        raise ValueError(f"cap must be a multiple of 128, got {cap}")
+    C = cl.num_clusters
+    P = max((C + cap - 1) // cap, 1)
+
+    bl = np.zeros((P, 8, cap), np.float32)
+    bl[:, 0:6, :] = 1e30  # far-away POINT boxes reject padded lanes
+    tris = np.zeros((P, cap, 4, 384), np.float32)
+    tris[:, :, 3, 0:128] = -1.0  # padding slots: u = -1 always fails
+    tris[:, :, 3, 256:384] = 1.0
+    slot_tri = np.full(P * cap * 128, -1, np.int32)
+
+    for p in range(P):
+        lo = p * cap
+        hi = min(lo + cap, C)
+        n = hi - lo
+        bl[p, :, :n] = cl.bounds_lane[:, lo:hi]
+        tris[p, :n] = cl.tris[lo:hi]
+        slot_tri[p * cap * 128 : p * cap * 128 + n * 128] = \
+            cl.slot_tri[lo * 128 : hi * 128]
+
+    # per-chunk octant visit orders (local indices; padded clusters last)
+    oct_perm = np.zeros((P, 8, cap), np.int32)
+    bounds_oct = np.zeros((P, 8, 8, cap), np.float32)
+    lane = np.arange(cap)
+    for p in range(P):
+        center = (bl[p, 0:3, :] + bl[p, 3:6, :]) * 0.5
+        pad = lane >= min(C - p * cap, cap)
+        for o in range(8):
+            s = np.array([1.0 if o & 1 else -1.0,
+                          1.0 if o & 2 else -1.0,
+                          1.0 if o & 4 else -1.0])
+            key = s @ center
+            key[pad] = np.inf
+            perm = np.argsort(key, kind="stable").astype(np.int32)
+            oct_perm[p, o] = perm
+            bounds_oct[p, o] = bl[p][:, perm]
+
+    return ClusterSet(
+        bounds_lane=bl, bounds_sub=np.ascontiguousarray(bl.transpose(0, 2, 1)),
+        tris=tris, slot_tri=slot_tri, oct_perm=oct_perm,
+        bounds_oct=bounds_oct, num_clusters=C)
+
+
+def maybe_partition(cl: ClusterSet, cap: int = CL_PART_CAP) -> ClusterSet:
+    """Partition when the flat pool exceeds `cap` clusters (the JAX
+    package's default layout rule: 1024)."""
+    if cl.tris.shape[0] <= cap:
+        return cl
+    return partition_clusters(cl, cap)

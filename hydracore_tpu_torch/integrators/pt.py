@@ -1,9 +1,9 @@
 """Wavefront MIS path tracer (PT / MISPT) over megablock ray batches (torch).
 
 The JAX package's integrators/pt.py, main path: per bounce a closest-hit
-trace (kernel B1), compute_hit, fetch_material and the BSDF, then NEE with
-a shadow any-hit trace (kernel B2), in the persistent-sorted wavefront
-mode: the whole live state is permuted into (octant, origin-Morton) order
+trace (kernel B1, or B3 over an instanced scene), compute_hit,
+fetch_material and the BSDF, then NEE with a shadow any-hit trace (kernel
+B2 / B3), in the persistent-sorted wavefront mode: the whole live state is permuted into (octant, origin-Morton) order
 once per bounce and both traversals run on the sorted wavefront.
 
 Semantics (ref IntegratorMISPT::PathTrace / trace1D_Rev):
@@ -99,15 +99,46 @@ def make_eye_rays(cam, px, py, jitter, lens_uv):
 
 def compute_hit(scene, tri, u, v, ray_o, ray_d, t):
     """Hit attribute interpolation from ONE packed tri_attr row per ray.
-    Returns (pos, n, ng, uv, mat, light, tangent)."""
+    Returns (pos, n, ng, uv, mat, light, tangent).
+
+    Instanced scenes (settings.has_inst): `tri` is the cluster SLOT id; it
+    resolves to (mesh triangle, instance) through cl_slot_tri2, attributes
+    interpolate in mesh-local space and rotate to world by the instance
+    matrix (normals by invM^T, tangents by M — BVH4InstTraverse's
+    local-space hit semantics, ctrace.h:940-1010)."""
+    has_inst = scene.settings.has_inst
+    if has_inst:
+        row = scene.cl_slot_tri2[torch.clamp(tri.long(), 0,
+                                             scene.cl_slot_tri2.shape[0] - 1)]
+        tri = row[:, 0]
+        im = scene.inst_attr[torch.clamp(row[:, 1].long(), 0,
+                                         scene.inst_attr.shape[0] - 1)]
     tri_c = torch.clamp(tri.long(), 0, scene.tri_attr.shape[0] - 1)
     a = scene.tri_attr[tri_c]  # (R, 40)
     w = 1.0 - u - v
     wc, uc, vc = w[:, None], u[:, None], v[:, None]
-    pos = ray_o + t[:, None] * ray_d
+    pos = ray_o + t[:, None] * ray_d  # world in both modes (world-t rays)
     n = wc * a[:, 9:12] + uc * a[:, 12:15] + vc * a[:, 15:18]
     ng = cross3(a[:, 3:6], a[:, 6:9])
     tang = wc * a[:, 18:21] + uc * a[:, 21:24] + vc * a[:, 24:27]
+    if has_inst:
+        def rot_normal(v3):  # v @ invR == invR^T action (rows 12:24 = invM)
+            return torch.stack([
+                v3[:, 0] * im[:, 12] + v3[:, 1] * im[:, 16] + v3[:, 2] * im[:, 20],
+                v3[:, 0] * im[:, 13] + v3[:, 1] * im[:, 17] + v3[:, 2] * im[:, 21],
+                v3[:, 0] * im[:, 14] + v3[:, 1] * im[:, 18] + v3[:, 2] * im[:, 22],
+            ], dim=1)
+
+        def rot_vec(v3):  # R v (rows 0:12 = M)
+            return torch.stack([
+                v3[:, 0] * im[:, 0] + v3[:, 1] * im[:, 1] + v3[:, 2] * im[:, 2],
+                v3[:, 0] * im[:, 4] + v3[:, 1] * im[:, 5] + v3[:, 2] * im[:, 6],
+                v3[:, 0] * im[:, 8] + v3[:, 1] * im[:, 9] + v3[:, 2] * im[:, 10],
+            ], dim=1)
+
+        n = rot_normal(n)
+        ng = rot_normal(ng)
+        tang = rot_vec(tang)
     n = normalize3(n)
     ng = normalize3(ng)
     # orient the geometric normal with the shading normal

@@ -1,9 +1,9 @@
 """Traversal dispatcher and coherence sort.
 
-Every flat cluster pool goes to the cluster kernels (ops/traverse_cluster.py);
-partitioned and instanced pools come in a later slice and raise. The JAX
-package's dense and wide-BVH paths are XLA code for other backends, not
-kernels; this port does not carry them.
+Every pool goes to the cluster kernels (ops/traverse_cluster.py): flat,
+partitioned into chunks, or instanced — the JAX package's _pick restricted
+to what the port has. Its dense, wide-BVH and packet paths are not ported
+yet.
 
 Secondary wavefronts are sorted by (direction octant, origin Morton) before
 traversal so that a ray block shares an octant and a small box — the
@@ -17,22 +17,13 @@ from hydracore_tpu_torch.ops import traverse_cluster
 from hydracore_tpu_torch.ops.rng import M32
 
 
-def _check_pool(scene) -> None:
-    if scene.cl_tris.dim() != 3:
-        raise NotImplementedError("partitioned cluster pool")
-    if getattr(scene.settings, "has_inst", False):
-        raise NotImplementedError("instanced cluster pool")
-
-
 def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
                 kind: str = "primary"):
-    _check_pool(scene)
     return traverse_cluster.closest_hit(scene, ray_o, ray_d, t_max, active,
                                         kind)
 
 
 def any_hit(scene, ray_o, ray_d, t_max, active=None):
-    _check_pool(scene)
     return traverse_cluster.any_hit(scene, ray_o, ray_d, t_max, active)
 
 

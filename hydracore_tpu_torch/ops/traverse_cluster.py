@@ -1,16 +1,20 @@
-"""Cluster traversal: kernels B1 (closest hit) and B2 (any hit), their plain
-PyTorch twin, and the closest_hit / any_hit epilogues.
+"""Cluster traversal: kernels B1 (closest hit), B2 (any hit) and B3 (the
+same two over the instanced layout), their plain PyTorch twin, and the
+closest_hit / any_hit epilogues.
 
 The kernels (csrc/traverse_cluster.cu, CUDA C++ for sm_90a, built with
 nvcc at first use and loaded with ctypes) replace the JAX package's Pallas
 kernel hydracore_tpu/ops/traverse_cluster.py::_make_kernel as launched by
-_cluster_traverse. They compute the same function, not its TPU block
-structure; the source note in the .cu file gives the design and its bound.
+_cluster_traverse, in its flat and its inst_mode variants, and the chain
+of launches of _partitioned_traverse: a partitioned pool is walked chunk
+by chunk inside ONE launch. They compute the same function, not its TPU
+block structure; the source note in the .cu file gives the design and its
+bound.
 
 cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs cluster_traverse_plain, the twin with
 the same contract. It counts kernel launches in closest_launches /
-any_launches.
+any_launches (B1/B2) and inst_closest_launches / inst_any_launches (B3).
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ R_BLK_BOUNCE = 128
 
 closest_launches = 0
 any_launches = 0
+inst_closest_launches = 0
+inst_any_launches = 0
 
 _lib = None
 
@@ -39,6 +45,8 @@ def reset_launch_counts() -> None:
     this = sys.modules[__name__]
     this.closest_launches = 0
     this.any_launches = 0
+    this.inst_closest_launches = 0
+    this.inst_any_launches = 0
 
 
 def _kernel_lib():
@@ -48,8 +56,8 @@ def _kernel_lib():
 
         lib = ctypes.CDLL(build("traverse_cluster.cu"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hydra_cluster_traverse.argtypes = [vp, vp, vp, vp, vp, vp,
-                                               ci, ci, ci, ci, vp]
+        lib.hydra_cluster_traverse.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                               ci, ci, ci, ci, ci, vp]
         lib.hydra_cluster_traverse.restype = ci
         lib.hydra_cuda_error_string.argtypes = [ci]
         lib.hydra_cuda_error_string.restype = ctypes.c_char_p
@@ -57,37 +65,66 @@ def _kernel_lib():
     return _lib
 
 
-def _check_inputs(rays, cbl_oct, tris, perm):
+def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop):
+    """Validate shapes, types and devices; returns (P, Cp): the number of
+    chunks (1 for a flat or an instanced pool) and clusters per chunk."""
     if rays.dim() != 3 or rays.shape[2] != 8:
         raise ValueError(f"rays must be (G, r_blk, 8), got {tuple(rays.shape)}")
-    Cp = cbl_oct.shape[2] if cbl_oct.dim() == 3 else -1
-    if tuple(cbl_oct.shape) != (8, 8, Cp) or Cp <= 0:
-        raise ValueError(f"cbl_oct must be (8, 8, Cp), got {tuple(cbl_oct.shape)}")
-    if tuple(tris.shape) != (Cp, 4, 3 * LANES):
-        raise ValueError(f"tris must be ({Cp}, 4, 384), got {tuple(tris.shape)}")
-    if tuple(perm.shape) != (8, Cp):
-        raise ValueError(f"perm must be (8, {Cp}), got {tuple(perm.shape)}")
-    for name, x, dt in (("rays", rays, torch.float32),
-                        ("cbl_oct", cbl_oct, torch.float32),
-                        ("tris", tris, torch.float32),
-                        ("perm", perm, torch.int32)):
+    if (cl_map is None) != (inst_woop is None):
+        raise ValueError("cl_map and inst_woop come together")
+    lead = tuple(cbl_oct.shape[:-3]) if cbl_oct.dim() in (3, 4) else None
+    Cp = cbl_oct.shape[-1] if lead is not None else -1
+    if lead is None or tuple(cbl_oct.shape[-3:]) != (8, 8, Cp) or Cp <= 0:
+        raise ValueError("cbl_oct must be (8, 8, Cp) or (P, 8, 8, Cp), got "
+                         f"{tuple(cbl_oct.shape)}")
+    if tuple(perm.shape) != lead + (8, Cp):
+        raise ValueError(f"perm must be {lead + (8, Cp)}, got {tuple(perm.shape)}")
+    tensors = [("rays", rays, torch.float32), ("cbl_oct", cbl_oct, torch.float32),
+               ("tris", tris, torch.float32), ("perm", perm, torch.int32)]
+    if cl_map is None:
+        if tuple(tris.shape) != lead + (Cp, 4, 3 * LANES):
+            raise ValueError(f"tris must be {lead + (Cp, 4, 3 * LANES)}, got "
+                             f"{tuple(tris.shape)}")
+    else:
+        if lead:
+            raise ValueError("an instanced pool is not partitioned")
+        if tris.dim() != 3 or tuple(tris.shape[1:]) != (4, 3 * LANES):
+            raise ValueError(f"tris must be (Cpool, 4, 384), got {tuple(tris.shape)}")
+        if tuple(cl_map.shape) != (2, Cp):
+            raise ValueError(f"cl_map must be (2, {Cp}), got {tuple(cl_map.shape)}")
+        if inst_woop.dim() != 3 or tuple(inst_woop.shape[1:]) != (4, 4):
+            raise ValueError(f"inst_woop must be (I, 4, 4), got "
+                             f"{tuple(inst_woop.shape)}")
+        tensors += [("cl_map", cl_map, torch.int32),
+                    ("inst_woop", inst_woop, torch.float32)]
+    for name, x, dt in tensors:
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if x.device != rays.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
+    return (lead[0] if lead else 1), Cp
 
 
-def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False):
+def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
+                     cl_map=None, inst_woop=None):
     """rays (G, r_blk, 8) f32 [o d t_lim active] -> (t (G, r_blk) f32,
-    slot (G, r_blk) i32). CUDA tensors launch kernel B1 / B2; CPU tensors
-    run the plain twin."""
-    _check_inputs(rays, cbl_oct, tris, perm)
+    slot (G, r_blk) i32). The pool is flat (cbl_oct (8, 8, Cp)), partitioned
+    (a leading chunk axis P on cbl_oct, tris and perm; slots come back as
+    (chunk * Cp + cluster) * 128 + lane) or, with cl_map and inst_woop,
+    instanced (cbl_oct and perm over instance-clusters, tris the shared
+    pool). CUDA tensors launch kernel B1 / B2 / B3; CPU tensors run the
+    plain twin."""
+    P, Cp = _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop)
     if not rays.is_cuda:
-        return cluster_traverse_plain(rays, cbl_oct, tris, perm, any_hit_mode)
+        return cluster_traverse_plain(rays, cbl_oct, tris, perm, any_hit_mode,
+                                      cl_map, inst_woop)
     G, r_blk, _ = rays.shape
     if r_blk > 256:
         raise ValueError(f"r_blk {r_blk} > 256 threads per block")
     rays, cbl_oct, tris, perm = (x.contiguous() for x in (rays, cbl_oct, tris, perm))
+    inst = cl_map is not None
+    if inst:
+        cl_map, inst_woop = cl_map.contiguous(), inst_woop.contiguous()
     t = torch.empty((G, r_blk), dtype=torch.float32, device=rays.device)
     slot = torch.empty((G, r_blk), dtype=torch.int32, device=rays.device)
     lib = _kernel_lib()
@@ -95,105 +132,157 @@ def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = lib.hydra_cluster_traverse(
             rays.data_ptr(), cbl_oct.data_ptr(), tris.data_ptr(),
-            perm.data_ptr(), t.data_ptr(), slot.data_ptr(),
-            G * r_blk, r_blk, cbl_oct.shape[2], int(any_hit_mode), stream)
+            perm.data_ptr(), cl_map.data_ptr() if inst else None,
+            inst_woop.data_ptr() if inst else None, t.data_ptr(),
+            slot.data_ptr(), G * r_blk, r_blk, Cp, P, int(any_hit_mode),
+            stream)
     if err != 0:
         msg = lib.hydra_cuda_error_string(err).decode()
         raise RuntimeError(f"cluster traversal kernel launch failed: {msg}")
     this = sys.modules[__name__]
-    if any_hit_mode:
-        this.any_launches += 1
-    else:
-        this.closest_launches += 1
+    name = ("inst_" if inst else "") + ("any" if any_hit_mode else "closest") \
+        + "_launches"
+    setattr(this, name, getattr(this, name) + 1)
     return t, slot
 
 
-# elements of one slab-test step of the twin: bounds its (rays x clusters)
-# temporaries to ~16 MiB each
-_TWIN_SLAB_ELEMS = 1 << 22
+# elements of one step of the twin: bounds its (rays x clusters) and
+# (ray-cluster pairs x lanes) temporaries to ~16 MiB each
+_TWIN_STEP_ELEMS = 1 << 22
 
 
-def cluster_traverse_plain(rays, cbl_oct, tris, perm, any_hit_mode: bool = False):
-    """Plain PyTorch twin of B1/B2 with the kernel's contract: a dense
-    masked slab test of every ray against every cluster box, then, cluster
-    by cluster, the Woop Moller-Trumbore of the rays that enter its box
-    against its lanes up to the last live one (padded lanes never hit).
-    Ties between equal t go to the lowest cluster id and lane (the kernel:
-    first in visit order)."""
-    G, RB, _ = rays.shape
-    dev = rays.device
-    flat = rays.reshape(-1, 8)
-    N = flat.shape[0]
-    Cp = cbl_oct.shape[2]
+def _safe_inv(d):
+    eps = 1e-12
+    return 1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d)
+
+
+def _pairs_mt(o, d, t_lim, blk):
+    """Woop Moller-Trumbore of K rays, each against the 128 lanes of its own
+    block blk (K, 4, 384). Returns (t (K,) of the nearest hit inside
+    (1e-5, t_lim), +inf when none; its lane (K,), the lowest among equal
+    t)."""
+    bu, bv, bw = (blk[:, :, k * LANES:(k + 1) * LANES] for k in range(3))
+    ox, oy, oz = (o[:, k, None] for k in range(3))
+    dx, dy, dz = (d[:, k, None] for k in range(3))
+    ow = ox * bw[:, 0] + oy * bw[:, 1] + oz * bw[:, 2] + bw[:, 3]
+    dw = dx * bw[:, 0] + dy * bw[:, 1] + dz * bw[:, 2]
+    t = -ow / dw
+    u = (ox * bu[:, 0] + oy * bu[:, 1] + oz * bu[:, 2] + bu[:, 3]) \
+        + t * (dx * bu[:, 0] + dy * bu[:, 1] + dz * bu[:, 2])
+    v = (ox * bv[:, 0] + oy * bv[:, 1] + oz * bv[:, 2] + bv[:, 3]) \
+        + t * (dx * bv[:, 0] + dy * bv[:, 1] + dz * bv[:, 2])
+    hit = (t > 1e-5) & (t < t_lim[:, None]) & (u >= 0) & (v >= 0) \
+        & (u + v <= 1.0)
+    tm = torch.where(hit, t, float("inf"))
+    kt = tm.amin(dim=1)
+    lane = torch.arange(LANES, dtype=torch.int32, device=o.device)
+    kl = torch.where(hit & (tm == kt[:, None]), lane, LANES).amin(dim=1)
+    return kt, kl
+
+
+def _chunk_plain(flat, t_lim, act, bounds_oct, tris, perm, cl_map, inst_woop):
+    """One flat pool (or one chunk of a partitioned one): per ray the nearest
+    hit below t_lim as (t, cluster * 128 + lane), (+inf, -1) when none."""
+    dev = flat.device
+    Cp = bounds_oct.shape[2]
     # boxes in true-cluster order (every octant holds the same boxes)
     bounds = torch.empty((8, Cp), dtype=torch.float32, device=dev)
-    bounds[:, perm[0].long()] = cbl_oct[0]
+    bounds[:, perm[0].long()] = bounds_oct[0]
     # padded clusters are 1e30 point boxes that no ray enters: skip them
     real = torch.nonzero(bounds[0] < 1e29).flatten()
     bounds = bounds[:, real]
-    real = real.tolist()
-    # lanes past the last live one are padding (u row 0,0,0,-1: u = -1)
-    pad = (tris[:, 0:3, :LANES] == 0).all(dim=1) & (tris[:, 3, :LANES] == -1.0)
-    lane_no = torch.arange(1, LANES + 1, device=dev)
-    n_lanes = torch.where(pad, 0, lane_no).amax(dim=1).tolist()
-
-    act = flat[:, 7] > 0.0
-    t0 = torch.where(act, torch.clamp(flat[:, 6], max=BIG),
-                     torch.full_like(flat[:, 6], -BIG))
+    out_t = torch.full((flat.shape[0],), float("inf"), dtype=torch.float32,
+                       device=dev)
+    out_s = torch.full((flat.shape[0],), -1, dtype=torch.int32, device=dev)
+    live = torch.nonzero(act).flatten()  # dead rays enter no box
+    N, C = live.numel(), real.numel()
+    if N == 0 or C == 0:
+        return out_t, out_s
+    flat, t_lim = flat[live], t_lim[live]
     best_t = torch.full((N,), float("inf"), dtype=torch.float32, device=dev)
-    best_s = torch.full((N,), -1, dtype=torch.int64, device=dev)
-
-    eps = 1e-12
-
-    def safe_inv(d):
-        return 1.0 / torch.where(d.abs() < eps,
-                                 torch.where(d < 0, -eps, eps), d)
-
-    chunk = max(1, min(N, _TWIN_SLAB_ELEMS // max(len(real), 1)))
-    for s in range(0, N, chunk):
-        e = min(s + chunk, N)
+    best_s = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    none = torch.iinfo(torch.int32).max
+    step = max(1, _TWIN_STEP_ELEMS // C)
+    pairs = _TWIN_STEP_ELEMS // (2 * LANES)
+    for s in range(0, N, step):
+        e = min(s + step, N)
         o = flat[s:e, 0:3]
-        d = flat[s:e, 3:6]
-        inv = safe_inv(d)
+        inv = _safe_inv(flat[s:e, 3:6])
         oi = o * inv
-        t_a = bounds[None, 0:3] * inv[:, :, None] - oi[:, :, None]  # (n,3,Cp)
+        t_a = bounds[None, 0:3] * inv[:, :, None] - oi[:, :, None]  # (n,3,C)
         t_b = bounds[None, 3:6] * inv[:, :, None] - oi[:, :, None]
         tmin = torch.minimum(t_a, t_b)
         tmax = torch.maximum(t_a, t_b)
         tn = torch.maximum(torch.maximum(tmin[:, 0], tmin[:, 1]), tmin[:, 2])
         tf = torch.minimum(torch.minimum(tmax[:, 0], tmax[:, 1]), tmax[:, 2])
-        box = (tf >= torch.clamp(tn, min=0.0)) & (tn < t0[s:e, None]) \
-            & act[s:e, None]
-        for j in torch.nonzero(box.any(dim=0)).flatten().tolist():
-            r = torch.nonzero(box[:, j]).flatten() + s
-            c = real[j]
-            L = n_lanes[c]
-            if L == 0:
-                continue
-            blk = tris[c, :, :]  # (4, 384)
-            bu, bv, bw = (blk[:, k * LANES:k * LANES + L] for k in range(3))
-            ox, oy, oz = (flat[r, k:k + 1] for k in range(3))
-            dx, dy, dz = (flat[r, k:k + 1] for k in range(3, 6))
-            ow = ox * bw[0] + oy * bw[1] + oz * bw[2] + bw[3]
-            dw = dx * bw[0] + dy * bw[1] + dz * bw[2]
-            t = -ow / dw
-            u = (ox * bu[0] + oy * bu[1] + oz * bu[2] + bu[3]) \
-                + t * (dx * bu[0] + dy * bu[1] + dz * bu[2])
-            v = (ox * bv[0] + oy * bv[1] + oz * bv[2] + bv[3]) \
-                + t * (dx * bv[0] + dy * bv[1] + dz * bv[2])
-            hit = (t > 1e-5) & (t < t0[r, None]) & (u >= 0) & (v >= 0) \
-                & (u + v <= 1.0)
-            kt, kl = torch.where(hit, t, float("inf")).min(dim=1)
-            better = kt < best_t[r]
-            best_t[r] = torch.where(better, kt, best_t[r])
-            best_s[r] = torch.where(better, c * LANES + kl, best_s[r])
-    found = best_s >= 0
+        box = (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim[s:e, None])
+        # (ray, cluster) pairs in ray-major, cluster-minor order
+        r_all, j_all = torch.nonzero(box, as_tuple=True)
+        r_all = r_all + s
+        c_all = real[j_all]
+        for q in range(0, r_all.numel(), pairs):
+            r, c = r_all[q:q + pairs], c_all[q:q + pairs]
+            o, d = flat[r, 0:3], flat[r, 3:6]
+            blk = c
+            if cl_map is not None:
+                # into the instance's mesh-local space: [o 1] A^T, [d 0] A^T
+                # in the kernel's association, d left unnormalized
+                blk = cl_map[0, c].long()
+                a = inst_woop[cl_map[1, c].long()]  # (K, 4, 4) A^T
+                o = torch.stack([o[:, 0] * a[:, 0, k] + o[:, 1] * a[:, 1, k]
+                                 + o[:, 2] * a[:, 2, k] + a[:, 3, k]
+                                 for k in range(3)], dim=1)
+                d = torch.stack([d[:, 0] * a[:, 0, k] + d[:, 1] * a[:, 1, k]
+                                 + d[:, 2] * a[:, 2, k]
+                                 for k in range(3)], dim=1)
+            kt, kl = _pairs_mt(o, d, t_lim[r], tris[blk])
+            ks = (c * LANES).to(torch.int32) + kl
+            # nearest per ray; equal t keeps the lowest cluster and lane
+            new_t = best_t.scatter_reduce(0, r, kt, "amin")
+            won = new_t < best_t
+            cand = won[r] & (kt == new_t[r])
+            new_s = torch.full_like(best_s, none).scatter_reduce(
+                0, r, torch.where(cand, ks, none), "amin")
+            best_s = torch.where(won, new_s, best_s)
+            best_t = new_t
+    out_t[live] = best_t
+    out_s[live] = best_s
+    return out_t, out_s
+
+
+def cluster_traverse_plain(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
+                           cl_map=None, inst_woop=None):
+    """Plain PyTorch twin of B1/B2/B3 with the kernel's contract. Per chunk:
+    a dense masked slab test of every ray against every cluster box, then
+    the Woop Moller-Trumbore of every (ray, entered cluster) pair over the
+    cluster's 128 lanes (padded lanes never hit); an instance-cluster's
+    rays are first moved into its mesh-local space. Chunks are walked in
+    order with each ray's best t as the next chunk's limit, and in any-hit
+    mode an occluded ray is retired for the later chunks (the JAX package's
+    _partitioned_traverse). Ties between equal t go to the lowest chunk,
+    cluster and lane (the kernel: first in visit order)."""
+    G, RB, _ = rays.shape
+    flat = rays.reshape(-1, 8)
+    if cbl_oct.dim() == 3:
+        cbl_oct, tris, perm = cbl_oct[None], tris[None], perm[None]
+    Cp = cbl_oct.shape[-1]
+    act = flat[:, 7] > 0.0
+    t0 = torch.where(act, torch.clamp(flat[:, 6], max=BIG),
+                     torch.full_like(flat[:, 6], -BIG))
+    t_cur = t0
+    slot = torch.full_like(act, -1, dtype=torch.int32)
+    for p in range(cbl_oct.shape[0]):
+        kt, ks = _chunk_plain(flat, t_cur, act, cbl_oct[p],
+                              tris[0] if cl_map is not None else tris[p],
+                              perm[p], cl_map, inst_woop)
+        found = ks >= 0
+        t_cur = torch.where(found, kt, t_cur)
+        slot = torch.where(found, ks + p * Cp * LANES, slot)
+        if any_hit_mode:
+            act = act & ~found
     if any_hit_mode:
-        t_out = torch.where(found, -BIG, t0)
-    else:
-        t_out = torch.where(found, best_t, t0)
-    slot_out = best_s.to(torch.int32)
-    return t_out.reshape(G, RB), slot_out.reshape(G, RB)
+        t_cur = torch.where(slot >= 0, -BIG, t0)
+    return t_cur.reshape(G, RB), slot.reshape(G, RB)
 
 
 def _to_blocks(ro, rd, t_max, active, r_blk):
@@ -209,16 +298,46 @@ def _to_blocks(ro, rd, t_max, active, r_blk):
     return r.reshape(Rp // r_blk, r_blk, 8), R
 
 
+def local_rays(scene, inst, ray_o, ray_d):
+    """Per-ray transform into instance-local space: one (R, 32) inst_attr
+    row gather (rows [12:24) hold invM 3x4 row-major); directions stay
+    unnormalized, so t is the world ray parameter."""
+    im = scene.inst_attr[torch.clamp(inst.long(), 0,
+                                     scene.inst_attr.shape[0] - 1)]
+    ro = torch.stack([
+        im[:, 12] * ray_o[:, 0] + im[:, 13] * ray_o[:, 1]
+        + im[:, 14] * ray_o[:, 2] + im[:, 15],
+        im[:, 16] * ray_o[:, 0] + im[:, 17] * ray_o[:, 1]
+        + im[:, 18] * ray_o[:, 2] + im[:, 19],
+        im[:, 20] * ray_o[:, 0] + im[:, 21] * ray_o[:, 1]
+        + im[:, 22] * ray_o[:, 2] + im[:, 23]], dim=1)
+    rd = torch.stack([
+        im[:, 12] * ray_d[:, 0] + im[:, 13] * ray_d[:, 1]
+        + im[:, 14] * ray_d[:, 2],
+        im[:, 16] * ray_d[:, 0] + im[:, 17] * ray_d[:, 1]
+        + im[:, 18] * ray_d[:, 2],
+        im[:, 20] * ray_d[:, 0] + im[:, 21] * ray_d[:, 1]
+        + im[:, 22] * ray_d[:, 2]], dim=1)
+    return ro, rd
+
+
+def _traverse_scene(scene, rays, any_hit_mode: bool):
+    return cluster_traverse(rays, scene.cl_bounds_oct, scene.cl_tris,
+                            scene.cl_oct_perm, any_hit_mode=any_hit_mode,
+                            cl_map=scene.cl_map, inst_woop=scene.inst_woop)
+
+
 def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
                 kind: str = "primary"):
     """Returns (t, tri_id, u, v); t = +inf and tri_id = -1 on a miss. The
     kernel's slot maps to a triangle through cl_slot_tri2; the exact
     (t, u, v) come from one gathered Moller-Trumbore per ray (mt_refine),
-    as in the JAX package's epilogue."""
+    as in the JAX package's epilogue. Instanced scenes refine in
+    mesh-local space and return the SLOT id in place of tri_id (still -1
+    on a miss); compute_hit resolves it to (mesh triangle, instance)."""
     r_blk = R_BLK_BOUNCE if kind == "bounce" else R_BLK
     rays, R = _to_blocks(ray_o, ray_d, t_max, active, r_blk)
-    _, slot = cluster_traverse(rays, scene.cl_bounds_oct, scene.cl_tris,
-                               scene.cl_oct_perm, any_hit_mode=False)
+    _, slot = _traverse_scene(scene, rays, any_hit_mode=False)
     slot = slot.reshape(-1)[:R].long()
     hit = slot >= 0
     n_slots = scene.cl_slot_tri2.shape[0]
@@ -227,14 +346,18 @@ def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
     tid = torch.clamp(tri, 0, scene.tri_attr.shape[0] - 1)
     a = scene.tri_attr[tid]
     v0, e1, e2 = a[:, 0:3], a[:, 3:6], a[:, 6:9]
+    inst = scene.cl_map is not None
+    if inst:
+        ray_o, ray_d = local_rays(scene, row[:, 1], ray_o, ray_d)
     t_e, u, v = mt_refine(ray_o, ray_d, v0, e1, e2, f64=want_double(scene))
     t = torch.where(hit, t_e, float("inf"))
+    if inst:
+        tri = torch.where(hit, slot, -1)
     return t, tri, torch.where(hit, u, 0.0), torch.where(hit, v, 0.0)
 
 
 def any_hit(scene, ray_o, ray_d, t_max, active=None):
     """Shadow query: True where some triangle lies in (1e-5, t_max)."""
     rays, R = _to_blocks(ray_o, ray_d, t_max, active, R_BLK)
-    _, slot = cluster_traverse(rays, scene.cl_bounds_oct, scene.cl_tris,
-                               scene.cl_oct_perm, any_hit_mode=True)
+    _, slot = _traverse_scene(scene, rays, any_hit_mode=True)
     return slot.reshape(-1)[:R] >= 0

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from hydracore_tpu_torch.bvh.clusters import cut_clusters
+from hydracore_tpu_torch.bvh.clusters import (CL_PART_CAP, cut_clusters,
+                                              maybe_partition)
 from hydracore_tpu_torch.bvh.native import build_bvh_auto
 from hydracore_tpu_torch.scene.camera import build_camera
 from hydracore_tpu_torch.scene.lights import (
@@ -29,11 +30,6 @@ from hydracore_tpu_torch.scene.scene import (SceneData, build_mesh_light_tables,
                                              finalize_scene)
 from hydracore_tpu_torch.scene.statefile import CameraDesc, RenderSettings
 from hydracore_tpu_torch.lights.envmap import build_env_pdf
-
-
-# flat cluster-pool limit: past it the JAX package cuts the pool into
-# partitioned chunks, which come in a later slice of the port
-CL_MAX_CP = 1024
 
 
 class SceneBuilder:
@@ -194,7 +190,10 @@ class SceneBuilder:
 
     # ---- finalize
     def build(self, cam_pos, cam_lookat, fov=45.0, width=64, height=64,
-              trace_depth=5, lens_radius=0.0) -> SceneData:
+              trace_depth=5, lens_radius=0.0,
+              part_cap: int = CL_PART_CAP) -> SceneData:
+        """Compile the recipe. A pool of more than `part_cap` clusters is
+        partitioned into chunks of that many (bvh/clusters.py)."""
         T = max(len(self.tris), 1)
         if not self.tris:
             self.tris.append(
@@ -209,12 +208,8 @@ class SceneBuilder:
         v2 = np.stack([t[2] for t in self.tris]).astype(np.float32)
         bvh = build_bvh_auto(v0, v1, v2)
         p = bvh.perm
-        cl = cut_clusters(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p])
-        if cl.tris.shape[0] > CL_MAX_CP:
-            # the JAX package partitions such pools into chunks
-            raise NotImplementedError(
-                f"partitioned cluster pool ({cl.tris.shape[0]} > "
-                f"{CL_MAX_CP} clusters)")
+        cl = maybe_partition(
+            cut_clusters(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p]), part_cap)
 
         pts = np.concatenate([v0, v1, v2], 0)
         wb_min = pts.min(0).astype(np.float32)
@@ -292,7 +287,7 @@ class SceneBuilder:
             tri_mat=np.asarray(g(9), np.int32),
             tri_light=np.asarray(g(10), np.int32),
             tri_inst=np.zeros(T, np.int32),
-            cl_tris=cl.tris,
+            cl_bounds=cl.bounds_lane, cl_tris=cl.tris,
             cl_slot_tri=cl.slot_tri, cl_oct_perm=cl.oct_perm,
             cl_bounds_oct=cl.bounds_oct,
             world_bmin=wb_min, world_bext=wb_ext,
@@ -362,13 +357,14 @@ def _stack_lights(recs) -> LightTable:
     )
 
 
-def bench_scene(width: int = 1024, height: int = 1024,
-                trace_depth: int = 5) -> SceneData:
-    """Full-size test scene: the golden cornell box (diffuse walls, red and
-    green sides, one rect light) holding a rough GGX sphere of 25,280
-    triangles (about the 25.6k of the reference's test_224 teapot scene)
-    and a small delta-glass sphere of 960 — 26,252 triangles, a flat pool
-    of a few hundred clusters."""
+def bench_builder(n_seg: int = 160, n_ring: int = 80) -> SceneBuilder:
+    """Recipe of the full-size test scene: the golden cornell box (diffuse
+    walls, red and green sides, one rect light) holding a rough GGX sphere
+    of 25,280 triangles (about the 25.6k of the reference's test_224 teapot
+    scene) and a small delta-glass sphere of 960 — 26,252 triangles, a flat
+    pool of a few hundred clusters. A finer tessellation of the large
+    sphere (n_seg x n_ring) makes the big-scene variant: 450 x 225 gives
+    201,600 triangles there and a pool partitioned into chunks."""
     b = SceneBuilder()
     m = b.lambert([0.65, 0.65, 0.65])
     red = b.lambert([0.7, 0.12, 0.1])
@@ -376,10 +372,20 @@ def bench_scene(width: int = 1024, height: int = 1024,
     b.add_box_interior(2.0, m, m, m, red, green)
     ggx = b.add_material(refl_color=np.array([0.8, 0.7, 0.5], np.float32),
                          refl_dist=2, refl_alpha=0.25, refl_gloss=0.75)
-    b.add_sphere([-0.6, -1.1, -0.4], 0.9, ggx, n_seg=160, n_ring=80)
+    b.add_sphere([-0.6, -1.1, -0.4], 0.9, ggx, n_seg=n_seg, n_ring=n_ring)
     glass = b.add_material(transp_color=np.array([0.95, 0.95, 0.95], np.float32),
                            transp_gloss=1.0, transp_ior=1.5)
     b.add_sphere([0.9, -1.5, 0.7], 0.5, glass)
     b.rect_light([0, 1.95, 0], 0.5, 0.5, [12.0] * 3)
+    return b
+
+
+def bench_scene(width: int = 1024, height: int = 1024, trace_depth: int = 5,
+                builder: SceneBuilder | None = None,
+                part_cap: int = CL_PART_CAP) -> SceneData:
+    """Build the full-size test scene (bench_builder's recipe unless a
+    builder is given) behind its camera."""
+    b = builder if builder is not None else bench_builder()
     return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0],
-                   width=width, height=height, trace_depth=trace_depth)
+                   width=width, height=height, trace_depth=trace_depth,
+                   part_cap=part_cap)

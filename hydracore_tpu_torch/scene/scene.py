@@ -1,13 +1,18 @@
-"""SceneData: the port's scene, a dataclass of tensors with .to(device).
+"""SceneData: the port's scene, a dataclass of tensors with .to(device),
+and the scene assembler (statefile / SceneDesc -> SceneData).
 
-Host code (scene/procedural.py) compiles numpy arrays and finalize_scene
-derives the packed rows (tri_attr, mat_attr, light_attr, cl_slot_tri2) and
-static feature gates exactly as the JAX package's scene/scene.py does, so
-both packages hold the same bytes for the same recipe. scene_from_arrays
-turns the numpy leaves of a JAX-built scene into a port scene.
+Host code (assemble here, scene/procedural.py for recipes) compiles numpy
+arrays and finalize_scene derives the packed rows (tri_attr, mat_attr,
+light_attr, cl_slot_tri2) and static feature gates exactly as the JAX
+package's scene/scene.py does, so both packages hold the same bytes for
+the same SceneDesc or recipe. Three cluster layouts come out, all read by
+ops/traverse_cluster.py: a flat pool, a pool partitioned into chunks (more
+than CL_PART_CAP clusters), and the two-level instanced layout
+(bvh/instanced.py). scene_from_arrays turns the numpy leaves of a
+JAX-built scene into a port scene.
 
 The wide-BVH, packet and binary-BVH pools of the JAX scene are left out:
-nothing in this slice reads them. Features this slice does not port raise
+nothing ported so far reads them. Features not ported yet raise
 NotImplementedError naming the feature (check_supported).
 """
 from __future__ import annotations
@@ -18,10 +23,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hydracore_tpu_torch.scene.camera import CameraParams
-from hydracore_tpu_torch.scene.lights import LightTable
-from hydracore_tpu_torch.scene.materials import MaterialTable
-from hydracore_tpu_torch.scene.statefile import RenderSettings
+from hydracore_tpu_torch.bvh.clusters import (CL_PART_CAP, cut_clusters,
+                                              maybe_partition)
+from hydracore_tpu_torch.bvh.native import build_bvh_auto
+from hydracore_tpu_torch.scene.camera import CameraParams, build_camera
+from hydracore_tpu_torch.scene.lights import LightTable, build_light_table
+from hydracore_tpu_torch.scene.materials import (MaterialTable,
+                                                 build_material_table)
+from hydracore_tpu_torch.scene.statefile import (RenderSettings, SceneDesc,
+                                                 load_statefile, parse_floats)
+from hydracore_tpu_torch.scene.textures import (build_texture_storage,
+                                                load_texture_array)
 from hydracore_tpu_torch.utils.device import resolve_device, tree_to
 
 
@@ -43,7 +55,10 @@ class SceneData:
     tri_mat: object  # (T,) int32
     tri_light: object  # (T,) int32 light-table row or -1
     tri_inst: object  # (T,) int32 instance id
-    # cluster pool (bvh/clusters.py) read by ops/traverse_cluster.py
+    # cluster pool (bvh/clusters.py) read by ops/traverse_cluster.py; a
+    # partitioned pool carries a leading chunk axis P on every cl_* array
+    # but cl_slot_tri, which stays flat in chunk-major order
+    cl_bounds: object  # (8, Cp) f32 AABB rows [xm ym zm xM yM zM 0 0]
     cl_tris: object  # (Cp, 4, 384) f32 Woop rows [Mu|Mv|Mw]
     cl_slot_tri: object  # (Cp*128,) i32
     cl_oct_perm: object  # (8, Cp) i32 per-octant front-to-back order
@@ -55,7 +70,7 @@ class SceneData:
     ml_tri: object  # (ML, TMAX) i32 global triangle ids (-1 pad)
     materials: MaterialTable
     lights: LightTable
-    texels: object  # (X,4) texture heap (one white texel in this slice)
+    texels: object  # (X,4) texture heap (slot 0: one white texel)
     tex_table: object  # (K,4) [offset,w,h,flags]
     tex_sampler: object  # (K,8) f32 sampler rows
     camera: CameraParams
@@ -70,6 +85,14 @@ class SceneData:
     mat_attr: object = None  # (M, MA_WIDTH_FULL) f32 packed material rows
     light_attr: object = None  # (L, LA_WIDTH) f32 packed light rows
     tex_meta: object = None  # (K, 12) f32 [bitcast(off,w,h,flags) | sampler 8f]
+    # two-level instancing (bvh/instanced.py): the geometry above is
+    # mesh-LOCAL, cl_bounds* are world AABBs of instance-clusters over the
+    # shared Woop pool cl_tris; None for flattened scenes
+    cl_map: object = None  # (2, Ci) i32 [pool cluster; instance]
+    cl_slot_inst: object = None  # (S,) i32 slot -> instance id
+    inst_attr: object = None  # (I, 32) f32 [M 3x4 | invM 3x4 | pad]
+    inst_orig: object = None  # (I,) i32 row -> desc.instances index (-1 = flattened world)
+    inst_woop: object = None  # (I, 4, 4) f32 A^T (world -> mesh-local)
     # split shadow sets of alpha scenes (None unless has_alpha)
     cl_tris_shadow: object = None  # (Cp, 4, 384) f32
     alpha_tri9f: object = None  # (9, A) f32
@@ -84,8 +107,15 @@ class SceneData:
         return tree_to(self, device)
 
 
-# leaves that are None unless a feature this slice does not port is on
-_OPTIONAL = ("cl_tris_shadow", "alpha_tri9f", "alpha_tri_id", "env_back")
+# leaves that may be None: the instanced layout's tables, the shadow split
+# of alpha scenes, the sky back plate
+_INSTANCED = ("cl_map", "cl_slot_inst", "inst_attr", "inst_orig", "inst_woop")
+_OPTIONAL = _INSTANCED + ("cl_tris_shadow", "alpha_tri9f", "alpha_tri_id",
+                          "env_back")
+
+# auto instancing kicks in above this many flattened triangles (when the
+# two-level layout actually saves memory; see _should_instance)
+INSTANCING_AUTO_TRIS = 400_000
 _TABLES = {"materials": MaterialTable, "lights": LightTable,
            "camera": CameraParams}
 
@@ -106,6 +136,329 @@ def _settings_flags(materials) -> dict:
                                 & (np.asarray(materials.transp_color).max(-1)
                                    > 0))).any()),
     }
+
+
+def _build_env(desc, lights, tex_remap=None):
+    """Sky fallback color + env importance tables + the optional second-env
+    back plate row (<back> under the sky light: camera-mapped or spherical
+    texture replacing the env for camera-visible rays — the reference's
+    backColorOfSecondEnv machinery, RenderDriverRTE.cpp:945-963,
+    cbidir.h:543-572, consumed in environmentColorExtended :624). A sky
+    image raises: its fetch is not ported."""
+    from hydracore_tpu_torch.lights.envmap import build_env_pdf
+
+    env = np.zeros(3, np.float32)
+    env_img = None
+    env_back = np.zeros(8, np.float32)
+    for row in range(len(np.asarray(lights.ltype))):
+        if int(np.asarray(lights.ltype)[row]) == 3:  # LIGHT_SKY
+            env = np.asarray(lights.intensity)[row]
+            sid = int(np.asarray(lights.statefile_id)[row])
+            lnode = desc.lights.get(sid)
+            if lnode is not None:
+                inten = lnode.find("intensity")
+                t = inten.find("texture") if inten is not None else None
+                if t is not None:
+                    env_img = load_texture_array(desc, int(t.get("id", -1)))
+                back = lnode.find("back")
+                bt = back.find("texture") if back is not None else None
+                if bt is not None and tex_remap is not None:
+                    tid = int(bt.get("id", -1))
+                    slot = int(tex_remap[tid]) if 0 <= tid < len(tex_remap) else 0
+                    if slot > 0:
+                        mode = 1.0 if (back.get("mode") or "") == "spherical" \
+                            else 2.0
+                        # LDR slots are linearized at finalize (the default
+                        # input gamma 2.2 is BAKED into the heap texels,
+                        # textures.TextureStorage.finalize); env_back[2]
+                        # records the binding's gamma for provenance only —
+                        # a non-default <back input_gamma=...> differing
+                        # from the baked value is not re-applied at fetch
+                        gamma = float(bt.get("input_gamma", 2.2))
+                        mult = parse_floats(back.get("multcolor"), [1, 1, 1])
+                        env_back[:6] = [slot, mode, gamma,
+                                        mult[0], mult[1], mult[2]]
+            break
+    if env_img is not None:  # the sky-image fetch is not ported
+        raise NotImplementedError("textures (sky image)")
+    env_img = np.ones((8, 16, 4), np.float32)  # sin-weighted uniform sky
+    env_rows, env_cols, env_pdf = build_env_pdf(env_img)
+    return env, env_rows, env_cols, env_pdf, env_back
+
+
+def _partition_instances(desc, lid_to_row):
+    """Split instances into (instanceable, must-flatten). Emissive meshes,
+    remapped instances, single-use meshes and absent chunks flatten; meshes
+    instanced >= 2x without those features keep shared local geometry
+    (the reference instances everything through its two-level tree,
+    ctrace.h:841; flattening the rest is this design's simplification)."""
+    from collections import Counter
+
+    uses = Counter()
+    for inst in desc.instances:
+        if desc.meshes.get(inst.mesh_id) is not None:
+            uses[inst.mesh_id] += 1
+
+    keep, flat = [], []
+    for inst in desc.instances:
+        mesh = desc.meshes.get(inst.mesh_id)
+        if mesh is None:
+            continue
+        light_id = inst.light_id if inst.light_id >= 0 else \
+            desc.mesh_light_id.get(inst.mesh_id, -1)
+        remapped = inst.remap_list is not None and inst.remap_list.size >= 2
+        if light_id >= 0 or remapped or uses[inst.mesh_id] < 2:
+            flat.append(inst)
+        else:
+            keep.append(inst)
+    return keep, flat
+
+
+def _should_instance(desc, keep, flat, instancing: str) -> bool:
+    if instancing == "off" or not keep:
+        return False
+    if instancing == "force":
+        return True
+    flat_tris = sum(desc.meshes[i.mesh_id].num_triangles for i in keep + flat)
+    unique_tris = sum(desc.meshes[m].num_triangles
+                      for m in {i.mesh_id for i in keep})
+    stored = unique_tris + sum(desc.meshes[i.mesh_id].num_triangles for i in flat)
+    return flat_tris > INSTANCING_AUTO_TRIS and stored < 0.6 * flat_tris
+
+
+def assemble(desc: SceneDesc, width: int | None = None, height: int | None = None,
+             instancing: str = "auto", part_cap: int = CL_PART_CAP) -> SceneData:
+    """Compile a SceneDesc into a SceneData of CPU tensors (the JAX
+    package's assemble, the same bytes out). instancing: 'auto' (two-level
+    layout when it saves memory on big scenes), 'force' (always when any
+    instanceable mesh exists), 'off'. A flattened pool of more than
+    `part_cap` clusters is partitioned into chunks of that many."""
+    if instancing not in ("auto", "force", "off"):
+        raise ValueError(f"instancing must be auto, force or off, "
+                         f"got {instancing!r}")
+    st = desc.settings
+    W = width or st.width
+    H = height or st.height
+
+    texels, tex_table, tex_sampler, tex_remap, bump_slots, ies_slots = \
+        build_texture_storage(desc)
+    materials = build_material_table(desc, tex_remap, bump_slots)
+    lights = build_light_table(desc, tex_remap, ies_slots)
+
+    # map statefile light id -> light-table row (area lights; first match)
+    lid_to_row = {}
+    for row, sid in enumerate(np.asarray(lights.statefile_id)):
+        if sid >= 0 and int(sid) not in lid_to_row:
+            lid_to_row[int(sid)] = row
+
+    keep, flat = _partition_instances(desc, lid_to_row)
+    if _should_instance(desc, keep, flat, instancing):
+        return _assemble_instanced(desc, W, H, keep, flat, lid_to_row,
+                                   materials, lights, texels, tex_table,
+                                   tex_sampler, tex_remap)
+
+    # ---- flatten instances to world space
+    v0s, e1s, e2s = [], [], []
+    n0s, n1s, n2s = [], [], []
+    t0s, t1s, t2s = [], [], []
+    uv0s, uv1s, uv2s = [], [], []
+    mats, lids, insts = [], [], []
+    for inst_id, inst in enumerate(desc.instances):
+        mesh = desc.meshes.get(inst.mesh_id)
+        if mesh is None:
+            continue  # delayed-load chunk absent — skip (loader note)
+        M = inst.matrix
+        R = M[:3, :3]
+        pos = mesh.pos[:, :3] @ R.T + M[:3, 3]
+        n_mat = np.linalg.inv(R).T if abs(np.linalg.det(R)) > 1e-12 else R
+        nrm = mesh.norm[:, :3] @ n_mat.T
+        nlen = np.linalg.norm(nrm, axis=1, keepdims=True)
+        nrm = nrm / np.maximum(nlen, 1e-12)
+        tng = mesh.tang[:, :3] @ R.T
+        tng = tng / np.maximum(np.linalg.norm(tng, axis=1, keepdims=True), 1e-12)
+
+        ia, ib, ic = mesh.indices[:, 0], mesh.indices[:, 1], mesh.indices[:, 2]
+        a, b, c = pos[ia], pos[ib], pos[ic]
+        v0s.append(a)
+        e1s.append(b - a)
+        e2s.append(c - a)
+        n0s.append(nrm[ia])
+        n1s.append(nrm[ib])
+        n2s.append(nrm[ic])
+        t0s.append(tng[ia])
+        t1s.append(tng[ib])
+        t2s.append(tng[ic])
+        uv0s.append(mesh.texcoord[ia])
+        uv1s.append(mesh.texcoord[ib])
+        uv2s.append(mesh.texcoord[ic])
+
+        tri_m = mesh.mat_indices.copy()
+        if inst.remap_list is not None and inst.remap_list.size >= 2:
+            rl = inst.remap_list.reshape(-1, 2)
+            remap = {int(f): int(t) for f, t in rl}
+            tri_m = np.asarray([remap.get(int(m), int(m)) for m in tri_m], np.int32)
+        mats.append(tri_m)
+
+        lrow = -1
+        light_id = inst.light_id if inst.light_id >= 0 else desc.mesh_light_id.get(inst.mesh_id, -1)
+        if light_id >= 0:
+            lrow = lid_to_row.get(light_id, -1)
+        lids.append(np.full(len(tri_m), lrow, np.int32))
+        insts.append(np.full(len(tri_m), inst_id, np.int32))
+
+    if v0s:
+        tri_v0 = np.concatenate(v0s).astype(np.float32)
+        tri_e1 = np.concatenate(e1s).astype(np.float32)
+        tri_e2 = np.concatenate(e2s).astype(np.float32)
+        n0 = np.concatenate(n0s).astype(np.float32)
+        n1 = np.concatenate(n1s).astype(np.float32)
+        n2 = np.concatenate(n2s).astype(np.float32)
+        t0 = np.concatenate(t0s).astype(np.float32)
+        t1 = np.concatenate(t1s).astype(np.float32)
+        t2 = np.concatenate(t2s).astype(np.float32)
+        uv0 = np.concatenate(uv0s).astype(np.float32)
+        uv1 = np.concatenate(uv1s).astype(np.float32)
+        uv2 = np.concatenate(uv2s).astype(np.float32)
+        tri_mat = np.concatenate(mats).astype(np.int32)
+        tri_light = np.concatenate(lids).astype(np.int32)
+        tri_inst = np.concatenate(insts).astype(np.int32)
+    else:  # empty scene: one degenerate far-away triangle keeps shapes valid
+        tri_v0 = np.full((1, 3), 1e30, np.float32)
+        tri_e1 = np.zeros((1, 3), np.float32)
+        tri_e2 = np.zeros((1, 3), np.float32)
+        n0 = n1 = n2 = np.tile(np.array([[0, 1, 0]], np.float32), (1, 1))
+        t0 = t1 = t2 = np.tile(np.array([[1, 0, 0]], np.float32), (1, 1))
+        uv0 = uv1 = uv2 = np.zeros((1, 2), np.float32)
+        tri_mat = np.zeros(1, np.int32)
+        tri_light = np.full(1, -1, np.int32)
+        tri_inst = np.zeros(1, np.int32)
+
+    bvh = build_bvh_auto(tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2)
+    p = bvh.perm if bvh.perm.size else np.zeros(0, np.int32)
+    if p.size:
+        tri_v0, tri_e1, tri_e2 = tri_v0[p], tri_e1[p], tri_e2[p]
+        n0, n1, n2 = n0[p], n1[p], n2[p]
+        t0, t1, t2 = t0[p], t1[p], t2[p]
+        uv0, uv1, uv2 = uv0[p], uv1[p], uv2[p]
+        tri_mat, tri_light, tri_inst = tri_mat[p], tri_light[p], tri_inst[p]
+
+    cl = maybe_partition(cut_clusters(bvh, tri_v0, tri_e1, tri_e2), part_cap)
+
+    pts = np.concatenate([tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2], 0)
+    wb_min = pts.min(0).astype(np.float32)
+    wb_ext = np.maximum(pts.max(0) - pts.min(0), 1e-6).astype(np.float32)
+
+    cam = build_camera(desc.camera, W, H)
+
+    lights, ml_cdf, ml_tri = build_mesh_light_tables(
+        lights, tri_light, tri_v0, tri_e1, tri_e2)
+
+    # env fallback: sky light color if present else black; build env
+    # importance tables from the sky texture (constant-sky fallback table)
+    env, env_rows, env_cols, env_pdf, env_back = _build_env(desc, lights,
+                                                            tex_remap)
+
+    st2 = RenderSettings(**{**st.__dict__, "width": W, "height": H,
+                            **_settings_flags(materials),
+                            "has_env_back": bool(env_back[1] > 0)})
+
+    return finalize_scene(SceneData(
+        tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
+        n0=n0, n1=n1, n2=n2, t0=t0, t1=t1, t2=t2,
+        uv0=uv0, uv1=uv1, uv2=uv2,
+        tri_mat=tri_mat, tri_light=tri_light, tri_inst=tri_inst,
+        cl_bounds=cl.bounds_lane, cl_tris=cl.tris, cl_slot_tri=cl.slot_tri,
+        cl_oct_perm=cl.oct_perm, cl_bounds_oct=cl.bounds_oct,
+        world_bmin=wb_min, world_bext=wb_ext,
+        ml_cdf=ml_cdf, ml_tri=ml_tri,
+        materials=materials, lights=lights,
+        texels=texels, tex_table=tex_table, tex_sampler=tex_sampler,
+        camera=cam, env_color=env, env_back=env_back,
+        env_rows_cdf=env_rows, env_cols_cdf=env_cols, env_pdf_uv=env_pdf,
+        settings=st2,
+    ))
+
+
+def _assemble_instanced(desc, W, H, keep, flat, lid_to_row, materials,
+                        lights, texels, tex_table, tex_sampler,
+                        tex_remap=None) -> SceneData:
+    """Two-level layout: shared local-space mesh pools + instantiated
+    cluster AABBs (bvh/instanced.py). Non-instanceable geometry (lights,
+    remaps, single-use meshes) flattens into the identity instance 0."""
+    from hydracore_tpu_torch.bvh.instanced import (build_instanced_layout,
+                                                   concat_tris,
+                                                   mesh_local_tris,
+                                                   transform_tris)
+
+    # original desc.instances indices: gbuffer ids must not depend on
+    # whether auto-instancing kicked in (flat mode reports these)
+    orig_of = {id(i): k for k, i in enumerate(desc.instances)}
+
+    world_parts = []
+    for inst in flat:
+        inst_id = orig_of.get(id(inst), 0)
+        mesh = desc.meshes[inst.mesh_id]
+        remap = None
+        if inst.remap_list is not None and inst.remap_list.size >= 2:
+            rl = inst.remap_list.reshape(-1, 2)
+            remap = {int(f): int(t) for f, t in rl}
+        lrow = -1
+        light_id = inst.light_id if inst.light_id >= 0 else \
+            desc.mesh_light_id.get(inst.mesh_id, -1)
+        if light_id >= 0:
+            lrow = lid_to_row.get(light_id, -1)
+        world_parts.append(transform_tris(
+            mesh_local_tris(mesh, remap, lrow, inst_id), inst.matrix))
+    world = concat_tris(world_parts) if world_parts else None
+
+    local = {mid: mesh_local_tris(desc.meshes[mid])
+             for mid in {i.mesh_id for i in keep}}
+    layout = build_instanced_layout(
+        world, local, [(i.mesh_id, i.matrix) for i in keep])
+    inst_orig = np.asarray([-1] + [orig_of.get(id(i), -1) for i in keep],
+                           np.int32)
+    mt = layout.tris
+
+    cam = build_camera(desc.camera, W, H)
+    lights2, ml_cdf, ml_tri = build_mesh_light_tables(
+        lights, mt.light, mt.v0, mt.e1, mt.e2)
+    env, env_rows, env_cols, env_pdf, env_back = _build_env(desc, lights2,
+                                                            tex_remap)
+
+    st2 = RenderSettings(**{**desc.settings.__dict__, "width": W, "height": H,
+                            **_settings_flags(materials), "has_inst": True,
+                            "has_env_back": bool(env_back[1] > 0)})
+
+    return finalize_scene(SceneData(
+        tri_v0=mt.v0, tri_e1=mt.e1, tri_e2=mt.e2,
+        n0=mt.n0, n1=mt.n1, n2=mt.n2, t0=mt.t0, t1=mt.t1, t2=mt.t2,
+        uv0=mt.uv0, uv1=mt.uv1, uv2=mt.uv2,
+        tri_mat=mt.mat, tri_light=mt.light, tri_inst=mt.inst,
+        cl_bounds=layout.bounds_lane, cl_tris=layout.pool_tris,
+        cl_slot_tri=np.ascontiguousarray(layout.slot_tri2[:, 0]),
+        cl_oct_perm=layout.oct_perm, cl_bounds_oct=layout.bounds_oct,
+        world_bmin=layout.world_bmin, world_bext=layout.world_bext,
+        ml_cdf=ml_cdf, ml_tri=ml_tri,
+        materials=materials, lights=lights2,
+        texels=texels, tex_table=tex_table, tex_sampler=tex_sampler,
+        camera=cam, env_color=env, env_back=env_back,
+        env_rows_cdf=env_rows, env_cols_cdf=env_cols, env_pdf_uv=env_pdf,
+        settings=st2,
+        cl_map=layout.cl_map,
+        cl_slot_inst=np.ascontiguousarray(layout.slot_tri2[:, 1]),
+        inst_attr=layout.inst_attr, inst_woop=layout.inst_woop,
+        inst_orig=inst_orig,
+    ))
+
+
+def load_scene(lib_dir: str, width: int | None = None, height: int | None = None,
+               instancing: str = "auto", statefile: str | None = None,
+               part_cap: int = CL_PART_CAP) -> SceneData:
+    """Load a HydraAPI scene library directory into a SceneData of CPU
+    tensors. `statefile` picks an explicit statex_NNNNN.xml inside the
+    library (default = the latest)."""
+    return assemble(load_statefile(lib_dir, statefile), width, height,
+                    instancing, part_cap)
 
 
 def _blend_depth(blend_node: np.ndarray, blend_top: np.ndarray) -> int:
@@ -136,7 +489,7 @@ def _blend_depth(blend_node: np.ndarray, blend_top: np.ndarray) -> int:
 def finalize_scene(sc: SceneData) -> SceneData:
     """Derive the packed rows + static feature gates from the raw numpy
     tables (the JAX package's finalize_scene, bit for bit), check that the
-    scene needs nothing this slice does not port, and return it as CPU
+    scene needs nothing the port lacks yet, and return it as CPU
     tensors."""
     from hydracore_tpu_torch.scene.lights import (LIGHT_MESH, LIGHT_POINT,
                                                   LIGHT_SKY, LIGHT_SPOT,
@@ -155,7 +508,9 @@ def finalize_scene(sc: SceneData) -> SceneData:
         axis=1)
 
     slot = np.asarray(sc.cl_slot_tri, np.int32)
-    cl_slot_tri2 = np.stack([slot, slot], axis=1)
+    col1 = (np.asarray(sc.cl_slot_inst, np.int32)
+            if sc.cl_slot_inst is not None else slot)
+    cl_slot_tri2 = np.stack([slot, col1], axis=1)
 
     tex_meta = np.concatenate(
         [np.asarray(sc.tex_table, np.int32).view(np.float32),
@@ -218,10 +573,13 @@ def _mat_shadow_soft(mt) -> np.ndarray:
 
 def _build_shadow_split(sc: SceneData, st) -> dict:
     """Opaque-only cluster pool + dense alpha triangle set for alpha scenes
-    (the JAX package's _build_shadow_split). Alpha shading comes in a later
-    slice, so check_supported refuses the scenes that get these leaves."""
+    (the JAX package's _build_shadow_split; flattened scenes only). Alpha
+    shading is not ported yet, so check_supported refuses the scenes that
+    get these leaves."""
     none = dict(cl_tris_shadow=None, alpha_tri9f=None, alpha_tri_id=None)
     if st is None or not getattr(st, "has_alpha", False):
+        return none
+    if sc.cl_map is not None:  # instanced: slot ids are not global tris
         return none
     soft_mat = _mat_shadow_soft(sc.materials)
     tri_soft = soft_mat[np.clip(np.asarray(sc.tri_mat), 0, len(soft_mat) - 1)]
@@ -301,20 +659,19 @@ def build_mesh_light_tables(lights, tri_light, tri_v0, tri_e1, tri_e2):
 
 def check_supported(sc: SceneData) -> None:
     """Raise NotImplementedError naming the first feature the scene needs
-    that this slice of the port does not carry."""
+    that the port does not carry yet."""
     from hydracore_tpu_torch.scene.lights import LIGHT_SKY
 
     def host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
-    if sc.cl_tris.ndim != 3:
-        raise NotImplementedError("partitioned cluster pool (more than "
-                                  "1024 clusters)")
     st = sc.settings
     if st is None:
         raise NotImplementedError("a scene without RenderSettings")
+    if bool(st.has_inst) != (sc.cl_map is not None):
+        raise ValueError("settings.has_inst and the instanced tables "
+                         "(cl_map, ...) must come together")
     for flag, name in (
-            ("has_inst", "instanced cluster pool"),
             ("has_alpha", "alpha (opacity textures)"),
             ("has_blend", "blend materials"),
             ("has_bump", "bump / normal maps"),
@@ -375,8 +732,6 @@ def scene_from_arrays(leaves: dict, settings: dict, device=None) -> SceneData:
     packages render the very same scene. `settings` holds the
     RenderSettings fields; the camera takes its width/height from them."""
     dev = resolve_device(device)
-    if leaves.get("cl_map") is not None:
-        raise NotImplementedError("instanced cluster pool")
     st = RenderSettings(**settings)
     kw = {}
     for f in dataclasses.fields(SceneData):
@@ -394,6 +749,9 @@ def scene_from_arrays(leaves: dict, settings: dict, device=None) -> SceneData:
             kw[f.name] = np.asarray(leaves[f.name])
         elif f.name not in _OPTIONAL:
             raise KeyError(f"scene leaf {f.name!r} missing")
+    missing = [n for n in _INSTANCED if n not in kw]
+    if "cl_map" in kw and missing:
+        raise KeyError(f"instanced scene leaves missing: {missing}")
     sc = SceneData(settings=st, **kw)
     check_supported(sc)
     return sc.to(dev)

@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: kernels B1/B2 against their
-plain twin, and the path tracer on the card against the CPU twins.
+"""Tests of the port that need an NVIDIA GPU: kernels B1/B2 (flat and
+partitioned pools) and B3 (instanced pools) against their plain twin, and
+the path tracer on the card against the CPU twins.
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -10,31 +11,87 @@ Tolerances: kernel and twin share their arithmetic (no fast math, no FMA
 contraction), so t, slots and occlusion must be equal; the card's image
 must agree with the CPU twins' image within 1e-3 on >= 99% of pixels.
 """
+import xml.etree.ElementTree as ET
+
 import numpy as np
 import pytest
 import torch
 
 from hydracore_tpu_torch.integrators import pt
 from hydracore_tpu_torch.ops import traverse_cluster as tc
+from hydracore_tpu_torch.scene import statefile as sf
 from hydracore_tpu_torch.scene.procedural import SceneBuilder
+from hydracore_tpu_torch.scene.scene import assemble
+from hydracore_tpu_torch.scene.vsgf import MeshData
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: kernels B1/B2 run only on the card")
+        pytest.skip("needs an NVIDIA GPU: the kernels run only on the card")
     return torch.device("cuda")
 
 
-def _rects_scene():
-    """tests/test_traverse_cluster.py's 350 random rects."""
+def _rects_scene(n: int = 350, part_cap: int = 1024):
+    """tests/test_traverse_cluster.py's 350 random rects; 30,000 of them
+    make a pool of several 128-cluster chunks."""
     rng = np.random.default_rng(7)
     b = SceneBuilder()
     m = b.lambert([0.7, 0.7, 0.7])
-    for _ in range(350):
+    for _ in range(n):
         b.add_rect(rng.uniform(-4, 4, 3), rng.uniform(-0.4, 0.4, 3),
                    rng.uniform(-0.4, 0.4, 3), m)
-    return b.build(cam_pos=[0, 0, 10], cam_lookat=[0, 0, 0], width=8, height=8)
+    return b.build(cam_pos=[0, 0, 10], cam_lookat=[0, 0, 0], width=8, height=8,
+                   part_cap=part_cap)
+
+
+def _instanced_scene(size: int = 32, instancing: str = "force"):
+    """40 instances (rotated, non-uniformly scaled, one mirrored) of a mesh
+    of 2,000 random triangles over a ground plane, under a sky."""
+    rng = np.random.default_rng(11)
+
+    def mesh(v, idx, mat):
+        V = len(v)
+        n = np.tile(np.array([[0, 1, 0, 0]], np.float32), (V, 1))
+        t = np.tile(np.array([[1, 0, 0, 0]], np.float32), (V, 1))
+        return MeshData(pos=np.concatenate([v, np.ones((V, 1), np.float32)], 1),
+                        norm=n, tang=t, texcoord=np.zeros((V, 2), np.float32),
+                        indices=idx, mat_indices=np.full(len(idx), mat, np.int32))
+
+    c = rng.uniform(-1, 1, (2000, 1, 3)).astype(np.float32)
+    v = (c + rng.uniform(-0.15, 0.15, (2000, 3, 3)).astype(np.float32))
+    blob = mesh(v.reshape(-1, 3), np.arange(6000, dtype=np.int32).reshape(-1, 3), 0)
+    g = 30.0
+    plane = mesh(np.array([[-g, -2, -g], [g, -2, -g], [g, -2, g], [-g, -2, g]],
+                          np.float32),
+                 np.asarray([(0, 2, 1), (0, 3, 2)], np.int32), 1)
+    instances = [sf.InstanceDesc(mesh_id=1, matrix=np.eye(4, dtype=np.float32))]
+    for k in range(40):
+        a = rng.uniform(0, 2 * np.pi)
+        ca, sa = np.cos(a), np.sin(a)
+        M = np.eye(4, dtype=np.float32)
+        M[:3, :3] = np.array([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]]) \
+            @ np.diag(rng.uniform(0.5, 1.5, 3))
+        if k == 0:
+            M[:3, 0] *= -1.0
+        M[:3, 3] = rng.uniform([-12, 0, -12], [12, 4, 12])
+        instances.append(sf.InstanceDesc(mesh_id=2, matrix=M))
+    mats = {k: ET.fromstring(
+        f'<material id="{k}" type="hydra_material"><diffuse brdf_type="lambert">'
+        f'<color val="{col}"/></diffuse></material>')
+        for k, col in ((0, "0.7 0.3 0.2"), (1, "0.5 0.5 0.5"))}
+    sky = ET.fromstring(
+        '<light id="0" type="sky" shape="sky" distribution="uniform"><intensity>'
+        '<color val="0.6 0.7 0.9"/><multiplier val="1"/></intensity></light>')
+    cam = sf.CameraDesc()
+    cam.position = np.array([0, 10, 34], np.float32)
+    cam.look_at = np.array([0, 0, 0], np.float32)
+    desc = sf.SceneDesc(
+        lib_dir="", textures={}, materials=mats, lights={0: sky}, camera=cam,
+        settings=sf.RenderSettings(width=size, height=size, trace_depth=3),
+        meshes={1: plane, 2: blob}, mesh_light_id={}, instances=instances,
+        light_instances=[])
+    return assemble(desc, instancing=instancing)
 
 
 def _box_scene(size: int):
@@ -78,6 +135,81 @@ def test_kernel_matches_twin(cuda, any_hit_mode, r_blk):
         assert torch.equal(s_k, s_t)
 
 
+def _random_blocks(cuda, lo, hi, r_blk, t_short):
+    rng = np.random.default_rng(3)
+    R = 5000  # a ragged last block
+    ro = torch.tensor(rng.uniform(lo, hi, (R, 3)), dtype=torch.float32, device=cuda)
+    rd = torch.tensor(rng.normal(size=(R, 3)), dtype=torch.float32, device=cuda)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    act = torch.tensor(np.arange(R) % 7 != 0, device=cuda)
+    t_max = torch.where(torch.arange(R, device=cuda) % 3 == 0, t_short, 1e30)
+    return tc._to_blocks(ro, rd, t_max, act, r_blk)[0], R
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("r_blk", [tc.R_BLK, tc.R_BLK_BOUNCE])
+def test_chunked_kernel_matches_twin_and_flat(cuda, any_hit_mode, r_blk):
+    """B1/B2 over a partitioned pool: one launch walks every chunk."""
+    part = _rects_scene(30000, part_cap=128).to(cuda)
+    flat = _rects_scene(30000, part_cap=1024).to(cuda)
+    assert part.cl_tris.dim() == 4 and part.cl_tris.shape[0] >= 3
+    assert flat.cl_tris.dim() == 3
+    blocks, R = _random_blocks(cuda, -5, 5, r_blk, 1.0)
+    pool = (part.cl_bounds_oct, part.cl_tris, part.cl_oct_perm)
+    before = (tc.closest_launches, tc.any_launches)
+    t_k, s_k = tc.cluster_traverse(blocks, *pool, any_hit_mode=any_hit_mode)
+    after = (tc.closest_launches, tc.any_launches)
+    t_t, s_t = tc.cluster_traverse_plain(blocks, *pool,
+                                         any_hit_mode=any_hit_mode)
+    t_f, s_f = tc.cluster_traverse(blocks, flat.cl_bounds_oct, flat.cl_tris,
+                                   flat.cl_oct_perm, any_hit_mode=any_hit_mode)
+    torch.cuda.synchronize()
+    assert after[int(any_hit_mode)] == before[int(any_hit_mode)] + 1
+    hit = s_k >= 0
+    assert 100 < int(hit.sum()) < R
+    assert torch.equal(hit, s_t >= 0) and torch.equal(hit, s_f >= 0)
+    # kernel and twin share their arithmetic; equal t from two triangles may
+    # go to either (first in visit order against lowest slot)
+    assert torch.equal(t_k, t_t)
+    if not any_hit_mode:
+        assert float((s_k == s_t).float().mean()) >= 0.999
+        assert int(s_k.max()) >= 2 * 128 * 128  # hits in the third chunk
+        # against the flat kernel: another visit order, the same nearest hit
+        assert float((t_k == t_f).float().mean()) >= 0.999
+        tri_k = part.cl_slot_tri[s_k[hit].long()]
+        tri_f = flat.cl_slot_tri[s_f[hit].long()]
+        assert float((tri_k == tri_f).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("r_blk", [tc.R_BLK, tc.R_BLK_BOUNCE])
+def test_instanced_kernel_matches_twin(cuda, any_hit_mode, r_blk):
+    """B3: world-space boxes, the Woop test in each instance's local space."""
+    sc = _instanced_scene().to(cuda)
+    assert sc.settings.has_inst and sc.inst_woop.shape[0] == 41
+    blocks, R = _random_blocks(cuda, [-14, -1, -14], [14, 6, 14], r_blk, 3.0)
+    args = (blocks, sc.cl_bounds_oct, sc.cl_tris, sc.cl_oct_perm)
+    kw = dict(any_hit_mode=any_hit_mode, cl_map=sc.cl_map,
+              inst_woop=sc.inst_woop)
+    before = (tc.inst_closest_launches, tc.inst_any_launches,
+              tc.closest_launches, tc.any_launches)
+    t_k, s_k = tc.cluster_traverse(*args, **kw)
+    after = (tc.inst_closest_launches, tc.inst_any_launches,
+             tc.closest_launches, tc.any_launches)
+    t_t, s_t = tc.cluster_traverse_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert after[int(any_hit_mode)] == before[int(any_hit_mode)] + 1
+    assert after[2:] == before[2:]
+    hit = s_k >= 0
+    assert 100 < int(hit.sum()) < R
+    assert torch.equal(hit, s_t >= 0)
+    assert torch.equal(t_k, t_t)
+    if not any_hit_mode:
+        assert float((s_k == s_t).float().mean()) >= 0.999
+        inst = sc.cl_slot_tri2[s_k[hit].long(), 1]
+        assert int(inst.unique().numel()) > 20  # hits across the instances
+
+
 def test_wrapper_refuses_mixed_devices(cuda):
     sc = _rects_scene()
     blocks = torch.zeros((2, tc.R_BLK, 8), device=cuda)
@@ -97,3 +229,21 @@ def test_render_on_card_matches_cpu_twins(cuda):
     agree = float(((img_card - img_cpu).abs().amax(dim=-1) <= 1e-3)
                   .float().mean())
     assert agree >= 0.99, agree
+
+
+def test_instanced_render_on_card(cuda):
+    """The instanced scene through B3 on the card against the CPU twins
+    and against the flattened layout through B1/B2."""
+    inst, flat = _instanced_scene(), _instanced_scene(instancing="off")
+    tc.reset_launch_counts()
+    img_card = pt.render(inst, spp=4, seed=3, device=cuda).cpu()
+    assert tc.inst_closest_launches > 0 and tc.inst_any_launches > 0
+    assert tc.closest_launches == 0 and tc.any_launches == 0
+    img_cpu = pt.render(inst, spp=4, seed=3, device="cpu")
+    img_flat = pt.render(flat, spp=4, seed=3, device=cuda).cpu()
+    assert tc.closest_launches > 0 and tc.any_launches > 0
+    assert torch.isfinite(img_card).all() and float(img_card.mean()) > 0.01
+    agree = float(((img_card - img_cpu).abs().amax(dim=-1) <= 1e-3)
+                  .float().mean())
+    assert agree >= 0.99, agree
+    assert float(((img_card - img_flat) ** 2).mean()) < 1e-4

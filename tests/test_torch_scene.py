@@ -3,8 +3,8 @@
 The five procedural golden recipes (tests/golden_scenes.py) and the
 350-rect traversal scene are built by both packages; every leaf the port
 keeps must be bit-exact (tolerance 0), and the static settings equal.
-scene_from_arrays of a JAX scene must round-trip bit-exact. Features this
-slice does not port raise NotImplementedError.
+scene_from_arrays of a JAX scene must round-trip bit-exact. Features the
+port does not carry yet raise NotImplementedError.
 """
 import dataclasses
 
@@ -126,8 +126,16 @@ def _with_material(**kw):
 
 
 def test_scene_from_arrays_refuses_instanced_pool():
+    """An instanced pool is taken only whole: cl_map without the other
+    instance tables, or without settings.has_inst, is refused."""
     js = build_with(JaxBuilder, gs.scene_cornell_diffuse)
     leaves = jax_leaves(js)
     leaves["cl_map"] = np.zeros((2, 128), np.int32)
-    with pytest.raises(NotImplementedError, match="instanced"):
+    with pytest.raises(KeyError, match="inst_woop"):
+        scene_from_arrays(leaves, jax_settings(js), "cpu")
+    leaves.update(cl_slot_inst=np.zeros(128 * 128, np.int32),
+                  inst_attr=np.zeros((1, 32), np.float32),
+                  inst_orig=np.full(1, -1, np.int32),
+                  inst_woop=np.eye(4, dtype=np.float32)[None])
+    with pytest.raises(ValueError, match="has_inst"):
         scene_from_arrays(leaves, jax_settings(js), "cpu")
