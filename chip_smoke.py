@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's native code from the checkout (csrc/ -> the git-ignored
-hydracore_tpu_torch/_build/), then drives three main paths of the MIS+NEE
-path tracer, render_passes at 1024x1024, depth 5, seed 777, each through its
-kernels:
+hydracore_tpu_torch/_build/, the compilers started together), then drives
+four main paths of the MIS+NEE path tracer, render_passes at 1024x1024,
+depth 5, seed 777, each through its kernels:
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit);
   instanced    a cornell box holding 24 transformed instances of one
@@ -14,15 +14,23 @@ kernels:
                B3 in both hit modes;
   partitioned  bench_scene with its large sphere at 201,600 triangles (a
                pool of three 1024-cluster chunks) through the chunk loop of
-               B1 and B2.
+               B1 and B2;
+  packet       the same 202,572 triangles built with traversal="packet":
+               warp packets over the 8-wide BVH through B4 in both hit
+               modes, the wavefronts unsorted as that route leaves them.
 For each path it first holds the kernels against their plain PyTorch twin
 on the card at the path's shapes (primary, bounce and shadow wavefronts of
 2^18 rays) and times both, then resets the launch counters, renders, and
-checks the counters. The flat and the instanced scene are also rendered at
-64x64, 8 spp on the card (kernels) and on the CPU (twins) and compared; the
-instanced one also against the flattened assembly of the same SceneDesc;
-the chunked kernels also against the flat-pool kernels on the same
-clusters. One pass of each path runs under torch.profiler.
+checks the counters (and, for B4, that no packet reached MAX_VISITS). The
+flat and the instanced scene are also rendered at 64x64, 8 spp on the card
+(kernels) and on the CPU (twins) and compared; the instanced one also
+against the flattened assembly of the same SceneDesc; the chunked kernels
+also against the flat-pool kernels on the same clusters; B4 also against
+the chunked B1/B2 on the very rays those got; the flat scene also through
+B4 against the CPU twins and the cluster route's image. The two plain
+routes run too: the wide-BVH loop on the packet path's scene at 256x256 and
+the dense route on the golden cornell box, each card against CPU. One pass
+of each kernel path runs under torch.profiler.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -58,6 +66,10 @@ PEAK_F32_OPS_S = 67e12
 OPS_BOX = 24
 OPS_LANE = 20
 OPS_INST = 33
+# one Moller-Trumbore of the packet kernel: two cross products (18), four dot
+# products (20), the divide, the subtraction of v0 (3), three scalings (3)
+# and the six comparisons
+OPS_TRI = 51
 
 
 def log(msg: str) -> None:
@@ -98,6 +110,7 @@ def needed_visits(scene, rays, t_end) -> tuple[int, int]:
     """(active rays, ray-cluster pairs whose box a ray enters before its
     final t): the box tests and Woop blocks this run's data needs,
     whatever walks them."""
+    from hydracore_tpu_torch.ops.intersect import safe_inv
     from hydracore_tpu_torch.ops.traverse_cluster import BIG
 
     flat = rays.reshape(-1, 8)
@@ -108,9 +121,7 @@ def needed_visits(scene, rays, t_end) -> tuple[int, int]:
     step = max(1024, (1 << 26) // max(b.shape[1], 1))
     for s in range(0, flat.shape[0], step):
         f = flat[s:s + step]
-        d = f[:, 3:6]
-        inv = 1.0 / torch.where(d.abs() < 1e-12,
-                                torch.where(d < 0, -1e-12, 1e-12), d)
+        inv = safe_inv(f[:, 3:6])
         ta = (b[None, 0:3] - f[:, 0:3, None]) * inv[:, :, None]
         tb = (b[None, 3:6] - f[:, 0:3, None]) * inv[:, :, None]
         tn = torch.minimum(ta, tb).amax(dim=1)
@@ -169,13 +180,15 @@ def profile_pass(pt, scene, card: str, tag: str) -> None:
             f"{e.key[:90]}")
 
 
-def wavefronts(pt, tc, scene):
+def wavefronts(pt, scene, sort: bool = True):
     """The main path's three kinds of wavefront on `scene`, 2^18 rays each:
     every 4th primary ray of the frame in Morton order (spread over the
     whole image), cosine-sampled bounce rays off their hit points and
-    shadow rays to uniform points on the rect light (light row 0), the last
-    two in coherence order as the path tracer sends them. Returns
-    [(name, ray blocks, any_hit_mode)]."""
+    shadow rays to uniform points on the rect light (light row 0). With
+    `sort` the last two come in coherence order, as the path tracer sends
+    them to the cluster kernels; without, in the primaries' order with the
+    dead rays in place, as it sends them to every other route. Returns
+    [(name, origins, directions, t_max, active, any_hit_mode)]."""
     from hydracore_tpu_torch.ops.trace_api import closest_hit, coherence_order
     from hydracore_tpu_torch.utils.math3d import (make_orthonormal_basis,
                                                   offs_ray_pos)
@@ -196,7 +209,8 @@ def wavefronts(pt, tc, scene):
     ph = 2 * torch.pi * rnd[:, 1]
     wi = (st * ph.cos())[:, None] * tb + (st * ph.sin())[:, None] * bb + ct[:, None] * ns
     bo = offs_ray_pos(pos, ngs, wi)
-    perm = coherence_order(scene, bo, wi, hit)
+    everyone = torch.arange(ray_o.shape[0], device=dev)
+    perm = coherence_order(scene, bo, wi, hit) if sort else everyone
     bounce_o, bounce_d, bounce_act = bo[perm], wi[perm], hit[perm]
     lt = scene.lights
     lp = (lt.pos[0] + (2 * rnd[:, 2:3] - 1) * lt.vx[0]
@@ -205,14 +219,19 @@ def wavefronts(pt, tc, scene):
     dist = to_l.norm(dim=-1)
     sd = to_l / dist[:, None].clamp(min=1e-12)
     so = offs_ray_pos(pos, ngs, sd)
-    perm = coherence_order(scene, so, sd, hit)
+    perm = coherence_order(scene, so, sd, hit) if sort else everyone
     sh_o, sh_d, sh_t, sh_act = so[perm], sd[perm], dist[perm] * 0.995, hit[perm]
-    return [
-        ("primary", tc._to_blocks(ray_o, ray_d, 1e30, None, tc.R_BLK)[0], False),
-        ("bounce", tc._to_blocks(bounce_o, bounce_d, 1e30, bounce_act,
-                                 tc.R_BLK_BOUNCE)[0], False),
-        ("shadow", tc._to_blocks(sh_o, sh_d, sh_t, sh_act, tc.R_BLK)[0], True),
-    ]
+    return [("primary", ray_o, ray_d, 1e30, None, False),
+            ("bounce", bounce_o, bounce_d, 1e30, bounce_act, False),
+            ("shadow", sh_o, sh_d, sh_t, sh_act, True)]
+
+
+def cluster_cases(tc, raw):
+    """Wavefronts packed into the cluster kernels' ray blocks:
+    [(name, ray blocks, any_hit_mode)]."""
+    return [(name, tc._to_blocks(o, d, t_max, act, tc.R_BLK_BOUNCE
+                                 if name == "bounce" else tc.R_BLK)[0], any_hit)
+            for name, o, d, t_max, act, any_hit in raw]
 
 
 def scene_pool(scene) -> dict:
@@ -288,50 +307,229 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
     return out
 
 
-def drive_main_path(tag, pt, tc, scene, card, expect: dict) -> dict:
-    """One warm-up pass, then N_PASS passes at full size with the launch
-    counters set to 0 just before and read just after. `expect` names the
-    counters that must be > 0; every other counter must stay 0."""
+COUNTERS = ("closest_launches", "any_launches", "inst_closest_launches",
+            "inst_any_launches", "pkt_closest_launches", "pkt_any_launches")
+
+
+def launch_counts(tc, tp) -> dict:
+    """Every wrapper's launch count: B1, B2, B3 (closest, any), B4 (closest,
+    any)."""
+    out = {k: getattr(tc, k) for k in COUNTERS[:4]}
+    out.update(pkt_closest_launches=tp.closest_launches,
+               pkt_any_launches=tp.any_launches)
+    return out
+
+
+def drive_main_path(tag, pt, tc, tp, scene, card, expect: set,
+                    width: int = WIDTH, height: int = HEIGHT,
+                    n_pass: int = N_PASS) -> dict:
+    """One warm-up pass, then n_pass passes with the launch counters set to
+    0 just before and read just after. `expect` names the counters that must
+    be > 0; every other counter must stay 0. No packet of B4 may reach
+    MAX_VISITS."""
     dev = scene.tri_attr.device
     pt.render_passes(scene, 100, SEED, n_pass=1, max_depth=DEPTH, device=dev)
     torch.cuda.synchronize()
     tc.reset_launch_counts()
+    tp.reset_launch_counts()
     t0 = time.time()
-    img, rays_traced = pt.render_passes(scene, 0, SEED, n_pass=N_PASS,
+    img, rays_traced = pt.render_passes(scene, 0, SEED, n_pass=n_pass,
                                         max_depth=DEPTH, device=dev)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    counts = {k: getattr(tc, k) for k in (
-        "closest_launches", "any_launches", "inst_closest_launches",
-        "inst_any_launches")}
+    counts = launch_counts(tc, tp)
     rays_traced = int(rays_traced)
     log(f"{tag} main path: launches {counts}")
     if not bool(torch.isfinite(img).all()) or float(img.sum()) <= 0.0:
         raise AssertionError(f"{tag}: image is not finite and non-zero")
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3):
+    if tuple(img.shape) != (height, width, 3):
         raise AssertionError(f"{tag}: image shape {tuple(img.shape)}")
     for k, v in counts.items():
         if (v > 0) != (k in expect):
             raise AssertionError(f"{tag}: launch counts {counts}, expected "
                                  f"exactly {sorted(expect)} to be non-zero")
-    samples = N_PASS * WIDTH * HEIGHT
-    log(f"{tag} main path: {WIDTH}x{HEIGHT} depth {DEPTH} {N_PASS} passes in "
+    if counts["pkt_closest_launches"] > 0:
+        # the same passes once more, untimed, with every launch's visit
+        # counts read through the wrapper's hook
+        peaks = []
+        tp.visits_hook = lambda n: peaks.append(n.max())
+        try:
+            pt.render_passes(scene, 0, SEED, n_pass=n_pass, max_depth=DEPTH,
+                             device=dev)
+        finally:
+            tp.visits_hook = None
+        peak = max(int(p) for p in peaks)
+        log(f"{tag} main path: the busiest packet of {len(peaks)} launches "
+            f"popped {peak} entries (MAX_VISITS {tp.MAX_VISITS})")
+        if not 0 < peak < tp.MAX_VISITS:
+            raise AssertionError(f"{tag}: a packet reached MAX_VISITS ({peak})")
+    samples = n_pass * width * height
+    log(f"{tag} main path: {width}x{height} depth {DEPTH} {n_pass} passes in "
         f"{dt:.3f} s: {samples / dt / 1e6:.4f} Msamples/s, "
         f"{rays_traced / dt / 1e6:.4f} Mrays/s ({rays_traced} rays) [{card}]")
     return counts
 
 
-def card_vs_cpu(tag, pt, small) -> torch.Tensor:
-    """64x64, 8 spp on the card (kernels) against the CPU (twins): >= 99%
-    of pixels within 1e-3. Returns the card's image."""
-    img_gpu = pt.render(small, spp=8, seed=SEED, device="cuda").cpu()
-    img_cpu = pt.render(small, spp=8, seed=SEED, device="cpu")
-    close = float(((img_gpu - img_cpu).abs().amax(dim=-1) <= 1e-3).float().mean())
-    log(f"{tag} 64x64 8 spp: pixels within 1e-3 of the CPU twins' image: "
+def pixels_close(a, b) -> float:
+    return float(((a - b).abs().amax(dim=-1) <= 1e-3).float().mean())
+
+
+def card_vs_cpu(tag, pt, small, spp: int = 8) -> torch.Tensor:
+    """64x64, `spp` samples on the card against the CPU (the kernels'
+    twins, or the same plain code): >= 99% of pixels within 1e-3. Returns
+    the card's image."""
+    img_gpu = pt.render(small, spp=spp, seed=SEED, device="cuda").cpu()
+    img_cpu = pt.render(small, spp=spp, seed=SEED, device="cpu")
+    close = pixels_close(img_gpu, img_cpu)
+    log(f"{tag} 64x64 {spp} spp: pixels within 1e-3 of the CPU's image: "
         f"{close:.4f}")
     if close < 0.99:
         raise AssertionError(f"{tag}: card vs CPU image: {close} of pixels agree")
     return img_gpu
+
+
+def packet_needs(scene, flat, t_end) -> tuple[int, int, int, int]:
+    """(node entries, leaf entries, node rows, leaf rows): for every active
+    ray the nodes and the leaves of the 8-wide BVH whose box it enters before
+    its final t, found by a sweep down the tree over (ray, node) pairs, and
+    how many different rows of pkt_nodes and pkt_tris those entries read.
+    The counts are the rays' own: they do not depend on what walks the tree
+    or on the packet a ray rides in."""
+    from hydracore_tpu_torch.bvh.wide import EMPTY_PAYLOAD
+    from hydracore_tpu_torch.ops.intersect import safe_inv
+
+    nodes = scene.pkt_nodes.view(-1, 8, 16)
+    pay = scene.pkt_nodes.view(torch.int32).view(-1, 8, 16)[:, :, 6]
+    node_read = torch.zeros(scene.pkt_nodes.shape[0], dtype=torch.bool,
+                            device=flat.device)
+    leaf_read = torch.zeros(scene.pkt_tris.shape[0], dtype=torch.bool,
+                            device=flat.device)
+    act = flat[:, 7] > 0
+    te = torch.minimum(t_end, flat[:, 6])
+    inv = safe_inv(flat[:, 3:6])
+    rays = torch.nonzero(act).flatten()
+    at = torch.zeros_like(rays)
+    n_nodes = n_leaves = 0
+    step = 1 << 20
+    while rays.numel() > 0:
+        n_nodes += rays.numel()
+        node_read[at] = True
+        nxt_r, nxt_n = [], []
+        for s in range(0, rays.numel(), step):
+            r, n = rays[s:s + step], at[s:s + step]
+            rec, p = nodes[n], pay[n]
+            o, i = flat[r, 0:3][:, None, :], inv[r][:, None, :]
+            ta = (rec[:, :, 0:3] - o) * i
+            tb = (rec[:, :, 3:6] - o) * i
+            tn = torch.minimum(ta, tb).amax(dim=2)
+            tf = torch.maximum(ta, tb).amin(dim=2)
+            hit = (tf >= tn.clamp(min=0)) & (tn < te[r][:, None]) \
+                & (p != EMPTY_PAYLOAD)
+            leaf = hit & (p < 0)
+            n_leaves += int(leaf.sum())
+            leaf_read[(-p[leaf] - 1).long()] = True
+            k, c = torch.nonzero(hit & (p >= 0), as_tuple=True)
+            nxt_r.append(r[k])
+            nxt_n.append(p[k, c].long())
+        rays, at = torch.cat(nxt_r), torch.cat(nxt_n)
+    return n_nodes, n_leaves, int(node_read.sum()), int(leaf_read.sum())
+
+
+def packet_bound_ms(scene, packets, t_end) -> tuple[float, str, str]:
+    """The least time the card could take for B4's work on these rays. Bytes
+    over the memory rate: rays in (32 bytes), t, u, v and slot out (16), a
+    visit count per packet (4), and once each the rows of 512 bytes of
+    pkt_nodes and pkt_tris that some ray needs. Operations over the f32
+    rate: 8 slab tests for every node and 8 Moller-Trumbore tests for every
+    leaf a ray needs. A ray needs the nodes and leaves it enters before its
+    final t, for bytes and operations alike. Returns (ms, bound by, both
+    parts in words)."""
+    flat = packets.reshape(-1, 8)
+    n = flat.shape[0]
+    n_nodes, n_leaves, node_rows, leaf_rows = packet_needs(scene, flat, t_end)
+    bytes_ = n * 32 + n * 16 + packets.shape[0] * 4 \
+        + (node_rows + leaf_rows) * 512
+    ops = n_nodes * 8 * OPS_BOX + n_leaves * 8 * OPS_TRI
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    note = (f"bytes {t_bytes:.5f} ms for the rays and {node_rows} of "
+            f"{scene.pkt_nodes.shape[0]} node rows, {leaf_rows} of "
+            f"{scene.pkt_tris.shape[0]} leaf rows; operations {t_ops:.5f} ms "
+            f"for {n_nodes} node and {n_leaves} leaf entries of single rays")
+    return (t_ops, "operations", note) if t_ops >= t_bytes \
+        else (t_bytes, "bytes", note)
+
+
+def check_packet(tag, tp, scene, raw, card, twin: bool = True) -> dict:
+    """Hold B4 against its twin on every wavefront of `raw` (equal hit
+    masks, t, u and v equal within 1e-6 absolute, slots equal >= 0.999,
+    visit counts equal, no packet at MAX_VISITS) and time kernel and twin.
+    Without `twin` only the kernel is run and timed. Returns
+    {"closest": [...], "any": [...]} of (name, ms, plain_ms, bound_ms,
+    bound_by, max_abs_err) records and the kernel's outputs by name."""
+    out = {"closest": [], "any": [], "hits": {}}
+    for name, o, d, t_max, act, any_hit in raw:
+        packets, R = tp._to_packets(o, d, t_max, act)
+        tk, uk, vk, sk, nk = tp.packet_traverse(packets, scene.pkt_nodes,
+                                                scene.pkt_tris, any_hit)
+        torch.cuda.synchronize()
+        peak = int(nk.max())
+        hk = sk >= 0
+        log(f"{tag} {name}: {R} rays in {packets.shape[0]} packets of "
+            f"{tp.PKT}, hits {int(hk.sum())}, entries popped per packet: "
+            f"mean {float(nk.float().mean()):.1f}, most {peak} (MAX_VISITS "
+            f"{tp.MAX_VISITS})")
+        if peak >= tp.MAX_VISITS:
+            raise AssertionError(f"{tag} {name}: a packet reached MAX_VISITS")
+        if not hk.any():
+            raise AssertionError(f"{tag} {name}: no ray hit anything")
+        err, plain = 0.0, float("nan")
+        if twin:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            tt, ut, vt, st, nt = tp.packet_traverse_plain(
+                packets, scene.pkt_nodes, scene.pkt_tris, any_hit)
+            b.record()
+            torch.cuda.synchronize()
+            plain = a.elapsed_time(b)
+            if not torch.equal(hk, st >= 0):
+                raise AssertionError(f"{tag} {name}: hit masks differ on "
+                                     f"{int((hk != (st >= 0)).sum())} rays")
+            if not torch.equal(nk, nt):
+                raise AssertionError(f"{tag} {name}: visit counts differ on "
+                                     f"{int((nk != nt).sum())} packets")
+            same = float((sk[hk] == st[hk]).float().mean())
+            errs = [float((x[hk] - y[hk]).abs().max())
+                    for x, y in ((tk, tt), (uk, ut), (vk, vt))]
+            err = max(errs)
+            log(f"{tag} {name}: against the twin slots equal on {same:.6f}, "
+                f"max abs err t {errs[0]:.3e}, u {errs[1]:.3e}, v {errs[2]:.3e}")
+            if same < 0.999 or not err <= 1e-6:
+                raise AssertionError(f"{tag} {name}: B4 disagrees with its twin")
+        ms = cuda_time_ms(lambda: tp.packet_traverse(
+            packets, scene.pkt_nodes, scene.pkt_tris, any_hit), 20)
+        bms, by, note = packet_bound_ms(scene, packets, tk.reshape(-1))
+        log(f"{tag} {name}: kernel {ms:.4f} ms, twin {plain:.4f} ms (one run), "
+            f"bound {bms:.5f} ms ({by}: {note}) [{card}]")
+        out["any" if any_hit else "closest"].append(
+            (name, ms, plain, bms, by, err))
+        out["hits"][name] = (tk.reshape(-1)[:R], sk.reshape(-1)[:R])
+    return out
+
+
+def golden_cornell(width: int, height: int, traversal: str = "auto"):
+    """The cornell_diffuse recipe of the golden images: 12 triangles, the
+    dense route under "auto"."""
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+
+    b = SceneBuilder()
+    m = b.lambert([0.65, 0.65, 0.65])
+    b.add_box_interior(2.0, m, m, m, b.lambert([0.7, 0.12, 0.1]),
+                       b.lambert([0.12, 0.55, 0.18]))
+    b.rect_light([0, 1.95, 0], 0.5, 0.5, [12.0] * 3)
+    return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=width,
+                   height=height, trace_depth=4, traversal=traversal)
 
 
 def instanced_desc(width: int, height: int):
@@ -415,19 +613,24 @@ def instanced_desc(width: int, height: int):
         light_instances=[sf.LightInstanceDesc(light_id=0, matrix=m_light)])
 
 
-def kernel_rows(label, replaces, recs, counts, inst: bool) -> list:
+CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
+PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
+
+
+def kernel_rows(kernels, label, source, replaces, recs, launches) -> list:
     """The "kernels" records of one main path: one row per hit mode, times
-    summed over the wavefronts named in the row."""
+    summed over the wavefronts named in the row. `kernels` names the
+    closest-hit and the any-hit kernel, `launches` holds their counts from
+    the main path's run."""
     rows = []
-    for mode, key, what in (("closest", "B3" if inst else "B1", "closest hit"),
-                            ("any", "B3" if inst else "B2", "any hit")):
+    for mode, kernel, what, count in zip(("closest", "any"), kernels,
+                                         ("closest hit", "any hit"), launches):
         r = recs[mode]
-        count = counts[("inst_" if inst else "") + mode + "_launches"]
         rows.append({
-            "name": f"{key} cluster traversal, {what}, {label} "
+            "name": f"{kernel}, {what}, {label} "
                     f"({' + '.join(x[0] for x in r)})",
             "route": "cuda",
-            "source": "hydracore_tpu_torch/csrc/traverse_cluster.cu",
+            "source": source,
             "replaces": replaces,
             "launches": count,
             "max_abs_err": max(x[5] for x in r),
@@ -446,7 +649,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from hydracore_tpu_torch.integrators import pt
+    from hydracore_tpu_torch.ops import trace_api
     from hydracore_tpu_torch.ops import traverse_cluster as tc
+    from hydracore_tpu_torch.ops import traverse_dense as td
+    from hydracore_tpu_torch.ops import traverse_packet as tp
     from hydracore_tpu_torch.scene.procedural import bench_builder, bench_scene
     from hydracore_tpu_torch.scene.scene import assemble
     from hydracore_tpu_torch.utils import build
@@ -457,11 +663,12 @@ def main() -> int:
 
     # ---- phase 1: build every native source, compilers in parallel
     t0 = time.time()
-    srcs = ["traverse_cluster.cu", "bvh_builder.cpp"]
+    srcs = ["traverse_cluster.cu", "traverse_packet.cu", "bvh_builder.cpp"]
     started = {s: build.start_build(s) for s in srcs}
     for s in srcs:
         build.finish_build(s, started[s])
     tc._kernel_lib()
+    tp._kernel_lib()
     log(f"phase 1 build: {time.time() - t0:.2f} s ({', '.join(srcs)})")
 
     # ---- phase 2-5: the flat pool (B1, B2)
@@ -472,12 +679,13 @@ def main() -> int:
         f"{real_boxes(host_scene).shape[1]} clusters (Cp "
         f"{host_scene.cl_tris.shape[0]}), built in {time.time() - t0:.2f} s")
     flat_recs = check_kernels("phase 3 flat", tc, scene,
-                              wavefronts(pt, tc, scene), card)
+                              cluster_cases(tc, wavefronts(pt, scene)), card)
     log(f"phase 4 flat: {N_PASS} passes (4 before the instanced and "
         "partitioned paths joined the run)")
-    flat_counts = drive_main_path("phase 4 flat", pt, tc, scene, card,
+    flat_counts = drive_main_path("phase 4 flat", pt, tc, tp, scene, card,
                                   {"closest_launches", "any_launches"})
-    card_vs_cpu("phase 4 flat", pt, bench_scene(64, 64, DEPTH))
+    img_flat_cluster = card_vs_cpu("phase 4 flat", pt,
+                                   bench_scene(64, 64, DEPTH))
     profile_pass(pt, scene, card, "phase 5 flat")
     del scene
 
@@ -499,9 +707,10 @@ def main() -> int:
         raise AssertionError(f"only {flat_tris} flattened triangles")
     inst_scene = host_inst.to(dev)
     inst_recs = check_kernels("phase 6 instanced", tc, inst_scene,
-                              wavefronts(pt, tc, inst_scene), card)
+                              cluster_cases(tc, wavefronts(pt, inst_scene)),
+                              card)
     inst_counts = drive_main_path(
-        "phase 6 instanced", pt, tc, inst_scene, card,
+        "phase 6 instanced", pt, tc, tp, inst_scene, card,
         {"inst_closest_launches", "inst_any_launches"})
     profile_pass(pt, inst_scene, card, "phase 6 instanced")
     del inst_scene
@@ -534,22 +743,111 @@ def main() -> int:
                            part_cap=1 << 20).to(dev)
     if repacked.cl_tris.dim() != 3:
         raise AssertionError("the re-packed pool is not flat")
+    part_raw = wavefronts(pt, part_scene)
     part_recs = check_kernels("phase 7 partitioned", tc, part_scene,
-                              wavefronts(pt, tc, part_scene), card,
+                              cluster_cases(tc, part_raw), card,
                               flat_scene=repacked)
     del repacked
-    part_counts = drive_main_path("phase 7 partitioned", pt, tc, part_scene,
-                                  card, {"closest_launches", "any_launches"})
+    part_counts = drive_main_path("phase 7 partitioned", pt, tc, tp,
+                                  part_scene, card,
+                                  {"closest_launches", "any_launches"})
     profile_pass(pt, part_scene, card, "phase 7 partitioned")
+
+    # ---- phase 8: the packet route (B4) on the partitioned phase's geometry
+    t0 = time.time()
+    host_pkt = bench_scene(WIDTH, HEIGHT, DEPTH, builder=big, traversal="packet")
+    if trace_api._pick(host_pkt) is not tp or host_pkt.cl_tris.dim() != 3:
+        raise AssertionError("traversal='packet' was not honoured")
+    log(f"phase 8 packet scene: {host_pkt.num_triangles} triangles, "
+        f"{host_pkt.wbvh_nodes.shape[0]} wide nodes (depth "
+        f"{host_pkt.wbvh_depth}), {host_pkt.wbvh_tri9f.shape[0]} leaf blocks, "
+        f"pools {(host_pkt.pkt_nodes.numel() + host_pkt.pkt_tris.numel()) * 4 / 2**20:.1f}"
+        f" MiB, built in {time.time() - t0:.2f} s")
+    pkt_scene = host_pkt.to(dev)
+    # the wavefronts as this route's path tracer sends them: not sorted
+    pkt_recs = check_packet("phase 8 packet", tp, pkt_scene,
+                            wavefronts(pt, pkt_scene, sort=False), card)
+    # and B4 on the very rays the chunked B1/B2 got in phase 7 (sorted)
+    srt_recs = check_packet("phase 8 packet, sorted rays", tp, pkt_scene,
+                            part_raw, card, twin=False)
+    for (name, o, d, t_max, act, any_hit), (_, blocks, _) in zip(
+            part_raw, cluster_cases(tc, part_raw)):
+        _, s_cl = tc.cluster_traverse(blocks, any_hit_mode=any_hit,
+                                      **scene_pool(part_scene))
+        s_cl = s_cl.reshape(-1)[:o.shape[0]]
+        t_b4, s_b4 = srt_recs["hits"][name]
+        same_mask = float(((s_cl >= 0) == (s_b4 >= 0)).float().mean())
+        both = (s_cl >= 0) & (s_b4 >= 0)
+        tri_cl = part_scene.cl_slot_tri[s_cl[both].long()]
+        tri_b4 = pkt_scene.wbvh_slot_tri[s_b4[both].long()]
+        same_tri = float((tri_cl == tri_b4).float().mean())
+        log(f"phase 8 packet, sorted rays {name}: B4 against the chunked "
+            f"{'B2' if any_hit else 'B1'}: hit masks equal on {same_mask:.6f}"
+            + ("" if any_hit else f", triangle equal on {same_tri:.6f}"))
+        if same_mask < 0.9999 or (not any_hit and same_tri < 0.999):
+            raise AssertionError(f"phase 8 {name}: B4 against the chunked kernel")
+    del part_scene
+    pkt_counts = drive_main_path(
+        "phase 8 packet", pt, tc, tp, pkt_scene, card,
+        {"pkt_closest_launches", "pkt_any_launches"})
+    profile_pass(pt, pkt_scene, card, "phase 8 packet")
+    del pkt_scene
+
+    # ---- phase 9: the wide-BVH loop (plain PyTorch) on the same geometry,
+    # 256x256, one pass; 64x64 card against CPU
+    t0 = time.time()
+    host_wide = bench_scene(256, 256, DEPTH, builder=big, traversal="wide")
+    wide_scene = host_wide.to(dev)
+    drive_main_path("phase 9 wide", pt, tc, tp, wide_scene, card, set(),
+                    width=256, height=256, n_pass=1)
+    del wide_scene
+    card_vs_cpu("phase 9 wide", pt,
+                bench_scene(64, 64, DEPTH, builder=big, traversal="wide"), spp=2)
+    log(f"phase 9 wide: {time.time() - t0:.2f} s")
+
+    # ---- phase 10: the dense route (plain PyTorch) on a golden recipe
+    t0 = time.time()
+    host_dense = golden_cornell(WIDTH, HEIGHT)
+    if trace_api._pick(host_dense) is not td:
+        raise AssertionError("auto did not pick the dense route for 12 triangles")
+    dense_scene = host_dense.to(dev)
+    drive_main_path("phase 10 dense", pt, tc, tp, dense_scene, card, set(),
+                    n_pass=1)
+    del dense_scene
+    card_vs_cpu("phase 10 dense", pt, golden_cornell(64, 64))
+    log(f"phase 10 dense: {time.time() - t0:.2f} s")
+
+    # ---- phase 11: the flat scene through B4 at 64x64 against the CPU
+    # twins and against the cluster route's image of phase 4
+    img_flat_packet = card_vs_cpu(
+        "phase 11 packet", pt, bench_scene(64, 64, DEPTH, traversal="packet"))
+    close = pixels_close(img_flat_packet, img_flat_cluster)
+    log(f"phase 11 packet 64x64 8 spp: pixels within 1e-3 of the cluster "
+        f"route's image: {close:.4f}")
+    if close < 0.99:
+        raise AssertionError(f"packet vs cluster route image: {close}")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
-    rows = (kernel_rows("flat pool Cp 384", f"{at}:576", flat_recs,
-                        flat_counts, False)
-            + kernel_rows(f"instanced Ci {host_inst.cl_map.shape[1]}",
-                          f"{at}:394", inst_recs, inst_counts, True)
-            + kernel_rows(f"{P} chunks of 1024", f"{at}:663", part_recs,
-                          part_counts, False))
+    b12 = ("B1 cluster traversal", "B2 cluster traversal")
+    b3 = ("B3 cluster traversal", "B3 cluster traversal")
+    b4 = ("B4 packet traversal", "B4 packet traversal")
+
+    def counted(counts, prefix=""):
+        return (counts[prefix + "closest_launches"],
+                counts[prefix + "any_launches"])
+
+    rows = (kernel_rows(b12, "flat pool Cp 384", CLUSTER_CU, f"{at}:576",
+                        flat_recs, counted(flat_counts))
+            + kernel_rows(b3, f"instanced Ci {host_inst.cl_map.shape[1]}",
+                          CLUSTER_CU, f"{at}:394", inst_recs,
+                          counted(inst_counts, "inst_"))
+            + kernel_rows(b12, f"{P} chunks of 1024", CLUSTER_CU, f"{at}:663",
+                          part_recs, counted(part_counts))
+            + kernel_rows(b4, f"{host_pkt.wbvh_nodes.shape[0]} wide nodes, "
+                          "unsorted rays", PACKET_CU,
+                          "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
+                          counted(pkt_counts, "pkt_")))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

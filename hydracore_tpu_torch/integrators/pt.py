@@ -1,10 +1,15 @@
 """Wavefront MIS path tracer (PT / MISPT) over megablock ray batches (torch).
 
 The JAX package's integrators/pt.py, main path: per bounce a closest-hit
-trace (kernel B1, or B3 over an instanced scene), compute_hit,
-fetch_material and the BSDF, then NEE with a shadow any-hit trace (kernel
-B2 / B3), in the persistent-sorted wavefront mode: the whole live state is permuted into (octant, origin-Morton) order
-once per bounce and both traversals run on the sorted wavefront.
+trace, compute_hit, fetch_material and the BSDF, then NEE with a shadow
+any-hit trace; ops/trace_api.py picks the traversal (kernels B1/B2, B3
+over an instanced scene, B4 over the packet route, or a plain path). Two
+wavefront modes, as there: with a traversal that wants sorted rays (the
+cluster kernels) the whole live state is permuted into (octant,
+origin-Morton) order once per bounce and both traversals run on the sorted
+wavefront; with any other the rays stay in caller order. The sample set is
+the same either way (every stream is keyed by its sample id), so the images
+agree to accumulation order.
 
 Semantics (ref IntegratorMISPT::PathTrace / trace1D_Rev):
   * implicit light/env hits weighted by the power heuristic against the
@@ -35,7 +40,8 @@ from hydracore_tpu_torch.lights.sampling import (env_radiance,
                                                  select_light)
 from hydracore_tpu_torch.ops import rng
 from hydracore_tpu_torch.ops.trace_api import (any_hit, closest_hit,
-                                               coherence_order)
+                                               coherence_order,
+                                               wants_sorted_rays)
 from hydracore_tpu_torch.scene.lights import LIGHT_SKY
 from hydracore_tpu_torch.scene.scene import check_supported
 from hydracore_tpu_torch.utils.device import resolve_device
@@ -151,8 +157,9 @@ def compute_hit(scene, tri, u, v, ray_o, ray_d, t):
 
 
 def shadow_trace(scene, sray_o, sdir, dist, active):
-    """Occlusion query on an already coherence-sorted wavefront (opaque
-    scenes; the alpha layer walk comes in a later slice)."""
+    """Occlusion query on the wavefront as it stands: already in coherence
+    order when the traversal wants that (opaque scenes; the alpha layer
+    walk is not ported yet)."""
     return any_hit(scene, sray_o, sdir, dist * 0.995, active=active)
 
 
@@ -164,7 +171,8 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
              min_rr_depth: int = 3):
     """Trace a batch of primary rays (already in coherence order, as
     Morton-ordered primaries are) to completion. sample_idx (R,) u32 stream
-    ids (int64) key every random number. Returns (radiance (R,3) in caller
+    ids (int64) key every random number. The live state is re-sorted every
+    bounce only for a traversal that wants sorted rays. Returns (radiance (R,3) in caller
     order, rays_traced (int64 scalar tensor)): the ray counter feeds the
     Mrays/s metric (MRaysStat analogue)."""
     st = scene.settings
@@ -174,6 +182,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     def rand(sidx, depth, group):
         return rng.rand4(sidx, depth, group, seed)
 
+    sorted_mode = wants_sorted_rays(scene)
     sidx = sample_idx
     orig_pos = torch.arange(R, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
@@ -200,7 +209,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     multi_light = scene.light_attr.shape[0] > 1
 
     for depth in range(max_depth):
-        if depth > 0:
+        if sorted_mode and depth > 0:
             # permute the whole live state into (octant, origin-Morton)
             # coherence order: one sort + one row gather per state tensor
             perm = coherence_order(scene, ray_o, ray_d, alive)
@@ -306,6 +315,8 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         ray_o = offs_ray_pos(pos, n_off, bs.wi)
         ray_d = bs.wi
 
+    if not sorted_mode:
+        return acc, rays_traced
     out = torch.empty_like(acc)  # restore caller ray order (one scatter)
     out[orig_pos] = acc
     return out, rays_traced

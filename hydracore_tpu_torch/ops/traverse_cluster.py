@@ -23,7 +23,8 @@ import sys
 
 import torch
 
-from hydracore_tpu_torch.ops.intersect import mt_refine, want_double
+from hydracore_tpu_torch.ops.intersect import (mt_refine, safe_inv,
+                                                want_double)
 
 BIG = 3.0e38
 LANES = 128
@@ -151,11 +152,6 @@ def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
 _TWIN_STEP_ELEMS = 1 << 22
 
 
-def _safe_inv(d):
-    eps = 1e-12
-    return 1.0 / torch.where(d.abs() < eps, torch.where(d < 0, -eps, eps), d)
-
-
 def _pairs_mt(o, d, t_lim, blk):
     """Woop Moller-Trumbore of K rays, each against the 128 lanes of its own
     block blk (K, 4, 384). Returns (t (K,) of the nearest hit inside
@@ -207,7 +203,7 @@ def _chunk_plain(flat, t_lim, act, bounds_oct, tris, perm, cl_map, inst_woop):
     for s in range(0, N, step):
         e = min(s + step, N)
         o = flat[s:e, 0:3]
-        inv = _safe_inv(flat[s:e, 3:6])
+        inv = safe_inv(flat[s:e, 3:6])
         oi = o * inv
         t_a = bounds[None, 0:3] * inv[:, :, None] - oi[:, :, None]  # (n,3,C)
         t_b = bounds[None, 3:6] * inv[:, :, None] - oi[:, :, None]

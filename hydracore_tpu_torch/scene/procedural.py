@@ -27,7 +27,8 @@ from hydracore_tpu_torch.scene.lights import (
 )
 from hydracore_tpu_torch.scene.materials import MaterialTable, _blank_record
 from hydracore_tpu_torch.scene.scene import (SceneData, build_mesh_light_tables,
-                                             finalize_scene)
+                                             check_traversal, finalize_scene,
+                                             part_cap_for, wide_pools)
 from hydracore_tpu_torch.scene.statefile import CameraDesc, RenderSettings
 from hydracore_tpu_torch.lights.envmap import build_env_pdf
 
@@ -191,9 +192,13 @@ class SceneBuilder:
     # ---- finalize
     def build(self, cam_pos, cam_lookat, fov=45.0, width=64, height=64,
               trace_depth=5, lens_radius=0.0,
-              part_cap: int = CL_PART_CAP) -> SceneData:
+              part_cap: int = CL_PART_CAP,
+              traversal: str = "auto") -> SceneData:
         """Compile the recipe. A pool of more than `part_cap` clusters is
-        partitioned into chunks of that many (bvh/clusters.py)."""
+        partitioned into chunks of that many (bvh/clusters.py). `traversal`
+        is the scene's static choice of traversal (ops/trace_api.py);
+        "packet" and "wide" keep the cluster pool flat."""
+        check_traversal(traversal, False)
         T = max(len(self.tris), 1)
         if not self.tris:
             self.tris.append(
@@ -208,8 +213,10 @@ class SceneBuilder:
         v2 = np.stack([t[2] for t in self.tris]).astype(np.float32)
         bvh = build_bvh_auto(v0, v1, v2)
         p = bvh.perm
+        pools = wide_pools(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p])
         cl = maybe_partition(
-            cut_clusters(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p]), part_cap)
+            cut_clusters(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p]),
+            part_cap_for(traversal, part_cap))
 
         pts = np.concatenate([v0, v1, v2], 0)
         wb_min = pts.min(0).astype(np.float32)
@@ -296,7 +303,7 @@ class SceneBuilder:
             texels=texels, tex_table=tex_table, tex_sampler=tex_sampler,
             camera=cam, env_color=self.env,
             env_rows_cdf=env_rows, env_cols_cdf=env_cols, env_pdf_uv=env_pdf,
-            settings=settings,
+            settings=settings, traversal=traversal, **pools,
         ))
 
 
@@ -382,10 +389,11 @@ def bench_builder(n_seg: int = 160, n_ring: int = 80) -> SceneBuilder:
 
 def bench_scene(width: int = 1024, height: int = 1024, trace_depth: int = 5,
                 builder: SceneBuilder | None = None,
-                part_cap: int = CL_PART_CAP) -> SceneData:
+                part_cap: int = CL_PART_CAP,
+                traversal: str = "auto") -> SceneData:
     """Build the full-size test scene (bench_builder's recipe unless a
     builder is given) behind its camera."""
     b = builder if builder is not None else bench_builder()
     return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0],
                    width=width, height=height, trace_depth=trace_depth,
-                   part_cap=part_cap)
+                   part_cap=part_cap, traversal=traversal)

@@ -8,12 +8,16 @@ package's scene/scene.py does, so both packages hold the same bytes for
 the same SceneDesc or recipe. Three cluster layouts come out, all read by
 ops/traverse_cluster.py: a flat pool, a pool partitioned into chunks (more
 than CL_PART_CAP clusters), and the two-level instanced layout
-(bvh/instanced.py). scene_from_arrays turns the numpy leaves of a
-JAX-built scene into a port scene.
+(bvh/instanced.py). Beside them every scene carries the binary BVH
+(bvh_*), its 8-wide collapse (wbvh_*, bvh/wide.py) and the packed rows of
+the packet kernel (pkt_*); an instanced scene holds one-triangle dummies
+there, since only the cluster kernels read its layout. scene_from_arrays
+turns the numpy leaves of a JAX-built scene into a port scene.
 
-The wide-BVH, packet and binary-BVH pools of the JAX scene are left out:
-nothing ported so far reads them. Features not ported yet raise
-NotImplementedError naming the feature (check_supported).
+Which traversal reads the scene is one static choice on it, `traversal`
+(ops/trace_api.py): "auto", or "dense", "cluster", "packet", "wide" by
+name. Features not ported yet raise NotImplementedError naming the feature
+(check_supported).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import torch
 from hydracore_tpu_torch.bvh.clusters import (CL_PART_CAP, cut_clusters,
                                               maybe_partition)
 from hydracore_tpu_torch.bvh.native import build_bvh_auto
+from hydracore_tpu_torch.bvh.wide import collapse_wide
+from hydracore_tpu_torch.ops.traverse_packet import pack_pools
 from hydracore_tpu_torch.scene.camera import CameraParams, build_camera
 from hydracore_tpu_torch.scene.lights import LightTable, build_light_table
 from hydracore_tpu_torch.scene.materials import (MaterialTable,
@@ -55,6 +61,20 @@ class SceneData:
     tri_mat: object  # (T,) int32
     tri_light: object  # (T,) int32 light-table row or -1
     tri_inst: object  # (T,) int32 instance id
+    # binary SAH BVH (bvh/builder.py) read by ops/traverse.py
+    bvh_bmin: object  # (N,3)
+    bvh_bmax: object  # (N,3)
+    bvh_left: object  # (N,)
+    bvh_right: object  # (N,)
+    bvh_count: object  # (N,)
+    # its 8-wide collapse (bvh/wide.py) read by ops/traverse_wide.py and
+    # ops/traverse_dense.py, and the packet kernel's packed rows
+    # (ops/traverse_packet.py:pack_pools)
+    wbvh_nodes: object  # (Nw,8,8) f32, child payload bitcast in [:, :, 6]
+    wbvh_tri9f: object  # (B, LEAF*16) f32 block-row triangle table
+    wbvh_slot_tri: object  # (B*LEAF,) i32
+    pkt_nodes: object  # (Np,128) f32, payload read through .view(int32)
+    pkt_tris: object  # (Bp,128) f32
     # cluster pool (bvh/clusters.py) read by ops/traverse_cluster.py; a
     # partitioned pool carries a leading chunk axis P on every cl_* array
     # but cl_slot_tri, which stays flat in chunk-major order
@@ -98,6 +118,12 @@ class SceneData:
     alpha_tri9f: object = None  # (9, A) f32
     alpha_tri_id: object = None  # (A,) i32
     env_back: object = None  # (8,) f32 sky back-plate row
+    # static (plain Python values, not tensors)
+    wbvh_depth: int = 16  # wide-tree depth (root = 1)
+    traversal: str = "auto"  # ops/trace_api.py: which traversal reads the scene
+
+    def __post_init__(self):
+        check_traversal(self.traversal, self.cl_map is not None)
 
     @property
     def num_triangles(self) -> int:
@@ -112,6 +138,43 @@ class SceneData:
 _INSTANCED = ("cl_map", "cl_slot_inst", "inst_attr", "inst_orig", "inst_woop")
 _OPTIONAL = _INSTANCED + ("cl_tris_shadow", "alpha_tri9f", "alpha_tri_id",
                           "env_back")
+
+# static fields: Python values that scene_leaves / scene_from_arrays carry
+# as they are (wbvh_depth) or that only the port has (traversal)
+TRAVERSALS = ("auto", "dense", "cluster", "packet", "wide")
+
+
+def check_traversal(traversal: str, instanced: bool) -> None:
+    """Validate a scene's static traversal choice (ops/trace_api.py reads
+    it): only the cluster kernels understand the instanced layout. Every
+    SceneData checks itself when it is made; assemble and SceneBuilder.build
+    also call this first, to refuse a choice before they build anything."""
+    if traversal not in TRAVERSALS:
+        raise ValueError(f"traversal must be one of {TRAVERSALS}, "
+                         f"got {traversal!r}")
+    if instanced and traversal not in ("auto", "cluster"):
+        raise ValueError(f"an instanced scene is traversed by the cluster "
+                         f"kernels only, not by traversal={traversal!r}")
+
+
+def part_cap_for(traversal: str, part_cap: int) -> int:
+    """The packet and wide routes never read the cluster pool, and keep it
+    flat whatever its size."""
+    return (1 << 30) if traversal in ("packet", "wide") else part_cap
+
+
+def wide_pools(bvh, tri_v0, tri_e1, tri_e2) -> dict:
+    """The bvh_*, wbvh_* and pkt_* fields of a scene from its binary BVH
+    and its triangles in leaf order."""
+    wbvh = collapse_wide(bvh, tri_v0, tri_e1, tri_e2)
+    pkt_nodes, pkt_tris = pack_pools(wbvh.nodes, wbvh.tri9f, wbvh.max_depth)
+    return dict(
+        bvh_bmin=bvh.bmin, bvh_bmax=bvh.bmax, bvh_left=bvh.left,
+        bvh_right=bvh.right, bvh_count=bvh.count,
+        wbvh_nodes=wbvh.nodes, wbvh_tri9f=wbvh.tri9f,
+        wbvh_slot_tri=wbvh.slot_tri, wbvh_depth=wbvh.max_depth,
+        pkt_nodes=pkt_nodes, pkt_tris=pkt_tris)
+
 
 # auto instancing kicks in above this many flattened triangles (when the
 # two-level layout actually saves memory; see _should_instance)
@@ -227,15 +290,20 @@ def _should_instance(desc, keep, flat, instancing: str) -> bool:
 
 
 def assemble(desc: SceneDesc, width: int | None = None, height: int | None = None,
-             instancing: str = "auto", part_cap: int = CL_PART_CAP) -> SceneData:
+             instancing: str = "auto", part_cap: int = CL_PART_CAP,
+             traversal: str = "auto") -> SceneData:
     """Compile a SceneDesc into a SceneData of CPU tensors (the JAX
     package's assemble, the same bytes out). instancing: 'auto' (two-level
     layout when it saves memory on big scenes), 'force' (always when any
     instanceable mesh exists), 'off'. A flattened pool of more than
-    `part_cap` clusters is partitioned into chunks of that many."""
+    `part_cap` clusters is partitioned into chunks of that many. traversal:
+    the scene's static choice of traversal (ops/trace_api.py); 'packet' and
+    'wide' keep the cluster pool flat, and an instanced scene takes only
+    'auto' or 'cluster'."""
     if instancing not in ("auto", "force", "off"):
         raise ValueError(f"instancing must be auto, force or off, "
                          f"got {instancing!r}")
+    check_traversal(traversal, False)
     st = desc.settings
     W = width or st.width
     H = height or st.height
@@ -253,9 +321,10 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
 
     keep, flat = _partition_instances(desc, lid_to_row)
     if _should_instance(desc, keep, flat, instancing):
+        check_traversal(traversal, True)
         return _assemble_instanced(desc, W, H, keep, flat, lid_to_row,
                                    materials, lights, texels, tex_table,
-                                   tex_sampler, tex_remap)
+                                   tex_sampler, tex_remap, traversal)
 
     # ---- flatten instances to world space
     v0s, e1s, e2s = [], [], []
@@ -342,7 +411,9 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
         uv0, uv1, uv2 = uv0[p], uv1[p], uv2[p]
         tri_mat, tri_light, tri_inst = tri_mat[p], tri_light[p], tri_inst[p]
 
-    cl = maybe_partition(cut_clusters(bvh, tri_v0, tri_e1, tri_e2), part_cap)
+    pools = wide_pools(bvh, tri_v0, tri_e1, tri_e2)
+    cl = maybe_partition(cut_clusters(bvh, tri_v0, tri_e1, tri_e2),
+                         part_cap_for(traversal, part_cap))
 
     pts = np.concatenate([tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2], 0)
     wb_min = pts.min(0).astype(np.float32)
@@ -375,13 +446,13 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
         texels=texels, tex_table=tex_table, tex_sampler=tex_sampler,
         camera=cam, env_color=env, env_back=env_back,
         env_rows_cdf=env_rows, env_cols_cdf=env_cols, env_pdf_uv=env_pdf,
-        settings=st2,
+        settings=st2, traversal=traversal, **pools,
     ))
 
 
 def _assemble_instanced(desc, W, H, keep, flat, lid_to_row, materials,
                         lights, texels, tex_table, tex_sampler,
-                        tex_remap=None) -> SceneData:
+                        tex_remap=None, traversal: str = "auto") -> SceneData:
     """Two-level layout: shared local-space mesh pools + instantiated
     cluster AABBs (bvh/instanced.py). Non-instanceable geometry (lights,
     remaps, single-use meshes) flattens into the identity instance 0."""
@@ -419,6 +490,13 @@ def _assemble_instanced(desc, W, H, keep, flat, lid_to_row, materials,
                            np.int32)
     mt = layout.tris
 
+    # single-level pools (binary, wide, packet, dense): one-triangle dummies,
+    # the dispatcher sends an instanced scene to the cluster kernels only
+    dummy_v0 = np.full((1, 3), 1e30, np.float32)
+    dz = np.zeros((1, 3), np.float32)
+    pools = wide_pools(build_bvh_auto(dummy_v0, dummy_v0, dummy_v0),
+                       dummy_v0, dz, dz)
+
     cam = build_camera(desc.camera, W, H)
     lights2, ml_cdf, ml_tri = build_mesh_light_tables(
         lights, mt.light, mt.v0, mt.e1, mt.e2)
@@ -447,18 +525,19 @@ def _assemble_instanced(desc, W, H, keep, flat, lid_to_row, materials,
         cl_map=layout.cl_map,
         cl_slot_inst=np.ascontiguousarray(layout.slot_tri2[:, 1]),
         inst_attr=layout.inst_attr, inst_woop=layout.inst_woop,
-        inst_orig=inst_orig,
+        inst_orig=inst_orig, traversal=traversal, **pools,
     ))
 
 
 def load_scene(lib_dir: str, width: int | None = None, height: int | None = None,
                instancing: str = "auto", statefile: str | None = None,
-               part_cap: int = CL_PART_CAP) -> SceneData:
+               part_cap: int = CL_PART_CAP,
+               traversal: str = "auto") -> SceneData:
     """Load a HydraAPI scene library directory into a SceneData of CPU
     tensors. `statefile` picks an explicit statex_NNNNN.xml inside the
-    library (default = the latest)."""
+    library (default = the latest); the other arguments are assemble's."""
     return assemble(load_statefile(lib_dir, statefile), width, height,
-                    instancing, part_cap)
+                    instancing, part_cap, traversal)
 
 
 def _blend_depth(blend_node: np.ndarray, blend_top: np.ndarray) -> int:
@@ -707,6 +786,8 @@ def scene_leaves(sc: SceneData) -> dict:
                     out[f"{f.name}.{g.name}"] = w.cpu().numpy()
         elif isinstance(v, torch.Tensor):
             out[f.name] = v.cpu().numpy()
+        elif f.name == "wbvh_depth":
+            out[f.name] = np.asarray(v)
     return out
 
 
@@ -714,7 +795,7 @@ def leaf_names() -> list:
     """Every leaf name scene_from_arrays reads (optional ones included)."""
     names = []
     for f in dataclasses.fields(SceneData):
-        if f.name == "settings":
+        if f.name in ("settings", "traversal"):
             continue
         if f.name in _TABLES:
             names += [f"{f.name}.{g.name}"
@@ -725,17 +806,22 @@ def leaf_names() -> list:
     return names
 
 
-def scene_from_arrays(leaves: dict, settings: dict, device=None) -> SceneData:
+def scene_from_arrays(leaves: dict, settings: dict, device=None,
+                      traversal: str = "auto") -> SceneData:
     """Build a port scene from the numpy leaves of a scene compiled
     elsewhere (the JAX package's SceneData: the names of leaf_names()).
     The bytes are taken as they are — nothing is recompiled — so both
     packages render the very same scene. `settings` holds the
-    RenderSettings fields; the camera takes its width/height from them."""
+    RenderSettings fields; the camera takes its width/height from them.
+    `traversal` is the port's static choice of traversal for the scene."""
     dev = resolve_device(device)
     st = RenderSettings(**settings)
-    kw = {}
+    kw = {"traversal": traversal}
     for f in dataclasses.fields(SceneData):
-        if f.name == "settings":
+        if f.name in ("settings", "traversal"):
+            continue
+        if f.name == "wbvh_depth":
+            kw[f.name] = int(leaves[f.name])
             continue
         if f.name in _TABLES:
             cls = _TABLES[f.name]

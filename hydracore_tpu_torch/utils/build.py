@@ -1,11 +1,12 @@
 """Build native code of the port into its git-ignored build directory.
 
-Two sources are compiled at first use, never next to the source and never
+Three sources are compiled at first use, never next to the source and never
 at import time:
   * csrc/bvh_builder.cpp    -> _build/libbvh_builder.so   (g++, host)
   * csrc/traverse_cluster.cu -> _build/libtraverse_cluster.so (nvcc, sm_90a)
+  * csrc/traverse_packet.cu -> _build/libtraverse_packet.so (nvcc, sm_90a)
 
-Both expose a plain C interface loaded with ctypes, so a build takes
+All expose a plain C interface loaded with ctypes, so a build takes
 seconds (no PyTorch headers). Outputs are written under a temporary name
 and renamed into place, so concurrent processes (test workers) never load
 a half-written library.

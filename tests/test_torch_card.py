@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: kernels B1/B2 (flat and
-partitioned pools) and B3 (instanced pools) against their plain twin, and
-the path tracer on the card against the CPU twins.
+partitioned pools), B3 (instanced pools) and B4 (warp packets over the
+8-wide BVH) against their plain twins, and the path tracer on the card
+against the CPU twins, by the cluster and by the packet route.
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -8,8 +9,9 @@ so it runs on a machine with the card:
     python -m pytest tests/test_torch_card.py -q
 
 Tolerances: kernel and twin share their arithmetic (no fast math, no FMA
-contraction), so t, slots and occlusion must be equal; the card's image
-must agree with the CPU twins' image within 1e-3 on >= 99% of pixels.
+contraction) and, for B4, their packet size and walk order, so t, u, v,
+slots, occlusion and visit counts must be equal; the card's image must
+agree with the CPU twins' image within 1e-3 on >= 99% of pixels.
 """
 import xml.etree.ElementTree as ET
 
@@ -19,6 +21,7 @@ import torch
 
 from hydracore_tpu_torch.integrators import pt
 from hydracore_tpu_torch.ops import traverse_cluster as tc
+from hydracore_tpu_torch.ops import traverse_packet as tp
 from hydracore_tpu_torch.scene import statefile as sf
 from hydracore_tpu_torch.scene.procedural import SceneBuilder
 from hydracore_tpu_torch.scene.scene import assemble
@@ -32,7 +35,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rects_scene(n: int = 350, part_cap: int = 1024):
+def _rects_scene(n: int = 350, part_cap: int = 1024, traversal: str = "auto"):
     """tests/test_traverse_cluster.py's 350 random rects; 30,000 of them
     make a pool of several 128-cluster chunks."""
     rng = np.random.default_rng(7)
@@ -42,7 +45,7 @@ def _rects_scene(n: int = 350, part_cap: int = 1024):
         b.add_rect(rng.uniform(-4, 4, 3), rng.uniform(-0.4, 0.4, 3),
                    rng.uniform(-0.4, 0.4, 3), m)
     return b.build(cam_pos=[0, 0, 10], cam_lookat=[0, 0, 0], width=8, height=8,
-                   part_cap=part_cap)
+                   part_cap=part_cap, traversal=traversal)
 
 
 def _instanced_scene(size: int = 32, instancing: str = "force"):
@@ -94,7 +97,7 @@ def _instanced_scene(size: int = 32, instancing: str = "force"):
     return assemble(desc, instancing=instancing)
 
 
-def _box_scene(size: int):
+def _box_scene(size: int, traversal: str = "cluster"):
     b = SceneBuilder()
     m = b.lambert([0.65, 0.65, 0.65])
     b.add_box_interior(2.0, m, m, m, b.lambert([0.7, 0.12, 0.1]),
@@ -104,7 +107,7 @@ def _box_scene(size: int):
     b.add_sphere([0.0, -1.2, 0.5], 0.8, glass)
     b.rect_light([0, 1.95, 0], 0.5, 0.5, [12.0] * 3)
     return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=size,
-                   height=size, trace_depth=5)
+                   height=size, trace_depth=5, traversal=traversal)
 
 
 @pytest.mark.parametrize("any_hit_mode", [False, True])
@@ -216,6 +219,78 @@ def test_wrapper_refuses_mixed_devices(cuda):
     with pytest.raises(ValueError, match="cpu"):
         tc.cluster_traverse(blocks, sc.cl_bounds_oct, sc.cl_tris,
                             sc.cl_oct_perm)
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("n_rects", [350, 30000])
+def test_packet_kernel_matches_twin(cuda, any_hit_mode, n_rects):
+    """B4: one warp per packet of 32 rays, the twin steps every packet with
+    its own stack row in the same order."""
+    sc = _rects_scene(n_rects, traversal="packet").to(cuda)
+    rng = np.random.default_rng(3)
+    R = 5000  # a ragged last packet
+    lo, hi = (-6, 6) if n_rects == 350 else (-5, 5)
+    ro = torch.tensor(rng.uniform(lo, hi, (R, 3)), dtype=torch.float32, device=cuda)
+    rd = torch.tensor(rng.normal(size=(R, 3)), dtype=torch.float32, device=cuda)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    act = torch.tensor(np.arange(R) % 7 != 0, device=cuda)
+    t_short = 4.0 if n_rects == 350 else 1.0
+    t_max = torch.where(torch.arange(R, device=cuda) % 3 == 0, t_short, 1e30)
+    packets, _ = tp._to_packets(ro, rd, t_max, act)
+    before = (tp.closest_launches, tp.any_launches)
+    out_k = tp.packet_traverse(packets, sc.pkt_nodes, sc.pkt_tris,
+                               any_hit_mode=any_hit_mode)
+    after = (tp.closest_launches, tp.any_launches)
+    out_t = tp.packet_traverse_plain(packets, sc.pkt_nodes, sc.pkt_tris,
+                                     any_hit_mode=any_hit_mode)
+    torch.cuda.synchronize()
+    assert after[int(any_hit_mode)] == before[int(any_hit_mode)] + 1
+    assert after[1 - int(any_hit_mode)] == before[1 - int(any_hit_mode)]
+    (t_k, u_k, v_k, s_k, n_k), (t_t, u_t, v_t, s_t, n_t) = out_k, out_t
+    assert 100 < int((s_k >= 0).sum()) < R
+    assert not (s_k.reshape(-1)[:R][~act] >= 0).any()
+    assert 0 < int(n_k.max()) < tp.MAX_VISITS
+    assert torch.equal(n_k, n_t)
+    assert torch.equal(s_k, s_t)
+    assert torch.equal(t_k, t_t)
+    assert torch.equal(u_k, u_t) and torch.equal(v_k, v_t)
+    # and the ray-by-ray walk of the same tree finds the same nearest hits
+    if not any_hit_mode:
+        from hydracore_tpu_torch.ops import traverse_wide as tw
+        t_p, tri_p, _, _ = tp.closest_hit(sc, ro, rd, t_max, act)
+        t_w, tri_w, _, _ = tw.closest_hit(sc, ro, rd, t_max, act)
+        assert torch.equal(torch.isfinite(t_p), torch.isfinite(t_w))
+        assert float((tri_p == tri_w).float().mean()) > 0.999
+
+
+def test_packet_wrapper_refuses_mixed_devices(cuda):
+    sc = _rects_scene()
+    packets = torch.zeros((2, tp.PKT, 8), device=cuda)
+    with pytest.raises(ValueError, match="cpu"):
+        tp.packet_traverse(packets, sc.pkt_nodes, sc.pkt_tris)
+
+
+def test_packet_render_on_card_matches_cpu_twins(cuda, monkeypatch):
+    """The packet route on the card goes through B4 and nothing else, and
+    gives the CPU twins' image and the cluster route's."""
+    sc = _box_scene(32, traversal="packet")
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    peaks = []
+    monkeypatch.setattr(tp, "visits_hook", lambda n: peaks.append(n.max()))
+    img_card = pt.render(sc, spp=4, seed=777, device=cuda).cpu()
+    monkeypatch.setattr(tp, "visits_hook", None)
+    assert tp.closest_launches > 0 and tp.any_launches > 0
+    assert tc.closest_launches == 0 and tc.any_launches == 0
+    assert len(peaks) == tp.closest_launches + tp.any_launches
+    assert 0 < max(int(p) for p in peaks) < tp.MAX_VISITS
+    img_cpu = pt.render(sc, spp=4, seed=777, device="cpu")
+    img_cl = pt.render(_box_scene(32), spp=4, seed=777, device=cuda).cpu()
+    assert torch.isfinite(img_card).all() and float(img_card.mean()) > 0.01
+    for other in (img_cpu, img_cl):
+        agree = float(((img_card - other).abs().amax(dim=-1) <= 1e-3)
+                      .float().mean())
+        assert agree >= 0.99, agree
 
 
 def test_render_on_card_matches_cpu_twins(cuda):

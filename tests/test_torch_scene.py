@@ -3,8 +3,9 @@
 The five procedural golden recipes (tests/golden_scenes.py) and the
 350-rect traversal scene are built by both packages; every leaf the port
 keeps must be bit-exact (tolerance 0), and the static settings equal.
-scene_from_arrays of a JAX scene must round-trip bit-exact. Features the
-port does not carry yet raise NotImplementedError.
+The binary BVH, its 8-wide collapse and the packet kernel's rows are among
+those leaves. scene_from_arrays of a JAX scene must round-trip bit-exact.
+Features the port does not carry yet raise NotImplementedError.
 """
 import dataclasses
 
@@ -39,9 +40,10 @@ def jax_settings(sc) -> dict:
     return dataclasses.asdict(sc.settings)
 
 
-def to_port(jscene, device="cpu"):
+def to_port(jscene, device="cpu", traversal="auto"):
     """The port's scene holding the very bytes of a JAX scene."""
-    return scene_from_arrays(jax_leaves(jscene), jax_settings(jscene), device)
+    return scene_from_arrays(jax_leaves(jscene), jax_settings(jscene), device,
+                             traversal)
 
 
 def build_with(builder, recipe):
@@ -83,7 +85,12 @@ def test_builder_leaves_bit_exact(name):
     js = build_with(JaxBuilder, RECIPES[name])
     ps = build_with(PortBuilder, RECIPES[name])
     pl = scene_leaves(ps)
-    assert len(pl) >= 90  # geometry, cluster pool, tables, camera, rows
+    assert len(pl) >= 101  # geometry, BVHs, cluster pool, tables, camera, rows
+    assert {"bvh_bmin", "bvh_count", "wbvh_nodes", "wbvh_tri9f",
+            "wbvh_slot_tri", "wbvh_depth", "pkt_nodes", "pkt_tris"} <= set(pl)
+    # the packet kernel's payload view of the one node array is the JAX
+    # scene's second, int32 copy
+    assert js.pkt_nodesi.tobytes() == pl["pkt_nodes"].view(np.int32).tobytes()
     _assert_same_leaves(jax_leaves(js), pl)
     assert jax_settings(js) == dataclasses.asdict(ps.settings)
     assert (ps.camera.width, ps.camera.height) == (js.camera.width,
