@@ -31,6 +31,16 @@ B4 against the CPU twins and the cluster route's image. The two plain
 routes run too: the wide-BVH loop on the packet path's scene at 256x256 and
 the dense route on the golden cornell box, each card against CPU. One pass
 of each kernel path runs under torch.profiler.
+Phase 12 is the kernel lab (hydracore_tpu_torch/tools/): the kernels of
+tools T7 (row gathers, S 4096, R 262,144, 16 iterations), T6 (ten probes
+on (64, 128)), T5 (sub-visits, G 512, V 64, C 384) and T1 (the cluster
+kernel's cost split on bench_scene at 512x512, every variant and B1 as
+"full") held against their plain versions on the card at the tools' own
+sizes and timed with them (T7 also against one embedding_bag call, T6's
+probes where one PyTorch call computes them against that call), then each
+tool's main() run with its launch counters set to 0 just before and read
+just after; main() times each lab kernel as the mean of a CUDA graph of
+its calls, without the host's issue time.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -40,8 +50,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 import xml.etree.ElementTree as ET
@@ -50,14 +58,14 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from hydracore_tpu_torch.utils import lab  # noqa: E402
+
 SEED = 777
 WIDTH = HEIGHT = 1024
 DEPTH = 5
 N_PASS = 2
 N_INSTANCES = 24
-# NVIDIA H100 SXM data sheet: HBM rate and f32 rate outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
 # operations the traversal needs: a ray-box slab test (6 mul-sub pairs,
 # 10 min/max, 2 compares), one lane's Woop test (the w row dot products,
 # the divide and the t range test; u, v only for the rare candidates), and
@@ -74,27 +82,6 @@ OPS_TRI = 51
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def gpu_name_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps: int) -> float:
-    """Median device time of fn() over `reps` runs (CUDA events)."""
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def real_boxes(scene):
@@ -133,7 +120,7 @@ def needed_visits(scene, rays, t_end) -> tuple[int, int]:
     return n_act, visits
 
 
-def bound_ms(scene, rays, t_end) -> tuple[float, str]:
+def cluster_bound_ms(scene, rays, t_end) -> tuple[float, str]:
     """The least time the card could take: rays in, t and slot out and the
     scene's traversal arrays once, over the memory rate; box tests for
     every active ray and real cluster, Woop lanes (and for an instanced
@@ -149,9 +136,7 @@ def bound_ms(scene, rays, t_end) -> tuple[float, str]:
     C = real_boxes(scene).shape[1]
     ops = n_act * C * OPS_BOX + visits * (128 * OPS_LANE
                                           + (OPS_INST if inst else 0))
-    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return lab.bound_ms(bytes_, ops)
 
 
 def profile_pass(pt, scene, card: str, tag: str) -> None:
@@ -295,11 +280,11 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
                     f"{t_same:.6f}, triangle equal on {tri_same:.6f}")
                 if t_same < 0.999 or tri_same < 0.999:
                     raise AssertionError(f"{tag} {name}: chunked vs flat pool")
-        ms = cuda_time_ms(lambda: tc.cluster_traverse(
-            rays, any_hit_mode=any_hit_mode, **pool), 20)
-        plain = cuda_time_ms(lambda: tc.cluster_traverse_plain(
-            rays, any_hit_mode=any_hit_mode, **pool), 2)
-        bms, by = bound_ms(scene, rays, tk.reshape(-1))
+        ms = lab.time_ms(lambda: tc.cluster_traverse(
+            rays, any_hit_mode=any_hit_mode, **pool), 20, rays.device)
+        plain = lab.time_ms(lambda: tc.cluster_traverse_plain(
+            rays, any_hit_mode=any_hit_mode, **pool), 1, rays.device)
+        bms, by = cluster_bound_ms(scene, rays, tk.reshape(-1))
         log(f"{tag} {name}: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
             f"bound {bms:.5f} ms ({by}) [{card}]")
         out["any" if any_hit_mode else "closest"].append(
@@ -450,8 +435,8 @@ def packet_bound_ms(scene, packets, t_end) -> tuple[float, str, str]:
     bytes_ = n * 32 + n * 16 + packets.shape[0] * 4 \
         + (node_rows + leaf_rows) * 512
     ops = n_nodes * 8 * OPS_BOX + n_leaves * 8 * OPS_TRI
-    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    t_bytes = bytes_ / lab.PEAK_BYTES_S * 1e3
+    t_ops = ops / lab.PEAK_F32_OPS_S * 1e3
     note = (f"bytes {t_bytes:.5f} ms for the rays and {node_rows} of "
             f"{scene.pkt_nodes.shape[0]} node rows, {leaf_rows} of "
             f"{scene.pkt_tris.shape[0]} leaf rows; operations {t_ops:.5f} ms "
@@ -507,8 +492,9 @@ def check_packet(tag, tp, scene, raw, card, twin: bool = True) -> dict:
                 f"max abs err t {errs[0]:.3e}, u {errs[1]:.3e}, v {errs[2]:.3e}")
             if same < 0.999 or not err <= 1e-6:
                 raise AssertionError(f"{tag} {name}: B4 disagrees with its twin")
-        ms = cuda_time_ms(lambda: tp.packet_traverse(
-            packets, scene.pkt_nodes, scene.pkt_tris, any_hit), 20)
+        ms = lab.time_ms(lambda: tp.packet_traverse(
+            packets, scene.pkt_nodes, scene.pkt_tris, any_hit), 20,
+            packets.device)
         bms, by, note = packet_bound_ms(scene, packets, tk.reshape(-1))
         log(f"{tag} {name}: kernel {ms:.4f} ms, twin {plain:.4f} ms (one run), "
             f"bound {bms:.5f} ms ({by}: {note}) [{card}]")
@@ -615,6 +601,215 @@ def instanced_desc(width: int, height: int):
 
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
+LAB_SRCS = ["lab_gather.cu", "lab_prims.cu", "lab_subvisit.cu",
+            "lab_cluster_cost.cu"]
+
+
+def lab_row(name, src, replaces, launches, err, ms, plain_ms, bound,
+            library_ms=None) -> dict:
+    """One "kernels" record of the kernel lab; bound is (ms, bound by)."""
+    return {"name": name, "route": "cuda",
+            "source": f"hydracore_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
+def lab_gather(card, dev="cuda") -> list:
+    """T7 at the tool's size: both kernels equal to their plain versions,
+    timed beside them and beside embedding_bag over the same (R, 16) index
+    matrix (built outside the timed call); then the tool's main()."""
+    from hydracore_tpu_torch.tools import bench_pallas_gather as t7
+
+    pool, idx = t7.inputs(device=dev)
+    S = pool.shape[0]
+    idx16 = (idx.long() + torch.arange(t7.ITERS, device=idx.device)) % S
+    recs = {}
+    for name, onehot in t7.VARIANTS.items():
+        out_k = t7.gather(pool, idx, onehot=onehot)
+        out_p = t7.gather_plain(pool, idx, onehot=onehot)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"phase 12 T7 {name}: kernel differs from plain")
+        rows = pool.to(torch.bfloat16).to(torch.float32) if onehot else pool
+        lib = torch.nn.functional.embedding_bag(idx16, rows, mode="sum")
+        lib_err = float((lib - out_k).abs().max())
+        plain = lab.time_ms(lambda: t7.gather_plain(pool, idx, onehot=onehot),
+                            3, dev)
+        lib_ms = lab.time_ms(lambda: torch.nn.functional.embedding_bag(
+            idx16, rows, mode="sum"), 5, dev)
+        log(f"phase 12 T7 {name}: equal to the plain version; plain "
+            f"{plain:.4f} ms, embedding_bag {lib_ms:.4f} ms (max abs diff "
+            f"{lib_err:.3e}: another summation order) [{card}]")
+        recs[name] = (plain, lib_ms)
+    t7.reset_launch_counts()
+    res = t7.main(device=dev)
+    counts = {"taa": t7.gather_launches, "onehot": t7.onehot_launches}
+    at = "tools/bench_pallas_gather.py"
+    return [lab_row(f"T7 row gather, {name}", "lab_gather.cu",
+                    f"{at}:{32 if name == 'taa' else 43}", counts[name], 0.0,
+                    res[name]["ms"], recs[name][0],
+                    (res[name]["bound_ms"], res[name]["bound_by"]),
+                    recs[name][1])
+            for name in t7.VARIANTS]
+
+
+def prim_library(x, xi) -> dict:
+    """For the probes that one PyTorch call computes, that call (an index
+    that the call takes is made before, outside the timed call): k -> fn().
+    k2's row index is a reduction, k8 two of them, k7 reads nothing."""
+    i4 = (xi[0, 2:3] % 60).long()
+    return {
+        1: lambda: x[3:4, 5:6].expand(1, 128).clone(),
+        3: lambda: x[3:4, :8].sum(1, keepdim=True).expand(1, 128),
+        4: lambda: x.index_select(0, i4),
+        5: lambda: x[2:3, ::16].sum(1, keepdim=True).expand(1, 128),
+        6: lambda: x[56:57].clone(),
+        9: lambda: x[0:1].view(torch.int32).float(),
+        10: lambda: torch.nn.functional.pad(x[0:1, ::16], (0, 120)),
+    }
+
+
+def lab_prims(card, dev="cuda") -> list:
+    """T6: each probe equal to its plain version and, where there is one,
+    to the one-call PyTorch form (prim_library) on the tool's x and xi;
+    plain and library timed beside it (the library over a CUDA graph of 200
+    calls, as main() times the kernel); then the tool's main() (1,000
+    launches a probe)."""
+    from hydracore_tpu_torch.tools import proto_prims as t6
+
+    x, xi = t6.inputs(dev)
+    library = prim_library(x, xi)
+    plain, lib_ms = {}, {}
+    for k in t6.NAMES:
+        out_k = t6.prim(k, x, xi)
+        if not torch.equal(out_k, t6.prim_plain(k, x, xi)):
+            raise AssertionError(f"phase 12 T6 k{k}: kernel differs from plain")
+        if k in library and not torch.equal(out_k, library[k]()):
+            raise AssertionError(f"phase 12 T6 k{k}: the library call differs")
+        plain[k] = lab.time_ms(lambda: t6.prim_plain(k, x, xi), 20, dev)
+        lib_ms[k] = (lab.time_ms(library[k], 200, dev, graph=True)
+                     if k in library else None)
+    log("phase 12 T6: the ten probes equal their plain versions and the "
+        f"library calls of k{', k'.join(map(str, library))}; library "
+        + ", ".join(f"k{k} {lib_ms[k] * 1e3:.3f}" for k in library)
+        + f" us a call [{card}]")
+    t6.reset_launch_counts()
+    res = t6.main(device=dev)
+    if not all(r["ok"] for r in res.values()):
+        raise AssertionError("phase 12 T6: a probe failed in main()")
+    n = t6.prim_launches
+    lines = {1: 35, 2: 45, 3: 54, 4: 64, 5: 73, 6: 83, 7: 93, 8: 116,
+             9: 126, 10: 135}
+    return [lab_row(f"T6 probe k{k} ({t6.NAMES[k]}; launches of all ten)",
+                    "lab_prims.cu", f"tools/proto_prims.py:{lines[k]}", n, 0.0,
+                    res[f"k{k}"]["ms"], plain[k],
+                    (res[f"k{k}"]["bound_ms"], res[f"k{k}"]["bound_by"]),
+                    lib_ms[k])
+            for k in t6.NAMES]
+
+
+def lab_subvisit(card, dev="cuda") -> list:
+    """T5 at the tool's size: every variant's kernel against its plain
+    version (output words equal on >= 99.9% of rays, t with the lane bits
+    cleared within rtol 1e-5), timed beside it; then the tool's main()."""
+    from hydracore_tpu_torch.tools import proto_subvisit as t5
+
+    rays, tris, lst = t5.inputs(device=dev)
+    recs = {}
+    for name, (n_bands, inter) in t5.VARIANTS.items():
+        out_k = t5.subvisit(rays, tris, lst, n_bands, inter)
+        out_p = t5.subvisit_plain(rays, tris, lst, n_bands, inter)
+        torch.cuda.synchronize()
+        wk, wp = out_k.view(torch.int32), out_p.view(torch.int32)
+        same = float((wk == wp).float().mean())
+        clear = lambda w: (w & -128).view(torch.float32)  # noqa: E731
+        err = float((clear(wk) - clear(wp)).abs().max())
+        rel = float(((clear(wk) - clear(wp)).abs() / clear(wp).abs()).max())
+        hits = int((out_k < 1e38).sum())
+        plain = lab.time_ms(lambda: t5.subvisit_plain(rays, tris, lst, n_bands,
+                                                      inter), 1, dev)
+        log(f"phase 12 T5 {name}: {hits} of {out_k.numel()} rays hit, words "
+            f"equal on {same:.6f}, t rel err {rel:.3e}; plain {plain:.4f} ms "
+            f"[{card}]")
+        if same < 0.999 or rel > 1e-5:
+            raise AssertionError(f"phase 12 T5 {name}: kernel vs plain")
+        recs[name] = (err, plain)
+    t5.reset_launch_counts()
+    res = t5.main(device=dev)
+    return [lab_row(f"T5 sub-visit, {name} (launches of the "
+                    f"{'plain' if name == 'plain' else 'sub'} kernel)",
+                    "lab_subvisit.cu",
+                    f"tools/proto_subvisit.py:{52 if name == 'plain' else 68}",
+                    t5.plain_launches if name == "plain" else t5.sub_launches,
+                    recs[name][0], res[name]["ms"], recs[name][1],
+                    (res[name]["bound_ms"], res[name]["bound_by"]))
+            for name in t5.VARIANTS]
+
+
+def lab_cluster_cost(card, tc, dev="cuda") -> list:
+    """T1 on bench_scene at 512x512: every lab variant equal to its plain
+    version (floor a copy, the words and counts equal), B1 ("full") against
+    its twin, each timed beside its plain version; then the tool's main(),
+    which prints the split of B1's time."""
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+    from hydracore_tpu_torch.tools import exp_kernel_cost as t1
+
+    scene = bench_scene(t1.W, t1.W).to(dev)
+    rays, oct_ = t1.lab_rays(scene)
+    cbl = scene.cl_bounds_oct
+    recs = {}
+    for v in t1.ALL:
+        kind, n = t1.parse(v)
+        if kind == "full":
+            pool = (cbl, scene.cl_tris, scene.cl_oct_perm)
+            tk, sk = tc.cluster_traverse(rays, *pool)
+            tt, st = tc.cluster_traverse_plain(rays, *pool)
+            torch.cuda.synchronize()
+            hit = sk >= 0
+            same = float((sk[hit] == st[hit]).float().mean())
+            if (not torch.equal(hit, st >= 0) or not hit.any()
+                    or not torch.equal(tk[hit], tt[hit]) or same < 0.999):
+                raise AssertionError("phase 12 T1 full: B1 differs from its "
+                                     f"twin (slots equal on {same})")
+            err = float((tk[hit] - tt[hit]).abs().max())
+            plain = lab.time_ms(lambda: tc.cluster_traverse_plain(rays, *pool),
+                                1, dev)
+            recs[v] = (err, plain, cluster_bound_ms(scene, rays, tk.reshape(-1)))
+        else:
+            out_k, outi_k = t1.cluster_cost(kind, rays, oct_, cbl, n)
+            out_p, outi_p = t1.cluster_cost_plain(kind, rays, oct_, cbl, n)
+            torch.cuda.synchronize()
+            if not (torch.equal(out_k, out_p) and torch.equal(outi_k, outi_p)):
+                raise AssertionError(f"phase 12 T1 {v}: kernel differs from plain")
+            plain = lab.time_ms(
+                lambda: t1.cluster_cost_plain(kind, rays, oct_, cbl, n), 1, dev)
+            recs[v] = (0.0, plain, t1.variant_bound_ms(kind, n, rays, cbl))
+        what = (f"B1 against its twin: hit masks and t equal, slots equal "
+                f"on {same:.6f}" if kind == "full"
+                else "equal to the plain version")
+        log(f"phase 12 T1 {v}: {what}; plain {recs[v][1]:.4f} ms, bound "
+            f"{recs[v][2][0]:.5f} ms ({recs[v][2][1]}) [{card}]")
+    t1.reset_launch_counts()
+    tc.reset_launch_counts()
+    res = t1.main("all", device=dev)
+    counts = {"floor": t1.floor_launches, "fm": t1.floor_launches,
+              "stagea": t1.stagea_launches, "compact": t1.compact_launches,
+              "full": tc.closest_launches}
+    lines = {"floor": 104, "fm": 228, "stagea": 111, "compact": 168,
+             "full": 219}
+    whose = {"floor": "the floor kernel: floor, fmN", "fm": "the floor kernel: "
+             "floor, fmN", "stagea": "the stage A kernel", "compact":
+             "the compaction kernel", "full": "B1 on the lab's rays"}
+    rows = []
+    for v in t1.ALL:
+        kind, _ = t1.parse(v)
+        src = CLUSTER_CU.split("/")[-1] if kind == "full" else "lab_cluster_cost.cu"
+        rows.append(lab_row(
+            f"T1 cluster cost, {v} (launches of {whose[kind]})", src,
+            f"tools/exp_kernel_cost.py:{lines[kind]}", counts[kind],
+            recs[v][0], res[v]["ms"], recs[v][1], recs[v][2]))
+    return rows
 
 
 def kernel_rows(kernels, label, source, replaces, recs, launches) -> list:
@@ -647,7 +842,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from hydracore_tpu_torch.integrators import pt
     from hydracore_tpu_torch.ops import trace_api
     from hydracore_tpu_torch.ops import traverse_cluster as tc
@@ -655,20 +849,27 @@ def main() -> int:
     from hydracore_tpu_torch.ops import traverse_packet as tp
     from hydracore_tpu_torch.scene.procedural import bench_builder, bench_scene
     from hydracore_tpu_torch.scene.scene import assemble
+    from hydracore_tpu_torch.tools import bench_pallas_gather as t7
+    from hydracore_tpu_torch.tools import exp_kernel_cost as t1
+    from hydracore_tpu_torch.tools import proto_prims as t6
+    from hydracore_tpu_torch.tools import proto_subvisit as t5
     from hydracore_tpu_torch.utils import build
 
     dev = torch.device("cuda")
-    card = gpu_name_power()
+    card = lab.device_label(dev)
     t_start = time.time()
 
     # ---- phase 1: build every native source, compilers in parallel
     t0 = time.time()
-    srcs = ["traverse_cluster.cu", "traverse_packet.cu", "bvh_builder.cpp"]
+    srcs = ["traverse_cluster.cu", "traverse_packet.cu", "bvh_builder.cpp",
+            *LAB_SRCS]
     started = {s: build.start_build(s) for s in srcs}
     for s in srcs:
         build.finish_build(s, started[s])
     tc._kernel_lib()
     tp._kernel_lib()
+    for tool in (t1, t5, t6, t7):
+        tool._kernel_lib()
     log(f"phase 1 build: {time.time() - t0:.2f} s ({', '.join(srcs)})")
 
     # ---- phase 2-5: the flat pool (B1, B2)
@@ -826,6 +1027,15 @@ def main() -> int:
         f"route's image: {close:.4f}")
     if close < 0.99:
         raise AssertionError(f"packet vs cluster route image: {close}")
+
+    # ---- phase 12: the kernel lab, each tool's kernels at its own size
+    t0 = time.time()
+    lab_rows = (lab_gather(card) + lab_prims(card) + lab_subvisit(card)
+                + lab_cluster_cost(card, tc))
+    if any(r["launches"] <= 0 for r in lab_rows):
+        raise AssertionError("phase 12: a lab kernel was not launched by its "
+                             "tool's main()")
+    log(f"phase 12 kernel lab: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -847,7 +1057,8 @@ def main() -> int:
             + kernel_rows(b4, f"{host_pkt.wbvh_nodes.shape[0]} wide nodes, "
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
-                          counted(pkt_counts, "pkt_")))
+                          counted(pkt_counts, "pkt_"))
+            + lab_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,13 @@ any_launches (B1/B2) and inst_closest_launches / inst_any_launches (B3).
 """
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import torch
 
 from hydracore_tpu_torch.ops.intersect import (mt_refine, safe_inv,
                                                 want_double)
+from hydracore_tpu_torch.utils.build import CI, VP, launch, load_lib
 
 BIG = 3.0e38
 LANES = 128
@@ -53,16 +53,8 @@ def reset_launch_counts() -> None:
 def _kernel_lib():
     global _lib
     if _lib is None:
-        from hydracore_tpu_torch.utils.build import build
-
-        lib = ctypes.CDLL(build("traverse_cluster.cu"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hydra_cluster_traverse.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                               ci, ci, ci, ci, ci, vp]
-        lib.hydra_cluster_traverse.restype = ci
-        lib.hydra_cuda_error_string.argtypes = [ci]
-        lib.hydra_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load_lib("traverse_cluster.cu", "hydra_cluster_traverse",
+                        [VP] * 8 + [CI] * 5 + [VP])
     return _lib
 
 
@@ -128,18 +120,11 @@ def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
         cl_map, inst_woop = cl_map.contiguous(), inst_woop.contiguous()
     t = torch.empty((G, r_blk), dtype=torch.float32, device=rays.device)
     slot = torch.empty((G, r_blk), dtype=torch.int32, device=rays.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = lib.hydra_cluster_traverse(
-            rays.data_ptr(), cbl_oct.data_ptr(), tris.data_ptr(),
-            perm.data_ptr(), cl_map.data_ptr() if inst else None,
-            inst_woop.data_ptr() if inst else None, t.data_ptr(),
-            slot.data_ptr(), G * r_blk, r_blk, Cp, P, int(any_hit_mode),
-            stream)
-    if err != 0:
-        msg = lib.hydra_cuda_error_string(err).decode()
-        raise RuntimeError(f"cluster traversal kernel launch failed: {msg}")
+    launch(_kernel_lib(), "hydra_cluster_traverse", "cluster traversal",
+           rays.device, rays.data_ptr(), cbl_oct.data_ptr(), tris.data_ptr(),
+           perm.data_ptr(), cl_map.data_ptr() if inst else None,
+           inst_woop.data_ptr() if inst else None, t.data_ptr(),
+           slot.data_ptr(), G * r_blk, r_blk, Cp, P, int(any_hit_mode))
     this = sys.modules[__name__]
     name = ("inst_" if inst else "") + ("any" if any_hit_mode else "closest") \
         + "_launches"

@@ -21,7 +21,6 @@ itself adds nothing to the launch.
 """
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import numpy as np
@@ -29,11 +28,14 @@ import torch
 
 from hydracore_tpu_torch.bvh.wide import EMPTY_PAYLOAD
 from hydracore_tpu_torch.ops.intersect import safe_inv
+from hydracore_tpu_torch.utils.build import CI, VP, launch, load_lib
 
 PKT = 32            # rays per packet: one warp
 STACK_D = 384       # shared stack depth (>= 7 * wide-tree depth + 9)
 MAX_VISITS = 65536  # safety bound on the entries a packet pops
 BIG = 3.0e38
+# traverse_packet.cu's name for the text of a CUDA error
+ERR_FN = "hydra_packet_error_string"
 
 closest_launches = 0
 any_launches = 0
@@ -53,14 +55,8 @@ def reset_launch_counts() -> None:
 def _kernel_lib():
     global _lib
     if _lib is None:
-        from hydracore_tpu_torch.utils.build import build
-
-        lib = ctypes.CDLL(build("traverse_packet.cu"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hydra_packet_traverse.argtypes = [vp] * 8 + [ci, ci, vp]
-        lib.hydra_packet_traverse.restype = ci
-        lib.hydra_packet_error_string.argtypes = [ci]
-        lib.hydra_packet_error_string.restype = ctypes.c_char_p
+        lib = load_lib("traverse_packet.cu", "hydra_packet_traverse",
+                       [VP] * 8 + [CI, CI, VP], err_fn=ERR_FN)
         built = (lib.hydra_packet_size(), lib.hydra_packet_stack_depth(),
                  lib.hydra_packet_max_visits())
         if built != (PKT, STACK_D, MAX_VISITS):
@@ -128,16 +124,10 @@ def packet_traverse(rays, nodes, tris, any_hit_mode: bool = False):
                for _ in range(3))
     slot = torch.empty((G, PKT), dtype=torch.int32, device=dev)
     visits = torch.empty((G,), dtype=torch.int32, device=dev)
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hydra_packet_traverse(
-            rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(), t.data_ptr(),
-            u.data_ptr(), v.data_ptr(), slot.data_ptr(), visits.data_ptr(),
-            G * PKT, int(any_hit_mode), stream)
-    if err != 0:
-        msg = lib.hydra_packet_error_string(err).decode()
-        raise RuntimeError(f"packet traversal kernel launch failed: {msg}")
+    launch(_kernel_lib(), "hydra_packet_traverse", "packet traversal", dev,
+           rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(), t.data_ptr(),
+           u.data_ptr(), v.data_ptr(), slot.data_ptr(), visits.data_ptr(),
+           G * PKT, int(any_hit_mode), err_fn=ERR_FN)
     this = sys.modules[__name__]
     if any_hit_mode:
         this.any_launches += 1

@@ -1,22 +1,31 @@
 """Build native code of the port into its git-ignored build directory.
 
-Three sources are compiled at first use, never next to the source and never
+The sources are compiled at first use, never next to the source and never
 at import time:
   * csrc/bvh_builder.cpp    -> _build/libbvh_builder.so   (g++, host)
   * csrc/traverse_cluster.cu -> _build/libtraverse_cluster.so (nvcc, sm_90a)
   * csrc/traverse_packet.cu -> _build/libtraverse_packet.so (nvcc, sm_90a)
+and the kernel lab's (hydracore_tpu_torch/tools/), nvcc for sm_90a each:
+  * csrc/lab_gather.cu, csrc/lab_prims.cu, csrc/lab_subvisit.cu,
+    csrc/lab_cluster_cost.cu -> _build/lib<name>.so
 
-All expose a plain C interface loaded with ctypes, so a build takes
-seconds (no PyTorch headers). Outputs are written under a temporary name
-and renamed into place, so concurrent processes (test workers) never load
-a half-written library.
+All expose a plain C interface loaded with ctypes (load_lib), so a build
+takes seconds (no PyTorch headers); launch() calls a kernel's C function on
+a tensor's card and raises if the launch failed. Outputs are written under
+a temporary name and renamed into place, so concurrent processes (test
+workers) never load a half-written library.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
+
+VP, CI = ctypes.c_void_p, ctypes.c_int
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -97,3 +106,30 @@ def finish_build(src_name: str, started) -> str:
 def build(src_name: str) -> str:
     """Compile `src_name` from csrc/ if stale; returns the library path."""
     return finish_build(src_name, start_build(src_name))
+
+
+def load_lib(src_name: str, fn_name: str, argtypes: list,
+             err_fn: str = "hydra_cuda_error_string"):
+    """Build csrc/`src_name` if stale and load it. `fn_name` takes
+    `argtypes` and returns a CUDA error code (0 on success), which the
+    library's `err_fn` turns into text."""
+    lib = ctypes.CDLL(build(src_name))
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = CI
+    err = getattr(lib, err_fn)
+    err.argtypes = [CI]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(lib, fn_name: str, what: str, device, *args,
+           err_fn: str = "hydra_cuda_error_string") -> None:
+    """Call lib.`fn_name`(*args, stream) with `device` the current card and
+    its current stream; raise with the error's text if the launch failed."""
+    with torch.cuda.device(device):
+        err = getattr(lib, fn_name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = getattr(lib, err_fn)(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")

@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: kernels B1/B2 (flat and
 partitioned pools), B3 (instanced pools) and B4 (warp packets over the
-8-wide BVH) against their plain twins, and the path tracer on the card
-against the CPU twins, by the cluster and by the packet route.
+8-wide BVH) against their plain twins, the path tracer on the card
+against the CPU twins, by the cluster and by the packet route, and the
+kernel lab's kernels T1, T5, T6 and T7 (hydracore_tpu_torch/tools/)
+against their plain versions on the card.
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -11,7 +13,9 @@ so it runs on a machine with the card:
 Tolerances: kernel and twin share their arithmetic (no fast math, no FMA
 contraction) and, for B4, their packet size and walk order, so t, u, v,
 slots, occlusion and visit counts must be equal; the card's image must
-agree with the CPU twins' image within 1e-3 on >= 99% of pixels.
+agree with the CPU twins' image within 1e-3 on >= 99% of pixels. The lab
+kernels round every operation as their plain versions do (separate
+multiplies and adds, IEEE division), so their outputs must be equal.
 """
 import xml.etree.ElementTree as ET
 
@@ -26,6 +30,10 @@ from hydracore_tpu_torch.scene import statefile as sf
 from hydracore_tpu_torch.scene.procedural import SceneBuilder
 from hydracore_tpu_torch.scene.scene import assemble
 from hydracore_tpu_torch.scene.vsgf import MeshData
+from hydracore_tpu_torch.tools import bench_pallas_gather as t7
+from hydracore_tpu_torch.tools import exp_kernel_cost as t1
+from hydracore_tpu_torch.tools import proto_prims as t6
+from hydracore_tpu_torch.tools import proto_subvisit as t5
 
 
 @pytest.fixture
@@ -322,3 +330,61 @@ def test_instanced_render_on_card(cuda):
                   .float().mean())
     assert agree >= 0.99, agree
     assert float(((img_card - img_flat) ** 2).mean()) < 1e-4
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+def test_lab_gather_kernel_matches_plain(cuda, onehot):
+    pool, idx = t7.inputs(2000, 512, device=cuda)  # 2000 rows: 250 CTAs
+    before = (t7.gather_launches, t7.onehot_launches)
+    out_k = t7.gather(pool, idx, onehot=onehot)
+    after = (t7.gather_launches, t7.onehot_launches)
+    out_p = t7.gather_plain(pool, idx, onehot=onehot)
+    torch.cuda.synchronize()
+    assert after[int(onehot)] == before[int(onehot)] + 1
+    assert after[1 - int(onehot)] == before[1 - int(onehot)]
+    assert torch.equal(out_k, out_p)
+
+
+def test_lab_prim_kernels_match_plain(cuda):
+    x, xi = t6.inputs(cuda)
+    rng = np.random.default_rng(2)
+    xr = torch.tensor(rng.normal(size=t6.SHAPE).astype(np.float32), device=cuda)
+    before = t6.prim_launches
+    for k in range(1, 11):
+        for xx in (x, xr):
+            assert torch.equal(t6.prim(k, xx, xi), t6.prim_plain(k, xx, xi)), k
+    assert t6.prim_launches == before + 20
+
+
+@pytest.mark.parametrize("name", list(t5.VARIANTS))
+def test_lab_subvisit_kernel_matches_plain(cuda, name):
+    n_bands, interleave = t5.VARIANTS[name]
+    rays, tris, lst = t5.inputs(4, 16, 8, seed=1, device=cuda)
+    before = t5.plain_launches + t5.sub_launches
+    out_k = t5.subvisit(rays, tris, lst, n_bands, interleave)
+    assert t5.plain_launches + t5.sub_launches == before + 1
+    out_p = t5.subvisit_plain(rays, tris, lst, n_bands, interleave)
+    torch.cuda.synchronize()
+    assert 0 < int((out_k < 1e38).sum()) < out_k.numel()
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["floor", "fm4", "stagea1", "stagea3",
+                                     "compact1", "compact2"])
+def test_lab_cluster_cost_kernel_matches_plain(cuda, variant):
+    sc = t1.bench_scene(64, 64).to(cuda)
+    rays, oct_ = t1.lab_rays(sc, 64)
+    rays[0, :, 7] = 0.0  # a block without a live ray: its scan ends at once
+    rays[1, ::2, 7] = 0.0  # dead rays of a live block still set bits
+    kind, n = t1.parse(variant)
+    counts = lambda: (t1.floor_launches, t1.stagea_launches,  # noqa: E731
+                      t1.compact_launches)
+    before = counts()
+    out_k, outi_k = t1.cluster_cost(kind, rays, oct_, sc.cl_bounds_oct, n)
+    after = counts()
+    out_p, outi_p = t1.cluster_cost_plain(kind, rays, oct_, sc.cl_bounds_oct, n)
+    torch.cuda.synchronize()
+    assert sum(after) == sum(before) + 1
+    assert torch.equal(outi_k, outi_p) and torch.equal(out_k, out_p)
+    if kind in ("stagea", "compact"):
+        assert float(out_k.max()) > 0

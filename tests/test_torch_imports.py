@@ -1,4 +1,5 @@
-"""The PyTorch port imports nothing of JAX, flax or the JAX package.
+"""The PyTorch port imports nothing of JAX, flax, the JAX package or the
+JAX package's tools/.
 
 A source scan of every module of hydracore_tpu_torch/ and chip_smoke.py,
 and an import of every module in a fresh interpreter that must leave jax
@@ -11,7 +12,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|flax|hydracore_tpu)(\.|\s|$)", re.M)
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|hydracore_tpu|tools)(\.|\s|$)",
+    re.M)
 
 
 def _sources():
@@ -29,7 +31,9 @@ def test_sources_import_no_jax():
             "scene/materials.py", "scene/lights.py", "lights/ies.py",
             "bvh/instanced.py", "bvh/clusters.py", "bvh/wide.py",
             "ops/trace_api.py", "ops/traverse_dense.py", "ops/traverse_wide.py",
-            "ops/traverse_packet.py"} <= names
+            "ops/traverse_packet.py", "tools/bench_pallas_gather.py",
+            "tools/proto_prims.py", "tools/proto_subvisit.py",
+            "tools/exp_kernel_cost.py", "utils/lab.py"} <= names
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -43,7 +47,7 @@ def test_import_leaves_jax_unloaded():
         "    importlib.import_module(m.name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'hydracore_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'hydracore_tpu', 'tools'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith(pkg.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
