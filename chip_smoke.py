@@ -41,6 +41,18 @@ probes where one PyTorch call computes them against that call), then each
 tool's main() run with its launch counters set to 0 just before and read
 just after; main() times each lab kernel as the mean of a CUDA graph of
 its calls, without the host's issue time.
+Phase 13 is the lab's traversal prototypes, each tool's main() first, with
+its launch counter set to 0 just before and read just after, and its
+outputs and times then used by the checks: T2 (the dense cluster
+traversal over synthetic clusters, 262,144 rays, C 256) in the tool's eight
+jobs, kernel against plain version bit for bit, the MXU job without a hit,
+and once more with random plane columns, where the Plucker test must hit;
+T3 and T4 (packets of 128 and 1024 rays) on bench_scene at 512x512 with the
+tools' coherent and incoherent rays, each against its plain version on
+16,384 rays from the middle of the set (t, u, v, slot, visits equal), the
+packets at MAX_VISITS logged; B4 on the same rays against both (hit masks,
+t on hits, slots on >= 99.9%), the three packet sizes timed side by side
+against one bound.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -602,7 +614,7 @@ def instanced_desc(width: int, height: int):
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
 LAB_SRCS = ["lab_gather.cu", "lab_prims.cu", "lab_subvisit.cu",
-            "lab_cluster_cost.cu"]
+            "lab_cluster_cost.cu", "lab_cluster.cu", "lab_packet.cu"]
 
 
 def lab_row(name, src, replaces, launches, err, ms, plain_ms, bound,
@@ -812,6 +824,165 @@ def lab_cluster_cost(card, tc, dev="cuda") -> list:
     return rows
 
 
+def lab_proto_cluster(card, dev="cuda") -> list:
+    """T2 at the tool's size (262,144 probe rays, C 256): the tool's main()
+    with its counter read, then each of its eight jobs' outputs against the
+    plain version (out and outi equal bit for bit), the plain version timed
+    on the same inputs; the MXU job without a hit in either; the MXU variant
+    once more with random plane columns in pk, where it must hit and agree
+    too."""
+    from hydracore_tpu_torch.tools import proto_cluster as t2
+
+    t2.reset_launch_counts()
+    res = t2.main(device=dev)
+    launches = t2.launches
+    rays = {rb: torch.tensor(t2.probe_rays(rb)).to(dev) for rb in t2.R_BLKS}
+    synth = {a: t2.synth(t2.C, a) for a in sorted({j[1] for j in t2.JOBS})}
+    scenes = {a: tuple(torch.tensor(x).to(dev) for x in s)
+              for a, s in synth.items()}
+    planes = torch.tensor(t2.with_planes(synth[16][2])).to(dev)
+    recs = {}
+    for v, a, mxu, rb, pk in [j + (None,) for j in t2.JOBS] + [
+            ("full", 16, True, 1024, planes)]:
+        cb, tris, pk0 = scenes[a]
+        pk = pk0 if pk is None else pk
+        mode = t2.MODES[v]
+        name = t2.job_name(v, a, mxu, rb)
+        out_k, outi_k = (t2.proto_cluster(rays[rb], cb, tris, pk, mxu, mode)
+                         if pk is planes else res[name]["out"])
+        plain, (out_p, outi_p) = lab.time_ms(lambda: t2.proto_cluster_plain(
+            rays[rb], cb, tris, pk, mxu, mode), 1, dev, result=True)
+        if not (torch.equal(out_k, out_p) and torch.equal(outi_k, outi_p)):
+            raise AssertionError(f"phase 13 T2 {name}: kernel differs from plain")
+        hits = [int((o[:, :, 0] >= 0).sum()) for o in (outi_k, outi_p)]
+        n_act = out_k[:, 0, 1]
+        what = "plane columns" if pk is planes else "the tool's synth"
+        log(f"phase 13 T2 {name} ({what}): kernel equal to the plain version "
+            f"(out, outi); n_act per block {float(n_act.min()):.0f}-"
+            f"{float(n_act.max()):.0f}, hits {hits[0]}; plain {plain:.4f} ms "
+            f"[{card}]")
+        if pk is planes:
+            if hits[0] == 0:
+                raise AssertionError("phase 13 T2: no Plucker hit with plane columns")
+        elif mxu and hits != [0, 0]:
+            raise AssertionError(f"phase 13 T2 {name}: the MXU job hit: {hits}")
+        else:
+            recs[name] = plain
+    return [lab_row(f"T2 proto cluster, {name} (launches of all eight jobs)",
+                    "lab_cluster.cu", "tools/proto_cluster.py:189",
+                    launches, 0.0, res[name]["ms"], recs[name],
+                    (res[name]["bound_ms"], res[name]["bound_by"]))
+            for name in recs]
+
+
+# the rays of each set on which T3 and T4 are held against their plain
+# version: 16 T4 packets, 128 T3 packets from the middle of the set (the
+# middle columns of the coherent grid, which hit the scene); the plain walk
+# steps once per entry its busiest packet pops, a few ms a step at 2^18 rays
+N_PLAIN = 16384
+PLAIN_AT = (262144 - N_PLAIN) // 2
+
+
+def lab_packet_walks(card, tp, dev="cuda") -> list:
+    """T3 and T4 on bench_scene(512, 512) with the tools' two ray sets of
+    262,144 rays: each tool's main() with its counter read, then its
+    kernel's outputs against the plain version on N_PLAIN rays from the
+    middle of the set (t, u, v, slot and visits equal), the packets at
+    MAX_VISITS logged; then B4 (32-ray packets) on the same rays, held
+    against both on the packets under their MAX_VISITS (hit masks equal, t
+    equal on hits, slots equal on >= 99.9%), the three timed side by side
+    against one bound (packet_bound_ms)."""
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+    from hydracore_tpu_torch.tools import proto_packet as t3
+    from hydracore_tpu_torch.tools import proto_packet2 as t4
+
+    scene = bench_scene(t3.W, t3.W).to(dev)
+    rays = t3.tool_rays()
+    log(f"phase 13 packet walks: bench_scene(512, 512), "
+        f"{scene.wbvh_nodes.shape[0]} wide nodes (depth {scene.wbvh_depth}), "
+        f"{scene.wbvh_tri9f.shape[0]} leaf blocks; {t3.N_RAYS} rays a set")
+    res, launches, recs = {}, {}, {}
+    for tool in (t3, t4):
+        tool.reset_launch_counts()
+        res[tool.TOOL] = tool.main(device=dev, scene=scene)
+        launches[tool.TOOL] = tool.launches
+        nodes, tris = tool.pack_scene(scene)
+        for name, (ro, rd) in rays.items():
+            packed = tool.pack_rays(ro, rd).to(dev)
+            k = res[tool.TOOL][name]["out"]
+            plain, p = lab.time_ms(lambda: tool.unpack(
+                tool.packet_traverse_plain(tool.ray_range(
+                    packed, PLAIN_AT, N_PLAIN), nodes, tris)), 1, dev,
+                result=True)
+            at, n_pk = PLAIN_AT // tool.P, N_PLAIN // tool.P
+            same = [torch.equal(x[PLAIN_AT:PLAIN_AT + N_PLAIN], y)
+                    for x, y in zip(k[:4], p[:4])]
+            same.append(torch.equal(k[4][at:at + n_pk], p[4]))
+            if not all(same):
+                raise AssertionError(f"phase 13 T{tool.TOOL} {name}: kernel "
+                                     f"differs from plain (t, slot, u, v, "
+                                     f"visits equal: {same})")
+            vis = k[4]
+            at_max = int((vis >= tool.MAX_VISITS).sum())
+            log(f"phase 13 T{tool.TOOL} {name}: kernel equal to the plain "
+                f"version on rays {PLAIN_AT}-{PLAIN_AT + N_PLAIN - 1} "
+                f"(packets {at}-{at + n_pk - 1} of "
+                f"{tool.P}: t, u, v, slot, visits); hits {int((k[1] >= 0).sum())}"
+                f", entries popped per packet mean {float(vis.float().mean()):.1f}"
+                f", most {int(vis.max())}; {at_max} of {vis.numel()} packets at "
+                f"MAX_VISITS {tool.MAX_VISITS}; plain {plain:.4f} ms on "
+                f"those rays [{card}]")
+            recs[tool.TOOL, name] = plain
+    bounds = {}
+    for name, (ro, rd) in rays.items():
+        packets, _ = tp._to_packets(torch.tensor(ro).to(dev),
+                                    torch.tensor(rd).to(dev), 1e30, None)
+        tk, _, _, sk, nk = tp.packet_traverse(packets, scene.pkt_nodes,
+                                              scene.pkt_tris)
+        torch.cuda.synchronize()
+        if int(nk.max()) >= tp.MAX_VISITS:
+            raise AssertionError(f"phase 13 B4 {name}: a packet reached MAX_VISITS")
+        log(f"phase 13 B4 {name}: hits {int((sk >= 0).sum())}, entries popped "
+            f"per packet of {tp.PKT} mean {float(nk.float().mean()):.1f}, most "
+            f"{int(nk.max())}")
+        tk, sk = tk.reshape(-1), sk.reshape(-1)
+        for tool in (t3, t4):
+            t, slot, _, _, vis = res[tool.TOOL][name]["out"]
+            under = (vis < tool.MAX_VISITS).repeat_interleave(tool.P)
+            hb, ht = (sk >= 0)[under], (slot >= 0)[under]
+            if not torch.equal(hb, ht):
+                raise AssertionError(f"phase 13 {name}: B4 and T{tool.TOOL} "
+                                     f"hit masks differ on {int((hb != ht).sum())}")
+            h = under & (sk >= 0)
+            t_same = torch.equal(tk[h], t[h])
+            s_same = float((sk[h] == slot[h]).float().mean())
+            log(f"phase 13 {name}: B4 against T{tool.TOOL} on the rays of "
+                f"{int(under.sum()) // tool.P} packets under MAX_VISITS: hit "
+                f"masks equal, t equal on hits: {t_same}, slots equal on "
+                f"{s_same:.6f}")
+            if not t_same or s_same < 0.999:
+                raise AssertionError(f"phase 13 {name}: B4 against T{tool.TOOL}")
+        b4_ms = lab.time_ms(lambda: tp.packet_traverse(
+            packets, scene.pkt_nodes, scene.pkt_tris), 10, dev, graph=True)
+        bms, by, note = packet_bound_ms(scene, packets, tk)
+        bounds[name] = (bms, by)
+        log(f"phase 13 {name}: packets of 32 (B4) {b4_ms:.4f} ms, of 128 (T3) "
+            f"{res[3][name]['ms']:.4f} ms, of 1024 (T4) {res[4][name]['ms']:.4f}"
+            f" ms; bound {bms:.5f} ms ({by}: {note}) [{card}]")
+    rows = []
+    for tool in (t3, t4):
+        line = 163 if tool is t3 else 152
+        for name in rays:
+            rows.append(lab_row(
+                f"T{tool.TOOL} packet walk of {tool.P}, {name} rays on "
+                f"bench_scene 512 (launches of both sets; plain ms on rays "
+                f"{PLAIN_AT}-{PLAIN_AT + N_PLAIN - 1})", "lab_packet.cu",
+                f"tools/{tool.__name__.split('.')[-1]}.py:{line}",
+                launches[tool.TOOL], 0.0, res[tool.TOOL][name]["ms"],
+                recs[tool.TOOL, name], bounds[name]))
+    return rows
+
+
 def kernel_rows(kernels, label, source, replaces, recs, launches) -> list:
     """The "kernels" records of one main path: one row per hit mode, times
     summed over the wavefronts named in the row. `kernels` names the
@@ -851,6 +1022,9 @@ def main() -> int:
     from hydracore_tpu_torch.scene.scene import assemble
     from hydracore_tpu_torch.tools import bench_pallas_gather as t7
     from hydracore_tpu_torch.tools import exp_kernel_cost as t1
+    from hydracore_tpu_torch.tools import proto_cluster as t2
+    from hydracore_tpu_torch.tools import proto_packet as t3
+    from hydracore_tpu_torch.tools import proto_packet2 as t4
     from hydracore_tpu_torch.tools import proto_prims as t6
     from hydracore_tpu_torch.tools import proto_subvisit as t5
     from hydracore_tpu_torch.utils import build
@@ -868,7 +1042,7 @@ def main() -> int:
         build.finish_build(s, started[s])
     tc._kernel_lib()
     tp._kernel_lib()
-    for tool in (t1, t5, t6, t7):
+    for tool in (t1, t2, t3, t4, t5, t6, t7):
         tool._kernel_lib()
     log(f"phase 1 build: {time.time() - t0:.2f} s ({', '.join(srcs)})")
 
@@ -1036,6 +1210,15 @@ def main() -> int:
         raise AssertionError("phase 12: a lab kernel was not launched by its "
                              "tool's main()")
     log(f"phase 12 kernel lab: {time.time() - t0:.2f} s")
+
+    # ---- phase 13: the lab's traversal prototypes T2, T3, T4 (and B4 on
+    # T3's and T4's rays)
+    t0 = time.time()
+    trav_rows = lab_proto_cluster(card) + lab_packet_walks(card, tp)
+    if any(r["launches"] <= 0 for r in trav_rows):
+        raise AssertionError("phase 13: a lab kernel was not launched by its "
+                             "tool's main()")
+    log(f"phase 13 traversal prototypes: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -1058,7 +1241,7 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + lab_rows)
+            + lab_rows + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,4 +13,13 @@ tool's lines with the card's name and power limit beside every time:
   exp_kernel_cost      T1  the cluster kernel's time split into floor, box
                            scan, compaction and the whole kernel
                            (csrc/lab_cluster_cost.cu, and B1 for "full")
+  proto_cluster        T2  dense cluster traversal of synthetic clusters,
+                           Moller-Trumbore or the Plucker "MXU" variant
+                           (csrc/lab_cluster.cu); `all` runs the tool's
+                           eight jobs, `full 16 1 1024` one of them
+  proto_packet         T3  a 128-ray packet walk of the 8-wide BVH with a
+                           shared stack (csrc/lab_packet.cu)
+  proto_packet2        T4  the 1024-ray packet walk, the design of B4 in the
+                           JAX package (csrc/lab_packet.cu, a second
+                           instance of T3's template)
 """

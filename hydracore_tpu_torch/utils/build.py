@@ -7,7 +7,10 @@ at import time:
   * csrc/traverse_packet.cu -> _build/libtraverse_packet.so (nvcc, sm_90a)
 and the kernel lab's (hydracore_tpu_torch/tools/), nvcc for sm_90a each:
   * csrc/lab_gather.cu, csrc/lab_prims.cu, csrc/lab_subvisit.cu,
-    csrc/lab_cluster_cost.cu -> _build/lib<name>.so
+    csrc/lab_cluster_cost.cu, csrc/lab_cluster.cu, csrc/lab_packet.cu
+    -> _build/lib<name>.so
+(chip_smoke.py builds them all in its phase 1 and holds the lab's kernels
+against their plain versions in phases 12 and 13)
 
 All expose a plain C interface loaded with ctypes (load_lib), so a build
 takes seconds (no PyTorch headers); launch() calls a kernel's C function on

@@ -52,19 +52,21 @@ def device_label(device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int, device, graph: bool = False) -> float:
+def time_ms(fn, n: int, device, graph: bool = False, result: bool = False):
     """Mean time of one fn() over n calls, after one warm-up call. On the
     card: CUDA events around n back-to-back calls, or with `graph` around
     the replay of a CUDA graph that holds n calls, so that the host's time
     to issue a call is not in it (fn must then not synchronize; the graph is
     captured once, so a wrapper's launch counter sees n + 1 calls however
-    often it is replayed). On the CPU: the host clock."""
-    fn()
+    often it is replayed). On the CPU: the host clock. With `result`,
+    returns (ms, what the warm-up call returned)."""
+    res = fn()
     if torch.device(device).type != "cuda":
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
-        return (time.perf_counter() - t0) * 1e3 / n
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        return (ms, res) if result else ms
 
     def calls():
         for _ in range(n):
@@ -85,4 +87,5 @@ def time_ms(fn, n: int, device, graph: bool = False) -> float:
     run()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    ms = a.elapsed_time(b) / n
+    return (ms, res) if result else ms

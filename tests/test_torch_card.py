@@ -2,8 +2,8 @@
 partitioned pools), B3 (instanced pools) and B4 (warp packets over the
 8-wide BVH) against their plain twins, the path tracer on the card
 against the CPU twins, by the cluster and by the packet route, and the
-kernel lab's kernels T1, T5, T6 and T7 (hydracore_tpu_torch/tools/)
-against their plain versions on the card.
+kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
+plain versions on the card.
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -32,6 +32,9 @@ from hydracore_tpu_torch.scene.scene import assemble
 from hydracore_tpu_torch.scene.vsgf import MeshData
 from hydracore_tpu_torch.tools import bench_pallas_gather as t7
 from hydracore_tpu_torch.tools import exp_kernel_cost as t1
+from hydracore_tpu_torch.tools import proto_cluster as t2
+from hydracore_tpu_torch.tools import proto_packet as t3
+from hydracore_tpu_torch.tools import proto_packet2 as t4
 from hydracore_tpu_torch.tools import proto_prims as t6
 from hydracore_tpu_torch.tools import proto_subvisit as t5
 
@@ -388,3 +391,47 @@ def test_lab_cluster_cost_kernel_matches_plain(cuda, variant):
     assert torch.equal(outi_k, outi_p) and torch.equal(out_k, out_p)
     if kind in ("stagea", "compact"):
         assert float(out_k.max()) > 0
+
+
+@pytest.mark.parametrize("use_mxu", [False, True])
+@pytest.mark.parametrize("mode", sorted(t2.MODES.values()))
+@pytest.mark.parametrize("r_blk", t2.R_BLKS)
+def test_lab_proto_cluster_kernel_matches_plain(cuda, r_blk, mode, use_mxu):
+    """T2 on 4,096 of the tool's rays; the MXU variant with random plane
+    columns in pk, so that its hits are held too."""
+    cb, tris, pk = t2.synth(256, 16)
+    if use_mxu:
+        pk = t2.with_planes(pk)
+    rays = t2.probe_rays(r_blk, 4096)
+    args = [torch.tensor(x).to(cuda) for x in (rays, cb, tris, pk)]
+    before = t2.launches
+    out_k, outi_k = t2.proto_cluster(*args, use_mxu=use_mxu, mode=mode)
+    assert t2.launches == before + 1
+    out_p, outi_p = t2.proto_cluster_plain(*args, use_mxu=use_mxu, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and torch.equal(outi_k, outi_p)
+    hits = int((outi_k[:, :, 0] >= 0).sum())
+    assert (hits > 0) if mode == 0 else (hits == 0)
+
+
+@pytest.mark.parametrize("tool", [t3, t4])
+def test_lab_packet_walk_kernel_matches_plain(cuda, tool):
+    """T3 and T4 on the 350 rects, 2 packets of random rays: t, u, v, slot
+    and visits equal."""
+    sc = _rects_scene().to(cuda)
+    nodes, tris = tool.pack_scene(sc)
+    rng = np.random.default_rng(3)
+    R = 2 * tool.P
+    ro = rng.uniform(-6, 6, (R, 3)).astype(np.float32)
+    rd = rng.normal(size=(R, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rays = tool.pack_rays(ro, rd).to(cuda)
+    before = tool.launches
+    out_k = tool.unpack(tool.packet_traverse(rays, nodes, tris))
+    assert tool.launches == before + 1
+    out_p = tool.unpack(tool.packet_traverse_plain(rays, nodes, tris))
+    torch.cuda.synchronize()
+    assert 20 < int((out_k[1] >= 0).sum()) < R
+    assert 0 < int(out_k[4].min()) and int(out_k[4].max()) < tool.MAX_VISITS
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p)

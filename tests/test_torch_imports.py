@@ -33,7 +33,9 @@ def test_sources_import_no_jax():
             "ops/trace_api.py", "ops/traverse_dense.py", "ops/traverse_wide.py",
             "ops/traverse_packet.py", "tools/bench_pallas_gather.py",
             "tools/proto_prims.py", "tools/proto_subvisit.py",
-            "tools/exp_kernel_cost.py", "utils/lab.py"} <= names
+            "tools/exp_kernel_cost.py", "tools/proto_cluster.py",
+            "tools/proto_packet.py", "tools/proto_packet2.py",
+            "utils/lab.py"} <= names
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad

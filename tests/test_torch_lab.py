@@ -55,7 +55,9 @@ _JIT = jax.jit
 
 def _load_tool(name: str, mp):
     """Import tools/<name>.py under `mp` (a MonkeyPatch) with pallas_call
-    in interpret mode and without the tool's cache-dir setting."""
+    in interpret mode, without the tool's cache-dir setting, and with
+    sys.path as it was before (some tools put a directory of their own
+    machine in front of it)."""
     mp.setattr(pl, "pallas_call", functools.partial(_PALLAS_CALL, interpret=True))
     saved = jax.config.jax_compilation_cache_dir
     update = jax.config.update
@@ -69,11 +71,25 @@ def _load_tool(name: str, mp):
     mod = importlib.util.module_from_spec(spec)
     with pytest.MonkeyPatch.context() as cfg:
         cfg.setattr(jax.config, "update", update_but_cache_dir)
+        cfg.setattr(sys, "path", list(sys.path))
         try:
             spec.loader.exec_module(mod)
         finally:
             update("jax_compilation_cache_dir", saved)
     return mod
+
+
+@pytest.mark.parametrize("name", ["bench_pallas_gather", "exp_kernel_cost",
+                                  "proto_cluster", "proto_packet",
+                                  "proto_packet2", "proto_prims",
+                                  "proto_subvisit"])
+def test_load_tool_leaves_path_and_cache_dir(name, monkeypatch):
+    """Loading a tool changes neither sys.path nor the cache dir, so later
+    imports of the same test process read this checkout."""
+    path, cache = list(sys.path), jax.config.jax_compilation_cache_dir
+    _load_tool(name, monkeypatch)
+    assert sys.path == path
+    assert jax.config.jax_compilation_cache_dir == cache
 
 
 class _JitRecorder:
