@@ -11,7 +11,8 @@ depth 5, seed 777, each through its kernels:
   instanced    a cornell box holding 24 transformed instances of one
                25,280-triangle mesh, assembled from a SceneDesc with
                instancing="auto" (over 400,000 flattened triangles), through
-               B3 in both hit modes;
+               B3 in both hit modes (a two-level walk: the positions and
+               Woop blocks a ray block walks are logged per wavefront);
   partitioned  bench_scene with its large sphere at 201,600 triangles (a
                pool of three 1024-cluster chunks) through the chunk loop of
                B1 and B2;
@@ -132,22 +133,66 @@ def needed_visits(scene, rays, t_end) -> tuple[int, int]:
     return n_act, visits
 
 
+def inst_box_tests(scene, rays, t_end) -> int:
+    """Box tests the two-level walk of an instanced scene needs: one per
+    active ray and instance, and one per active ray and instance-cluster of
+    each instance whose box the ray enters before its final t."""
+    from hydracore_tpu_torch.ops.intersect import safe_inv
+    from hydracore_tpu_torch.ops.traverse_cluster import BIG, slab_enters
+
+    flat = rays.reshape(-1, 8)
+    act = flat[:, 7] > 0
+    te = torch.where(t_end <= -BIG * 0.5, flat[:, 6], t_end)
+    ent = slab_enters(flat[:, 0:3], safe_inv(flat[:, 3:6]), scene.inst_bounds,
+                      te) & act[:, None]
+    sizes = (scene.icl_start[1:] - scene.icl_start[:-1]).to(torch.int64)
+    return (int(act.sum()) * sizes.numel()
+            + int((ent.to(torch.int64) * sizes).sum()))
+
+
+def block_visits(scene, rays, t_end) -> torch.Tensor:
+    """Woop blocks each ray block needs: per block the real clusters some
+    active ray of it enters before its final t (an occluded ray: before its
+    limit). A walk that stages a cluster for the whole block stages at
+    least these. Returns (G,) int64."""
+    from hydracore_tpu_torch.ops.intersect import safe_inv
+    from hydracore_tpu_torch.ops.traverse_cluster import BIG, slab_enters
+
+    G, RB, _ = rays.shape
+    flat = rays.reshape(-1, 8)
+    te = torch.where(t_end <= -BIG * 0.5, flat[:, 6], t_end)
+    b = real_boxes(scene)
+    out = torch.zeros(G, dtype=torch.int64, device=rays.device)
+    step = max(1, (1 << 24) // (b.shape[1] * RB))  # blocks a step
+    for g in range(0, G, step):
+        f = flat[g * RB:(g + step) * RB]
+        ent = slab_enters(f[:, 0:3], safe_inv(f[:, 3:6]), b,
+                          te[g * RB:(g + step) * RB]) & (f[:, 7:8] > 0)
+        out[g:g + step] = ent.reshape(-1, RB, b.shape[1]).any(dim=1).sum(dim=1)
+    return out
+
+
 def cluster_bound_ms(scene, rays, t_end) -> tuple[float, str]:
     """The least time the card could take: rays in, t and slot out and the
-    scene's traversal arrays once, over the memory rate; box tests for
-    every active ray and real cluster, Woop lanes (and for an instanced
-    scene the ray's move into local space) for every cluster a ray enters
-    before its final t, over the f32 rate."""
+    scene's traversal arrays once, over the memory rate; over the f32 rate
+    box tests for every active ray and real cluster (an instanced scene:
+    inst_box_tests), Woop lanes (and for an instanced scene the ray's move
+    into local space) for every cluster a ray enters before its final t."""
+    from hydracore_tpu_torch.ops.traverse_cluster import INST_TABLES
+
     n = rays.shape[0] * rays.shape[1]
-    pool = [scene.cl_bounds_oct, scene.cl_tris, scene.cl_oct_perm]
     inst = scene.cl_map is not None
     if inst:
-        pool += [scene.cl_map, scene.inst_woop]
+        pool = [scene.cl_tris, scene.cl_map, scene.inst_woop,
+                *(getattr(scene, k) for k in INST_TABLES)]
+    else:
+        pool = [scene.cl_bounds_oct, scene.cl_tris, scene.cl_oct_perm]
     bytes_ = n * 8 * 4 + n * 8 + sum(x.numel() * x.element_size() for x in pool)
     n_act, visits = needed_visits(scene, rays, t_end)
-    C = real_boxes(scene).shape[1]
-    ops = n_act * C * OPS_BOX + visits * (128 * OPS_LANE
-                                          + (OPS_INST if inst else 0))
+    boxes = (inst_box_tests(scene, rays, t_end) if inst
+             else n_act * real_boxes(scene).shape[1])
+    ops = boxes * OPS_BOX + visits * (128 * OPS_LANE
+                                      + (OPS_INST if inst else 0))
     return lab.bound_ms(bytes_, ops)
 
 
@@ -231,12 +276,6 @@ def cluster_cases(tc, raw):
             for name, o, d, t_max, act, any_hit in raw]
 
 
-def scene_pool(scene) -> dict:
-    return dict(cbl_oct=scene.cl_bounds_oct, tris=scene.cl_tris,
-                perm=scene.cl_oct_perm, cl_map=scene.cl_map,
-                inst_woop=scene.inst_woop)
-
-
 def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
     """Hold the kernel against its twin on every wavefront of `cases`
     (equal hit masks, slots equal >= 0.999, t rel err <= 1e-5, occlusion
@@ -245,13 +284,15 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
     triangle equal >= 0.999), and time kernel and twin. Returns
     {"closest": [...], "any": [...]} of (name, ms, plain_ms, bound_ms,
     bound_by, max_abs_err) records."""
-    pool = scene_pool(scene)
+    pool = tc.scene_pool(scene)
+    # the twin walks every instance-cluster: it takes no instance level
+    twin_pool = {k: v for k, v in pool.items() if k not in tc.INST_TABLES}
     out = {"closest": [], "any": []}
     for name, rays, any_hit_mode in cases:
         n_rays = rays.shape[0] * rays.shape[1]
         tk, sk = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode, **pool)
         tt, stw = tc.cluster_traverse_plain(rays, any_hit_mode=any_hit_mode,
-                                            **pool)
+                                            **twin_pool)
         torch.cuda.synchronize()
         hk, ht = sk >= 0, stw >= 0
         if any_hit_mode:
@@ -277,9 +318,26 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
                 raise AssertionError(f"{tag} {name}: slots equal on {same}")
             if rel > 1e-5:
                 raise AssertionError(f"{tag} {name}: t rel err {rel}")
+        if scene.cl_map is not None:
+            # what the instance cull leaves of the Ci positions of a walk
+            # over every instance-cluster: at most (each ray's t limit) and
+            # at least (its final t; an occluded ray adds nothing)
+            most = tc.inst_walk_positions(rays, scene.inst_bounds,
+                                          scene.icl_start).float()
+            least = tc.inst_walk_positions(rays, scene.inst_bounds,
+                                           scene.icl_start,
+                                           tk.reshape(-1)).float()
+            visits = block_visits(scene, rays, tk.reshape(-1)).float()
+            log(f"{tag} {name}: positions a block walks, of "
+                f"{int(scene.icl_start[-1])} instance-clusters and "
+                f"{scene.icl_start.numel() - 1} instances: at most mean "
+                f"{float(most.mean()):.1f}, largest {int(most.max())}; at "
+                f"least mean {float(least.mean()):.1f}, largest "
+                f"{int(least.max())}; Woop blocks a block needs: mean "
+                f"{float(visits.mean()):.1f}, largest {int(visits.max())}")
         if flat_scene is not None:
             tf, sf = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode,
-                                         **scene_pool(flat_scene))
+                                         **tc.scene_pool(flat_scene))
             if not torch.equal(hk, sf >= 0):
                 raise AssertionError(f"{tag} {name}: hit masks differ from the "
                                      "flat-pool kernel's")
@@ -295,7 +353,7 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
         ms = lab.time_ms(lambda: tc.cluster_traverse(
             rays, any_hit_mode=any_hit_mode, **pool), 20, rays.device)
         plain = lab.time_ms(lambda: tc.cluster_traverse_plain(
-            rays, any_hit_mode=any_hit_mode, **pool), 1, rays.device)
+            rays, any_hit_mode=any_hit_mode, **twin_pool), 1, rays.device)
         bms, by = cluster_bound_ms(scene, rays, tk.reshape(-1))
         log(f"{tag} {name}: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
             f"bound {bms:.5f} ms ({by}) [{card}]")
@@ -1148,7 +1206,7 @@ def main() -> int:
     for (name, o, d, t_max, act, any_hit), (_, blocks, _) in zip(
             part_raw, cluster_cases(tc, part_raw)):
         _, s_cl = tc.cluster_traverse(blocks, any_hit_mode=any_hit,
-                                      **scene_pool(part_scene))
+                                      **tc.scene_pool(part_scene))
         s_cl = s_cl.reshape(-1)[:o.shape[0]]
         t_b4, s_b4 = srt_recs["hits"][name]
         same_mask = float(((s_cl >= 0) == (s_b4 >= 0)).float().mean())

@@ -272,3 +272,57 @@ def build_instanced_layout(world: MeshTris | None,
         world_bmin=wb_min, world_bext=wb_ext,
         num_instances=len(inst_list), num_iclusters=Ci,
     )
+
+
+def instance_tables(bounds_lane, oct_perm, cl_map, n_inst: int) -> dict:
+    """The instance level of kernel B3's two-level walk, derived from the
+    instance-cluster tables alone (a layout from either package gets the
+    same tables):
+      inst_bounds   (8, I) f32 each instance's world AABB, the union of its
+                    instance-clusters' boxes, laid out like bounds_lane; an
+                    instance without a cluster gets the 1e30 point box;
+      inst_oct_perm (8, I) i32 each octant's front-to-back instance order,
+                    by the centre key of the cluster order;
+      icl_oct       (8, Ci) i32 per octant the real instance-clusters grouped
+                    by instance id, each group in that octant's
+                    front-to-back order (a stable filter of oct_perm[o]),
+                    the padding last;
+      icl_start     (I + 1,) i32 the groups' offsets into icl_oct[o] (the
+                    same in every octant);
+      icl_bounds    (8, 8, Ci) f32 bounds_lane in icl_oct[o]'s order.
+    Each cluster box lies inside its instance's box, so a ray that misses
+    the instance box misses every cluster box in it."""
+    bounds = np.asarray(bounds_lane, np.float32)
+    oct_perm = np.asarray(oct_perm, np.int32)
+    inst = np.asarray(cl_map, np.int32)[1]
+    real = bounds[0] < 1e29  # padding: the 1e30 point box
+    if real.any() and not 0 <= inst[real].min() <= inst[real].max() < n_inst:
+        raise ValueError(f"cl_map names instances outside [0, {n_inst})")
+    counts = np.bincount(inst[real], minlength=n_inst)
+    lo = np.full((n_inst, 3), np.inf, np.float32)
+    hi = np.full((n_inst, 3), -np.inf, np.float32)
+    np.minimum.at(lo, inst[real], bounds[0:3, real].T)
+    np.maximum.at(hi, inst[real], bounds[3:6, real].T)
+    has = counts > 0
+    inst_bounds = np.zeros((8, n_inst), np.float32)
+    inst_bounds[0:6] = 1e30
+    inst_bounds[0:3, has] = lo[has].T
+    inst_bounds[3:6, has] = hi[has].T
+
+    center = (inst_bounds[0:3] + inst_bounds[3:6]) * 0.5
+    inst_oct_perm = np.zeros((8, n_inst), np.int32)
+    icl_oct = np.zeros((8, bounds.shape[1]), np.int32)
+    for o in range(8):
+        s = np.array([1.0 if o & 1 else -1.0,
+                      1.0 if o & 2 else -1.0,
+                      1.0 if o & 4 else -1.0])
+        key = s @ center
+        key[~has] = np.inf
+        inst_oct_perm[o] = np.argsort(key, kind="stable")
+        ids = oct_perm[o]
+        group = np.where(real[ids], inst[ids], n_inst)
+        icl_oct[o] = ids[np.argsort(group, kind="stable")]
+    return dict(
+        inst_bounds=inst_bounds, inst_oct_perm=inst_oct_perm, icl_oct=icl_oct,
+        icl_start=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        icl_bounds=np.stack([bounds[:, icl_oct[o]] for o in range(8)]))

@@ -8,8 +8,10 @@ kernel hydracore_tpu/ops/traverse_cluster.py::_make_kernel as launched by
 _cluster_traverse, in its flat and its inst_mode variants, and the chain
 of launches of _partitioned_traverse: a partitioned pool is walked chunk
 by chunk inside ONE launch. They compute the same function, not its TPU
-block structure; the source note in the .cu file gives the design and its
-bound.
+block structure: B3 walks the instances first and an instance's
+instance-clusters only when a ray of the block enters its box (the
+instance level of bvh/instanced.py:instance_tables). The source note in
+the .cu file gives the design and its bound.
 
 cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs cluster_traverse_plain, the twin with
@@ -50,21 +52,35 @@ def reset_launch_counts() -> None:
     this.inst_any_launches = 0
 
 
+# the instance level of B3's two-level walk (bvh/instanced.py:
+# instance_tables), in the order hydra_inst_traverse takes it
+INST_TABLES = ("inst_bounds", "inst_oct_perm", "icl_oct", "icl_bounds",
+               "icl_start")
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
         _lib = load_lib("traverse_cluster.cu", "hydra_cluster_traverse",
-                        [VP] * 8 + [CI] * 5 + [VP])
+                        [VP] * 6 + [CI] * 5 + [VP])
+        _lib.hydra_inst_traverse.argtypes = [VP] * 11 + [CI] * 5 + [VP]
+        _lib.hydra_inst_traverse.restype = CI
     return _lib
 
 
-def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop):
+def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level):
     """Validate shapes, types and devices; returns (P, Cp): the number of
-    chunks (1 for a flat or an instanced pool) and clusters per chunk."""
+    chunks (1 for a flat or an instanced pool) and clusters per chunk.
+    `level` maps INST_TABLES to the instance level's tensors (all None
+    when not given)."""
     if rays.dim() != 3 or rays.shape[2] != 8:
         raise ValueError(f"rays must be (G, r_blk, 8), got {tuple(rays.shape)}")
     if (cl_map is None) != (inst_woop is None):
         raise ValueError("cl_map and inst_woop come together")
+    given = [k for k, x in level.items() if x is not None]
+    if given and (cl_map is None or len(given) != len(INST_TABLES)):
+        raise ValueError(f"the instance level {INST_TABLES} comes whole and "
+                         "with cl_map")
     lead = tuple(cbl_oct.shape[:-3]) if cbl_oct.dim() in (3, 4) else None
     Cp = cbl_oct.shape[-1] if lead is not None else -1
     if lead is None or tuple(cbl_oct.shape[-3:]) != (8, 8, Cp) or Cp <= 0:
@@ -90,6 +106,18 @@ def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop):
                              f"{tuple(inst_woop.shape)}")
         tensors += [("cl_map", cl_map, torch.int32),
                     ("inst_woop", inst_woop, torch.float32)]
+        if given:
+            I = inst_woop.shape[0]
+            for name, shape, dt in (
+                    ("inst_bounds", (8, I), torch.float32),
+                    ("inst_oct_perm", (8, I), torch.int32),
+                    ("icl_oct", (8, Cp), torch.int32),
+                    ("icl_bounds", (8, 8, Cp), torch.float32),
+                    ("icl_start", (I + 1,), torch.int32)):
+                if tuple(level[name].shape) != shape:
+                    raise ValueError(f"{name} must be {shape}, got "
+                                     f"{tuple(level[name].shape)}")
+                tensors.append((name, level[name], dt))
     for name, x, dt in tensors:
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
@@ -99,32 +127,45 @@ def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop):
 
 
 def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
-                     cl_map=None, inst_woop=None):
+                     cl_map=None, inst_woop=None, inst_bounds=None,
+                     inst_oct_perm=None, icl_oct=None, icl_bounds=None,
+                     icl_start=None):
     """rays (G, r_blk, 8) f32 [o d t_lim active] -> (t (G, r_blk) f32,
     slot (G, r_blk) i32). The pool is flat (cbl_oct (8, 8, Cp)), partitioned
     (a leading chunk axis P on cbl_oct, tris and perm; slots come back as
     (chunk * Cp + cluster) * 128 + lane) or, with cl_map and inst_woop,
     instanced (cbl_oct and perm over instance-clusters, tris the shared
-    pool). CUDA tensors launch kernel B1 / B2 / B3; CPU tensors run the
-    plain twin."""
-    P, Cp = _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop)
+    pool). CUDA tensors launch kernel B1 / B2, or for an instanced pool B3,
+    which walks the instance level INST_TABLES (a scene's fields of those
+    names) and raises without it; CPU tensors run the plain twin, which
+    needs no instance level."""
+    level = dict(inst_bounds=inst_bounds, inst_oct_perm=inst_oct_perm,
+                 icl_oct=icl_oct, icl_bounds=icl_bounds, icl_start=icl_start)
+    P, Cp = _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level)
     if not rays.is_cuda:
         return cluster_traverse_plain(rays, cbl_oct, tris, perm, any_hit_mode,
                                       cl_map, inst_woop)
     G, r_blk, _ = rays.shape
     if r_blk > 256:
         raise ValueError(f"r_blk {r_blk} > 256 threads per block")
-    rays, cbl_oct, tris, perm = (x.contiguous() for x in (rays, cbl_oct, tris, perm))
     inst = cl_map is not None
-    if inst:
-        cl_map, inst_woop = cl_map.contiguous(), inst_woop.contiguous()
+    if inst and inst_bounds is None:
+        raise ValueError(f"kernel B3 needs the instance level {INST_TABLES} "
+                         "(bvh/instanced.py:instance_tables)")
     t = torch.empty((G, r_blk), dtype=torch.float32, device=rays.device)
     slot = torch.empty((G, r_blk), dtype=torch.int32, device=rays.device)
-    launch(_kernel_lib(), "hydra_cluster_traverse", "cluster traversal",
-           rays.device, rays.data_ptr(), cbl_oct.data_ptr(), tris.data_ptr(),
-           perm.data_ptr(), cl_map.data_ptr() if inst else None,
-           inst_woop.data_ptr() if inst else None, t.data_ptr(),
-           slot.data_ptr(), G * r_blk, r_blk, Cp, P, int(any_hit_mode))
+    if inst:
+        args = [x.contiguous() for x in (rays, tris, cl_map, inst_woop)] \
+            + [level[k].contiguous() for k in INST_TABLES]
+        launch(_kernel_lib(), "hydra_inst_traverse", "instanced traversal",
+               rays.device, *(x.data_ptr() for x in args), t.data_ptr(),
+               slot.data_ptr(), G * r_blk, r_blk, Cp, inst_woop.shape[0],
+               int(any_hit_mode))
+    else:
+        args = [x.contiguous() for x in (rays, cbl_oct, tris, perm)]
+        launch(_kernel_lib(), "hydra_cluster_traverse", "cluster traversal",
+               rays.device, *(x.data_ptr() for x in args), t.data_ptr(),
+               slot.data_ptr(), G * r_blk, r_blk, Cp, P, int(any_hit_mode))
     this = sys.modules[__name__]
     name = ("inst_" if inst else "") + ("any" if any_hit_mode else "closest") \
         + "_launches"
@@ -135,6 +176,38 @@ def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
 # elements of one step of the twin: bounds its (rays x clusters) and
 # (ray-cluster pairs x lanes) temporaries to ~16 MiB each
 _TWIN_STEP_ELEMS = 1 << 22
+
+
+def slab_enters(o, inv, bounds, t_lim):
+    """(n, C) bool: ray k (origin o[k], inv[k] = safe_inv of its direction)
+    enters box c of `bounds` (8, C) [min max 0 0] before t_lim[k], in the
+    kernels' arithmetic: b * inv - o * inv, each operation rounded."""
+    oi = o * inv
+    t_a = bounds[None, 0:3] * inv[:, :, None] - oi[:, :, None]  # (n, 3, C)
+    t_b = bounds[None, 3:6] * inv[:, :, None] - oi[:, :, None]
+    tmin = torch.minimum(t_a, t_b)
+    tmax = torch.maximum(t_a, t_b)
+    tn = torch.maximum(torch.maximum(tmin[:, 0], tmin[:, 1]), tmin[:, 2])
+    tf = torch.minimum(torch.minimum(tmax[:, 0], tmax[:, 1]), tmax[:, 2])
+    return (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim[:, None])
+
+
+def inst_walk_positions(rays, inst_bounds, icl_start, t=None):
+    """Positions B3 walks in each block of `rays` (G, r_blk, 8): one vote
+    per instance, plus the group of instance-clusters of every instance
+    whose box some active ray of the block enters before its t (`t` (G *
+    r_blk,) where given, else each ray's t_lim). Against t_lim this is the
+    most the walk can take (no hit shortens t), against the final t of a
+    closest-hit walk the least. Returns (G,) int64."""
+    G, RB, _ = rays.shape
+    flat = rays.reshape(-1, 8)
+    act = flat[:, 7] > 0.0
+    if t is None:
+        t = torch.clamp(flat[:, 6], max=BIG)
+    sizes = (icl_start[1:] - icl_start[:-1]).to(torch.int64)
+    ent = slab_enters(flat[:, 0:3], safe_inv(flat[:, 3:6]), inst_bounds, t)
+    ent = (ent & act[:, None]).reshape(G, RB, -1).any(dim=1)
+    return sizes.numel() + (ent.to(torch.int64) * sizes).sum(dim=1)
 
 
 def _pairs_mt(o, d, t_lim, blk):
@@ -187,16 +260,8 @@ def _chunk_plain(flat, t_lim, act, bounds_oct, tris, perm, cl_map, inst_woop):
     pairs = _TWIN_STEP_ELEMS // (2 * LANES)
     for s in range(0, N, step):
         e = min(s + step, N)
-        o = flat[s:e, 0:3]
-        inv = safe_inv(flat[s:e, 3:6])
-        oi = o * inv
-        t_a = bounds[None, 0:3] * inv[:, :, None] - oi[:, :, None]  # (n,3,C)
-        t_b = bounds[None, 3:6] * inv[:, :, None] - oi[:, :, None]
-        tmin = torch.minimum(t_a, t_b)
-        tmax = torch.maximum(t_a, t_b)
-        tn = torch.maximum(torch.maximum(tmin[:, 0], tmin[:, 1]), tmin[:, 2])
-        tf = torch.minimum(torch.minimum(tmax[:, 0], tmax[:, 1]), tmax[:, 2])
-        box = (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim[s:e, None])
+        box = slab_enters(flat[s:e, 0:3], safe_inv(flat[s:e, 3:6]), bounds,
+                          t_lim[s:e])
         # (ray, cluster) pairs in ray-major, cluster-minor order
         r_all, j_all = torch.nonzero(box, as_tuple=True)
         r_all = r_all + s
@@ -302,10 +367,18 @@ def local_rays(scene, inst, ray_o, ray_d):
     return ro, rd
 
 
+def scene_pool(scene) -> dict:
+    """The pool arguments of cluster_traverse held by `scene` (the instance
+    level is None for a flat or partitioned pool)."""
+    return dict(cbl_oct=scene.cl_bounds_oct, tris=scene.cl_tris,
+                perm=scene.cl_oct_perm, cl_map=scene.cl_map,
+                inst_woop=scene.inst_woop,
+                **{k: getattr(scene, k) for k in INST_TABLES})
+
+
 def _traverse_scene(scene, rays, any_hit_mode: bool):
-    return cluster_traverse(rays, scene.cl_bounds_oct, scene.cl_tris,
-                            scene.cl_oct_perm, any_hit_mode=any_hit_mode,
-                            cl_map=scene.cl_map, inst_woop=scene.inst_woop)
+    return cluster_traverse(rays, any_hit_mode=any_hit_mode,
+                            **scene_pool(scene))
 
 
 def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,

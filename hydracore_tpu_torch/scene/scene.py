@@ -113,6 +113,13 @@ class SceneData:
     inst_attr: object = None  # (I, 32) f32 [M 3x4 | invM 3x4 | pad]
     inst_orig: object = None  # (I,) i32 row -> desc.instances index (-1 = flattened world)
     inst_woop: object = None  # (I, 4, 4) f32 A^T (world -> mesh-local)
+    # the instance level of kernel B3's walk, derived from the tables above
+    # (bvh/instanced.py:instance_tables), never read from a compiled scene
+    inst_bounds: object = None  # (8, I) f32 world AABB of each instance
+    inst_oct_perm: object = None  # (8, I) i32 front-to-back per octant
+    icl_oct: object = None  # (8, Ci) i32 instance-clusters grouped by instance
+    icl_start: object = None  # (I + 1,) i32 group offsets into icl_oct
+    icl_bounds: object = None  # (8, 8, Ci) f32 cl_bounds in icl_oct order
     # split shadow sets of alpha scenes (None unless has_alpha)
     cl_tris_shadow: object = None  # (Cp, 4, 384) f32
     alpha_tri9f: object = None  # (9, A) f32
@@ -136,8 +143,11 @@ class SceneData:
 # leaves that may be None: the instanced layout's tables, the shadow split
 # of alpha scenes, the sky back plate
 _INSTANCED = ("cl_map", "cl_slot_inst", "inst_attr", "inst_orig", "inst_woop")
-_OPTIONAL = _INSTANCED + ("cl_tris_shadow", "alpha_tri9f", "alpha_tri_id",
-                          "env_back")
+# derived from the instanced tables: not leaves of a compiled scene
+_DERIVED = ("inst_bounds", "inst_oct_perm", "icl_oct", "icl_start",
+            "icl_bounds")
+_OPTIONAL = _INSTANCED + _DERIVED + ("cl_tris_shadow", "alpha_tri9f",
+                                     "alpha_tri_id", "env_back")
 
 # static fields: Python values that scene_leaves / scene_from_arrays carry
 # as they are (wbvh_depth) or that only the port has (traversal)
@@ -458,6 +468,7 @@ def _assemble_instanced(desc, W, H, keep, flat, lid_to_row, materials,
     remaps, single-use meshes) flattens into the identity instance 0."""
     from hydracore_tpu_torch.bvh.instanced import (build_instanced_layout,
                                                    concat_tris,
+                                                   instance_tables,
                                                    mesh_local_tris,
                                                    transform_tris)
 
@@ -526,6 +537,8 @@ def _assemble_instanced(desc, W, H, keep, flat, lid_to_row, materials,
         cl_slot_inst=np.ascontiguousarray(layout.slot_tri2[:, 1]),
         inst_attr=layout.inst_attr, inst_woop=layout.inst_woop,
         inst_orig=inst_orig, traversal=traversal, **pools,
+        **instance_tables(layout.bounds_lane, layout.oct_perm, layout.cl_map,
+                          layout.num_instances),
     ))
 
 
@@ -775,7 +788,8 @@ def check_supported(sc: SceneData) -> None:
 
 def scene_leaves(sc: SceneData) -> dict:
     """Flat {name: numpy array} view of a scene; table fields are named
-    'materials.em_color', 'lights.pick_cdf', 'camera.pos', ..."""
+    'materials.em_color', 'lights.pick_cdf', 'camera.pos', ... The tables
+    derived from other leaves (_DERIVED) are left out."""
     out = {}
     for f in dataclasses.fields(sc):
         v = getattr(sc, f.name)
@@ -784,7 +798,7 @@ def scene_leaves(sc: SceneData) -> dict:
                 w = getattr(v, g.name)
                 if isinstance(w, torch.Tensor):
                     out[f"{f.name}.{g.name}"] = w.cpu().numpy()
-        elif isinstance(v, torch.Tensor):
+        elif isinstance(v, torch.Tensor) and f.name not in _DERIVED:
             out[f.name] = v.cpu().numpy()
         elif f.name == "wbvh_depth":
             out[f.name] = np.asarray(v)
@@ -795,7 +809,7 @@ def leaf_names() -> list:
     """Every leaf name scene_from_arrays reads (optional ones included)."""
     names = []
     for f in dataclasses.fields(SceneData):
-        if f.name in ("settings", "traversal"):
+        if f.name in ("settings", "traversal") + _DERIVED:
             continue
         if f.name in _TABLES:
             names += [f"{f.name}.{g.name}"
@@ -813,12 +827,14 @@ def scene_from_arrays(leaves: dict, settings: dict, device=None,
     The bytes are taken as they are — nothing is recompiled — so both
     packages render the very same scene. `settings` holds the
     RenderSettings fields; the camera takes its width/height from them.
-    `traversal` is the port's static choice of traversal for the scene."""
+    `traversal` is the port's static choice of traversal for the scene.
+    An instanced scene's instance level (_DERIVED) is derived from its
+    instance-cluster tables here, as assemble derives it."""
     dev = resolve_device(device)
     st = RenderSettings(**settings)
     kw = {"traversal": traversal}
     for f in dataclasses.fields(SceneData):
-        if f.name in ("settings", "traversal"):
+        if f.name in ("settings", "traversal") + _DERIVED:
             continue
         if f.name == "wbvh_depth":
             kw[f.name] = int(leaves[f.name])
@@ -840,4 +856,8 @@ def scene_from_arrays(leaves: dict, settings: dict, device=None,
         raise KeyError(f"instanced scene leaves missing: {missing}")
     sc = SceneData(settings=st, **kw)
     check_supported(sc)
+    if sc.cl_map is not None:
+        from hydracore_tpu_torch.bvh.instanced import instance_tables
+        sc = dataclasses.replace(sc, **instance_tables(
+            sc.cl_bounds, sc.cl_oct_perm, sc.cl_map, sc.inst_woop.shape[0]))
     return sc.to(dev)

@@ -195,33 +195,108 @@ def test_chunked_kernel_matches_twin_and_flat(cuda, any_hit_mode, r_blk):
         assert float((tri_k == tri_f).float().mean()) >= 0.999
 
 
+def _instanced_blocks(sc, r_blk):
+    """Random rays (ragged last block) and three blocks of their own: rays
+    far above the scene pointing up (they enter no blob instance), rays
+    from the centres of instance boxes, and rays of one octant (+x +y +z)
+    whose first aims at the centre of the first blob instance that octant
+    walks. Returns (blocks, valid rays, index of the aimed ray)."""
+    dev = sc.cl_tris.device
+    blocks, R = _random_blocks(dev, [-14, -1, -14], [14, 6, 14], r_blk, 3.0)
+    rng = np.random.default_rng(21)
+
+    def unit(n, positive=False):
+        d = rng.normal(size=(n, 3))
+        d = np.abs(d) if positive else d
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    ib = sc.inst_bounds.cpu().numpy()
+    ctr = (ib[0:3] + ib[3:6]).T * 0.5  # (I, 3)
+    first = next(int(i) for i in sc.inst_oct_perm[7].tolist() if i > 0)
+    d_aim = unit(r_blk, positive=True)
+    d_aim[0] = 1.0 / np.sqrt(3.0)
+    o_aim = rng.uniform(-14, 14, (r_blk, 3))
+    o_aim[:, 1] = rng.uniform(-1.5, 6, r_blk)
+    o_aim[0] = ctr[first] - 2.5 * d_aim[0]
+    up = np.tile([[0.0, 1.0, 0.0]], (r_blk, 1)) + 0.1 * unit(r_blk)
+    sets = [(rng.uniform([-14, 40, -14], [14, 41, 14], (r_blk, 3)),
+             np.abs(up) / np.linalg.norm(up, axis=1, keepdims=True)),
+            (ctr[1 + np.arange(r_blk) % (ctr.shape[0] - 1)], unit(r_blk)),
+            (o_aim, d_aim)]
+    extra = [tc._to_blocks(torch.tensor(o, dtype=torch.float32, device=dev),
+                           torch.tensor(d, dtype=torch.float32, device=dev),
+                           1e30, None, r_blk)[0] for o, d in sets]
+    aimed = (blocks.shape[0] + 2) * r_blk
+    return torch.cat([blocks] + extra), R, aimed
+
+
 @pytest.mark.parametrize("any_hit_mode", [False, True])
-@pytest.mark.parametrize("r_blk", [tc.R_BLK, tc.R_BLK_BOUNCE])
+@pytest.mark.parametrize("r_blk", [32, 64, tc.R_BLK_BOUNCE, tc.R_BLK])
 def test_instanced_kernel_matches_twin(cuda, any_hit_mode, r_blk):
-    """B3: world-space boxes, the Woop test in each instance's local space."""
+    """B3: the two-level walk (instance boxes, then the entered instances'
+    clusters in world space, the Woop test in each instance's local space)
+    against the twin, which tests every instance-cluster: equal hit masks
+    and t, slots equal on >= 99.9% (the cull changes no box test, so only
+    the pick among equal t may differ), at r_blk 32 to 256."""
     sc = _instanced_scene().to(cuda)
     assert sc.settings.has_inst and sc.inst_woop.shape[0] == 41
-    blocks, R = _random_blocks(cuda, [-14, -1, -14], [14, 6, 14], r_blk, 3.0)
-    args = (blocks, sc.cl_bounds_oct, sc.cl_tris, sc.cl_oct_perm)
-    kw = dict(any_hit_mode=any_hit_mode, cl_map=sc.cl_map,
-              inst_woop=sc.inst_woop)
+    blocks, R, aimed = _instanced_blocks(sc, r_blk)
+    pool = tc.scene_pool(sc)
+    twin_pool = {k: v for k, v in pool.items() if k not in tc.INST_TABLES}
     before = (tc.inst_closest_launches, tc.inst_any_launches,
               tc.closest_launches, tc.any_launches)
-    t_k, s_k = tc.cluster_traverse(*args, **kw)
+    t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode, **pool)
     after = (tc.inst_closest_launches, tc.inst_any_launches,
              tc.closest_launches, tc.any_launches)
-    t_t, s_t = tc.cluster_traverse_plain(*args, **kw)
+    t_t, s_t = tc.cluster_traverse_plain(blocks, any_hit_mode=any_hit_mode,
+                                         **twin_pool)
     torch.cuda.synchronize()
     assert after[int(any_hit_mode)] == before[int(any_hit_mode)] + 1
     assert after[2:] == before[2:]
+    t_k, s_k, t_t, s_t = (x.reshape(-1) for x in (t_k, s_k, t_t, s_t))
     hit = s_k >= 0
-    assert 100 < int(hit.sum()) < R
+    assert 100 < int(hit[:R].sum()) < R
+    up = slice(blocks.shape[0] * r_blk - 3 * r_blk, -2 * r_blk)
+    assert not bool(hit[up].any())  # the block that enters no blob instance
+    assert bool(hit[aimed])  # the first instance walked holds its hit
     assert torch.equal(hit, s_t >= 0)
     assert torch.equal(t_k, t_t)
     if not any_hit_mode:
-        assert float((s_k == s_t).float().mean()) >= 0.999
+        assert float((s_k[hit] == s_t[hit]).float().mean()) >= 0.999
         inst = sc.cl_slot_tri2[s_k[hit].long(), 1]
         assert int(inst.unique().numel()) > 20  # hits across the instances
+        # the rays from inside the instance boxes hit their own blob
+        inside = slice(blocks.shape[0] * r_blk - 2 * r_blk, -r_blk)
+        assert float(hit[inside].float().mean()) > 0.5
+
+
+def test_instanced_kernel_needs_the_instance_level(cuda):
+    sc = _instanced_scene().to(cuda)
+    pool = {k: v for k, v in tc.scene_pool(sc).items()
+            if k not in tc.INST_TABLES}
+    with pytest.raises(ValueError, match="instance level"):
+        tc.cluster_traverse(torch.zeros((1, 64, 8), device=cuda), **pool)
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("pool_kind", ["flat", "chunked"])
+def test_b1_b2_equal_their_twin_bit_for_bit(cuda, any_hit_mode, pool_kind):
+    """The B1/B2 path, flat and chunked, after B3 moved to a kernel of its
+    own: t (occlusion in any-hit mode) and closest-hit slots equal to the
+    twin's bit for bit. An any-hit slot names whichever occluder was found
+    first, the twin's the nearest."""
+    sc = _rects_scene(30000, part_cap=128 if pool_kind == "chunked" else 1024)
+    sc = sc.to(cuda)
+    blocks, _ = _random_blocks(cuda, -5, 5, 64, 1.0)
+    pool = (sc.cl_bounds_oct, sc.cl_tris, sc.cl_oct_perm)
+    t_k, s_k = tc.cluster_traverse(blocks, *pool, any_hit_mode=any_hit_mode)
+    t_t, s_t = tc.cluster_traverse_plain(blocks, *pool,
+                                         any_hit_mode=any_hit_mode)
+    torch.cuda.synchronize()
+    assert int((s_k >= 0).sum()) > 100
+    assert torch.equal(t_k, t_t) and torch.equal(s_k >= 0, s_t >= 0)
+    if not any_hit_mode:
+        assert torch.equal(s_k, s_t)
 
 
 def test_wrapper_refuses_mixed_devices(cuda):
