@@ -7,15 +7,18 @@ hydracore_tpu_torch/_build/, the compilers started together), then drives
 four main paths of the MIS+NEE path tracer, render_passes at 1024x1024,
 depth 5, seed 777, each through its kernels:
   flat         the procedural bench_scene (26,252 triangles, one flat
-               cluster pool) through B1 (closest hit) and B2 (any hit);
+               cluster pool) through B1 (closest hit) and B2 (any hit), a
+               two-level walk over groups of clusters (the positions and
+               Woop blocks a ray block walks are logged per wavefront);
   instanced    a cornell box holding 24 transformed instances of one
                25,280-triangle mesh, assembled from a SceneDesc with
                instancing="auto" (over 400,000 flattened triangles), through
                B3 in both hit modes (a two-level walk: the positions and
                Woop blocks a ray block walks are logged per wavefront);
   partitioned  bench_scene with its large sphere at 201,600 triangles (a
-               pool of three 1024-cluster chunks) through the chunk loop of
-               B1 and B2;
+               pool of three 1024-cluster chunks) through B1 and B2, whose
+               groups of every chunk form one front-to-back order (logged
+               as for the flat pool);
   packet       the same 202,572 triangles built with traversal="packet":
                warp packets over the 8-wide BVH through B4 in both hit
                modes, the wavefronts unsorted as that route leaves them.
@@ -106,17 +109,15 @@ def real_boxes(scene):
     return b[:, b[0] < 1e29]
 
 
-def needed_visits(scene, rays, t_end) -> tuple[int, int]:
-    """(active rays, ray-cluster pairs whose box a ray enters before its
-    final t): the box tests and Woop blocks this run's data needs,
-    whatever walks them."""
+def needed_visits(scene, rays, t_end) -> int:
+    """Ray-cluster pairs whose box a ray enters before its final t: the
+    Woop blocks this run's data needs, whatever walks them."""
     from hydracore_tpu_torch.ops.intersect import safe_inv
     from hydracore_tpu_torch.ops.traverse_cluster import BIG
 
     flat = rays.reshape(-1, 8)
     act = flat[:, 7] > 0
     b = real_boxes(scene)
-    n_act = int(act.sum())
     visits = 0
     step = max(1024, (1 << 26) // max(b.shape[1], 1))
     for s in range(0, flat.shape[0], step):
@@ -130,22 +131,24 @@ def needed_visits(scene, rays, t_end) -> tuple[int, int]:
         te = torch.where(te <= -BIG * 0.5, f[:, 6], te)[:, None]
         hit = (tf >= tn.clamp(min=0)) & (tn < te) & act[s:s + step, None]
         visits += int(hit.sum())
-    return n_act, visits
+    return visits
 
 
-def inst_box_tests(scene, rays, t_end) -> int:
-    """Box tests the two-level walk of an instanced scene needs: one per
-    active ray and instance, and one per active ray and instance-cluster of
-    each instance whose box the ray enters before its final t."""
+def two_level_box_tests(scene, rays, t_end) -> int:
+    """Box tests the two-level walk needs: one per active ray and box of the
+    upper level (an instanced scene's instances, any other's groups of
+    clusters), and one per active ray and member (instance-cluster,
+    cluster) of each upper box the ray enters before its final t."""
     from hydracore_tpu_torch.ops.intersect import safe_inv
     from hydracore_tpu_torch.ops.traverse_cluster import BIG, slab_enters
 
+    boxes, start = scene.lvl_bounds, scene.lvl_start
     flat = rays.reshape(-1, 8)
     act = flat[:, 7] > 0
     te = torch.where(t_end <= -BIG * 0.5, flat[:, 6], t_end)
-    ent = slab_enters(flat[:, 0:3], safe_inv(flat[:, 3:6]), scene.inst_bounds,
+    ent = slab_enters(flat[:, 0:3], safe_inv(flat[:, 3:6]), boxes,
                       te) & act[:, None]
-    sizes = (scene.icl_start[1:] - scene.icl_start[:-1]).to(torch.int64)
+    sizes = (start[1:] - start[:-1]).to(torch.int64)
     return (int(act.sum()) * sizes.numel()
             + int((ent.to(torch.int64) * sizes).sum()))
 
@@ -174,25 +177,22 @@ def block_visits(scene, rays, t_end) -> torch.Tensor:
 
 def cluster_bound_ms(scene, rays, t_end) -> tuple[float, str]:
     """The least time the card could take: rays in, t and slot out and the
-    scene's traversal arrays once, over the memory rate; over the f32 rate
-    box tests for every active ray and real cluster (an instanced scene:
-    inst_box_tests), Woop lanes (and for an instanced scene the ray's move
-    into local space) for every cluster a ray enters before its final t."""
-    from hydracore_tpu_torch.ops.traverse_cluster import INST_TABLES
+    arrays the kernel reads (the pool and its upper level) once, over the
+    memory rate; over the f32 rate the box tests of the two-level walk
+    (two_level_box_tests) and Woop lanes (and for an instanced scene the
+    ray's move into local space) for every cluster a ray enters before its
+    final t."""
+    from hydracore_tpu_torch.ops.traverse_cluster import LEVEL_TABLES
 
     n = rays.shape[0] * rays.shape[1]
     inst = scene.cl_map is not None
-    if inst:
-        pool = [scene.cl_tris, scene.cl_map, scene.inst_woop,
-                *(getattr(scene, k) for k in INST_TABLES)]
-    else:
-        pool = [scene.cl_bounds_oct, scene.cl_tris, scene.cl_oct_perm]
-    bytes_ = n * 8 * 4 + n * 8 + sum(x.numel() * x.element_size() for x in pool)
-    n_act, visits = needed_visits(scene, rays, t_end)
-    boxes = (inst_box_tests(scene, rays, t_end) if inst
-             else n_act * real_boxes(scene).shape[1])
-    ops = boxes * OPS_BOX + visits * (128 * OPS_LANE
-                                      + (OPS_INST if inst else 0))
+    pool = [scene.cl_tris, scene.cl_map, scene.inst_woop,
+            *(getattr(scene, k) for k in LEVEL_TABLES)]
+    bytes_ = n * 8 * 4 + n * 8 + sum(x.numel() * x.element_size()
+                                     for x in pool if x is not None)
+    visits = needed_visits(scene, rays, t_end)
+    ops = (two_level_box_tests(scene, rays, t_end) * OPS_BOX
+           + visits * (128 * OPS_LANE + (OPS_INST if inst else 0)))
     return lab.bound_ms(bytes_, ops)
 
 
@@ -285,8 +285,8 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
     {"closest": [...], "any": [...]} of (name, ms, plain_ms, bound_ms,
     bound_by, max_abs_err) records."""
     pool = tc.scene_pool(scene)
-    # the twin walks every instance-cluster: it takes no instance level
-    twin_pool = {k: v for k, v in pool.items() if k not in tc.INST_TABLES}
+    # the twin walks every cluster: it takes no level of the two-level walk
+    twin_pool = {k: v for k, v in pool.items() if k not in tc.LEVEL_TABLES}
     out = {"closest": [], "any": []}
     for name, rays, any_hit_mode in cases:
         n_rays = rays.shape[0] * rays.shape[1]
@@ -318,23 +318,21 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
                 raise AssertionError(f"{tag} {name}: slots equal on {same}")
             if rel > 1e-5:
                 raise AssertionError(f"{tag} {name}: t rel err {rel}")
-        if scene.cl_map is not None:
-            # what the instance cull leaves of the Ci positions of a walk
-            # over every instance-cluster: at most (each ray's t limit) and
-            # at least (its final t; an occluded ray adds nothing)
-            most = tc.inst_walk_positions(rays, scene.inst_bounds,
-                                          scene.icl_start).float()
-            least = tc.inst_walk_positions(rays, scene.inst_bounds,
-                                           scene.icl_start,
-                                           tk.reshape(-1)).float()
-            visits = block_visits(scene, rays, tk.reshape(-1)).float()
-            log(f"{tag} {name}: positions a block walks, of "
-                f"{int(scene.icl_start[-1])} instance-clusters and "
-                f"{scene.icl_start.numel() - 1} instances: at most mean "
-                f"{float(most.mean()):.1f}, largest {int(most.max())}; at "
-                f"least mean {float(least.mean()):.1f}, largest "
-                f"{int(least.max())}; Woop blocks a block needs: mean "
-                f"{float(visits.mean()):.1f}, largest {int(visits.max())}")
+        # what the upper level's cull leaves of a walk over every cluster
+        # (instance-cluster): at most (each ray's t limit) and at least (its
+        # final t; an occluded ray adds nothing)
+        def walk(t=None):
+            return tc.walk_positions(rays, pool, t).float()
+        what = (f"{int(scene.lvl_start[-1])} clusters under "
+                f"{scene.lvl_start.numel() - 1} upper boxes (a walk over "
+                f"every position: {scene.cl_bounds_oct.numel() // 64})")
+        most, least = walk(), walk(tk.reshape(-1))
+        visits = block_visits(scene, rays, tk.reshape(-1)).float()
+        log(f"{tag} {name}: positions a block walks, of {what}: at most "
+            f"mean {float(most.mean()):.1f}, largest {int(most.max())}; at "
+            f"least mean {float(least.mean()):.1f}, largest "
+            f"{int(least.max())}; Woop blocks a block needs: mean "
+            f"{float(visits.mean()):.1f}, largest {int(visits.max())}")
         if flat_scene is not None:
             tf, sf = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode,
                                          **tc.scene_pool(flat_scene))
@@ -360,6 +358,35 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
         out["any" if any_hit_mode else "closest"].append(
             (name, ms, plain, bms, by, err))
     return out
+
+
+def group_sizes(tag, tc, scene, cases, card, sizes=(8, 16, 32)) -> None:
+    """B1/B2 over the group levels of `sizes` clusters a group
+    (bvh/clusters.py:group_tables) on every wavefront of `cases`: each
+    level's hit masks equal the scene's own level's (the cull is exact),
+    and each is timed, so the choice of CL_GROUP is a measured one."""
+    from hydracore_tpu_torch.bvh.clusters import group_tables
+
+    pool = tc.scene_pool(scene)
+    bl, perm = scene.cl_bounds.cpu().numpy(), scene.cl_oct_perm.cpu().numpy()
+    levels = {g: {k: torch.as_tensor(v).to(scene.cl_tris.device)
+                  for k, v in group_tables(bl, perm, g).items()}
+              for g in sizes}
+    for name, rays, any_hit_mode in cases:
+        _, s_own = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode, **pool)
+        times = []
+        for g in sizes:
+            p = {**pool, **levels[g]}
+            _, s_g = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode, **p)
+            if not torch.equal(s_own >= 0, s_g >= 0):
+                raise AssertionError(f"{tag} {name}: groups of {g} change "
+                                     "the hit masks")
+            ms = lab.time_ms(lambda: tc.cluster_traverse(
+                rays, any_hit_mode=any_hit_mode, **p), 20, rays.device)
+            times.append(f"{g} ({levels[g]['lvl_bounds'].shape[1]} groups) "
+                         f"{ms:.4f}")
+        log(f"{tag} {name}: kernel over groups of {', '.join(times)} ms "
+            f"[{card}]")
 
 
 COUNTERS = ("closest_launches", "any_launches", "inst_closest_launches",
@@ -833,7 +860,7 @@ def lab_cluster_cost(card, tc, dev="cuda") -> list:
         kind, n = t1.parse(v)
         if kind == "full":
             pool = (cbl, scene.cl_tris, scene.cl_oct_perm)
-            tk, sk = tc.cluster_traverse(rays, *pool)
+            tk, sk = tc.cluster_traverse(rays, **tc.scene_pool(scene))
             tt, st = tc.cluster_traverse_plain(rays, *pool)
             torch.cuda.synchronize()
             hit = sk >= 0
@@ -1111,8 +1138,9 @@ def main() -> int:
     log(f"phase 2 flat scene: {host_scene.num_triangles} triangles, "
         f"{real_boxes(host_scene).shape[1]} clusters (Cp "
         f"{host_scene.cl_tris.shape[0]}), built in {time.time() - t0:.2f} s")
-    flat_recs = check_kernels("phase 3 flat", tc, scene,
-                              cluster_cases(tc, wavefronts(pt, scene)), card)
+    flat_cases = cluster_cases(tc, wavefronts(pt, scene))
+    flat_recs = check_kernels("phase 3 flat", tc, scene, flat_cases, card)
+    group_sizes("phase 3 flat", tc, scene, flat_cases, card)
     log(f"phase 4 flat: {N_PASS} passes (4 before the instanced and "
         "partitioned paths joined the run)")
     flat_counts = drive_main_path("phase 4 flat", pt, tc, tp, scene, card,
@@ -1161,7 +1189,7 @@ def main() -> int:
         raise AssertionError(f"instanced vs flattened image: MSE {mse}")
     del flattened
 
-    # ---- phase 7: the partitioned pool (B1, B2 through the chunk loop)
+    # ---- phase 7: the partitioned pool (B1, B2 over the groups of 3 chunks)
     t0 = time.time()
     big = bench_builder(n_seg=450, n_ring=225)
     host_part = bench_scene(WIDTH, HEIGHT, DEPTH, builder=big)
@@ -1177,9 +1205,10 @@ def main() -> int:
     if repacked.cl_tris.dim() != 3:
         raise AssertionError("the re-packed pool is not flat")
     part_raw = wavefronts(pt, part_scene)
+    part_cases = cluster_cases(tc, part_raw)
     part_recs = check_kernels("phase 7 partitioned", tc, part_scene,
-                              cluster_cases(tc, part_raw), card,
-                              flat_scene=repacked)
+                              part_cases, card, flat_scene=repacked)
+    group_sizes("phase 7 partitioned", tc, part_scene, part_cases, card)
     del repacked
     part_counts = drive_main_path("phase 7 partitioned", pt, tc, tp,
                                   part_scene, card,

@@ -7,6 +7,7 @@ AABB and a padded block of 128 triangles in Woop form. Padded clusters are
 1e30 point boxes, padded slots have u = -1, degenerate triangles get rows
 that fail every hit test. Pools past CL_PART_CAP clusters are stacked into
 chunks (partition_clusters), as the JAX package lays big scenes out.
+group_tables derives the group level that kernels B1/B2 walk first.
 """
 from __future__ import annotations
 
@@ -18,6 +19,11 @@ from hydracore_tpu_torch.bvh.builder import FlatBVH
 
 K_TRIS = 128  # triangles per cluster (= lane width)
 CL_PART_CAP = 1024  # clusters per chunk of a partitioned pool
+# real clusters per group of B1/B2's two-level walk: with 8, no wavefront of
+# the main path is slower than under the single-level walk; 16 loses on the
+# flat pool's bounce rays, 32 on most wavefronts (chip_smoke.py:group_sizes,
+# PERF.md section 6)
+CL_GROUP = 8
 
 
 @dataclass
@@ -206,3 +212,70 @@ def maybe_partition(cl: ClusterSet, cap: int = CL_PART_CAP) -> ClusterSet:
     if cl.tris.shape[0] <= cap:
         return cl
     return partition_clusters(cl, cap)
+
+
+def group_tables(bounds_lane, oct_perm, group: int = CL_GROUP) -> dict:
+    """The upper level of kernels B1/B2's two-level walk (the tables
+    ops/traverse_cluster.py:LEVEL_TABLES names), derived from a flat (8, Cp)
+    or partitioned (P, 8, Cp) pool's own tables (a pool from either package
+    gets the same tables). Its boxes are groups: runs of at most `group`
+    consecutive real clusters of one chunk in true-id order (the DFS cut's,
+    spatially coherent); padding (the 1e30 point box) joins no group, and no
+    group straddles two chunks.
+      lvl_bounds        (8, Gn) f32 each group's AABB, the union of its
+                        clusters' boxes, laid out like bounds_lane;
+      lvl_oct_perm      (8, Gn) i32 per octant the groups of all chunks in
+                        one front-to-back order: by the centre key of the
+                        cluster order (cut_clusters') of each group's
+                        nearest cluster, so a group comes up where its first
+                        cluster would in a walk over every cluster;
+      lvl_members       (8, Cr) i32 per octant the Cr real clusters as
+                        chunk * Cp + cluster, grouped by group (group g at
+                        [lvl_start[g], lvl_start[g + 1])), each group in the
+                        chunk's front-to-back order (a stable filter of
+                        oct_perm);
+      lvl_member_bounds (8, 8, Cr) f32 the clusters' boxes in
+                        lvl_members[o]'s order;
+      lvl_start         (Gn + 1,) i32 the groups' offsets into
+                        lvl_members[o] (the same in every octant).
+    Each cluster box lies inside its group's box, so a ray that misses the
+    group box misses every cluster box in it."""
+    b = np.asarray(bounds_lane, np.float32)
+    perm = np.asarray(oct_perm, np.int32)
+    if b.ndim == 2:
+        b, perm = b[None], perm[None]
+    P, _, Cp = b.shape
+    flat = b.transpose(1, 0, 2).reshape(8, P * Cp)  # column chunk * Cp + c
+    ids = np.flatnonzero(flat[0] < 1e29)  # the real clusters, chunk-major
+    # each chunk's real clusters cut into runs of `group` from its first
+    bnd = np.searchsorted(ids, np.arange(P + 1) * Cp)
+    starts = np.concatenate([np.arange(lo, hi, group)
+                             for lo, hi in zip(bnd[:-1], bnd[1:])])
+    starts = starts.astype(np.int64)
+    Gn = starts.size
+    start = np.append(starts, ids.size).astype(np.int32)
+    boxes = np.zeros((8, Gn), np.float32)
+    if Gn:
+        boxes[0:3] = np.minimum.reduceat(flat[0:3, ids], starts, axis=1)
+        boxes[3:6] = np.maximum.reduceat(flat[3:6, ids], starts, axis=1)
+    of = np.full(P * Cp, -1, np.int64)
+    of[ids] = np.repeat(np.arange(Gn), np.diff(start))
+
+    center = (flat[0:3, ids] + flat[3:6, ids]) * 0.5
+    order_g = np.zeros((8, Gn), np.int32)
+    members = np.zeros((8, ids.size), np.int32)
+    chunk_base = (np.arange(P, dtype=np.int64) * Cp)[:, None]
+    for o in range(8):
+        s = np.array([1.0 if o & 1 else -1.0,
+                      1.0 if o & 2 else -1.0,
+                      1.0 if o & 4 else -1.0])
+        if Gn:
+            near = np.minimum.reduceat(s @ center, starts)
+            order_g[o] = np.argsort(near, kind="stable")
+        order = (chunk_base + perm[:, o]).reshape(-1)  # front to back a chunk
+        order = order[of[order] >= 0]
+        members[o] = order[np.argsort(of[order], kind="stable")]
+    return dict(lvl_bounds=boxes, lvl_oct_perm=order_g, lvl_members=members,
+                lvl_member_bounds=np.ascontiguousarray(
+                    np.stack([flat[:, members[o]] for o in range(8)])),
+                lvl_start=start)

@@ -275,21 +275,24 @@ def build_instanced_layout(world: MeshTris | None,
 
 
 def instance_tables(bounds_lane, oct_perm, cl_map, n_inst: int) -> dict:
-    """The instance level of kernel B3's two-level walk, derived from the
+    """The upper level of kernel B3's two-level walk (the tables
+    ops/traverse_cluster.py:LEVEL_TABLES names), derived from the
     instance-cluster tables alone (a layout from either package gets the
-    same tables):
-      inst_bounds   (8, I) f32 each instance's world AABB, the union of its
-                    instance-clusters' boxes, laid out like bounds_lane; an
-                    instance without a cluster gets the 1e30 point box;
-      inst_oct_perm (8, I) i32 each octant's front-to-back instance order,
-                    by the centre key of the cluster order;
-      icl_oct       (8, Ci) i32 per octant the real instance-clusters grouped
-                    by instance id, each group in that octant's
-                    front-to-back order (a stable filter of oct_perm[o]),
-                    the padding last;
-      icl_start     (I + 1,) i32 the groups' offsets into icl_oct[o] (the
-                    same in every octant);
-      icl_bounds    (8, 8, Ci) f32 bounds_lane in icl_oct[o]'s order.
+    same tables). Its boxes are the instances:
+      lvl_bounds        (8, I) f32 each instance's world AABB, the union of
+                        its instance-clusters' boxes, laid out like
+                        bounds_lane; an instance without a cluster gets the
+                        1e30 point box;
+      lvl_oct_perm      (8, I) i32 each octant's front-to-back instance
+                        order, by the centre key of the cluster order;
+      lvl_members       (8, Ci) i32 per octant the real instance-clusters
+                        grouped by instance id, each group in that octant's
+                        front-to-back order (a stable filter of
+                        oct_perm[o]), the padding last;
+      lvl_member_bounds (8, 8, Ci) f32 bounds_lane in lvl_members[o]'s
+                        order;
+      lvl_start         (I + 1,) i32 the groups' offsets into lvl_members[o]
+                        (the same in every octant).
     Each cluster box lies inside its instance's box, so a ray that misses
     the instance box misses every cluster box in it."""
     bounds = np.asarray(bounds_lane, np.float32)
@@ -323,6 +326,6 @@ def instance_tables(bounds_lane, oct_perm, cl_map, n_inst: int) -> dict:
         group = np.where(real[ids], inst[ids], n_inst)
         icl_oct[o] = ids[np.argsort(group, kind="stable")]
     return dict(
-        inst_bounds=inst_bounds, inst_oct_perm=inst_oct_perm, icl_oct=icl_oct,
-        icl_start=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
-        icl_bounds=np.stack([bounds[:, icl_oct[o]] for o in range(8)]))
+        lvl_bounds=inst_bounds, lvl_oct_perm=inst_oct_perm, lvl_members=icl_oct,
+        lvl_member_bounds=np.stack([bounds[:, icl_oct[o]] for o in range(8)]),
+        lvl_start=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))

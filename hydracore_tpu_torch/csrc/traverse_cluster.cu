@@ -12,81 +12,84 @@
 //   rays      (n_rays, 8) f32 [ox oy oz dx dy dz t_lim active], grouped in
 //             blocks of r_blk rays; a block's direction octant is taken from
 //             its first ray
-//   bounds_oct (P, 8, 8, Cp) f32 cluster AABBs [xm ym zm xM yM zM 0 0] of
-//             each of the P chunks in each octant's front-to-back order;
-//             perm (P, 8, Cp) i32 the true ids within the chunk. A flat pool
-//             is P = 1.
 //   tris      (P, Cp, 4, 384) f32 Woop rows x, y, z, c over lanes [u | v | w]
+//             of the P chunks of Cp clusters (a flat pool is P = 1)
 //   t_out     (n_rays,) f32 best hit t; on a miss min(t_lim, BIG), -BIG for
 //             inactive rays, and -BIG for occluded rays in any-hit mode
 //   slot_out  (n_rays,) i32 (chunk * Cp + true_cluster) * 128 + lane, -1 on
 //             a miss
-// Instanced (B3, hydra_inst_traverse): tris is the shared pool (Cpool, 4,
-// 384) in mesh-local space; cl_map (2, Ci) i32 names each instance-cluster's
-// [pool block; instance]; inst_woop (I, 4, 4) f32 holds A^T, A the affine
-// world -> mesh-local matrix of the instance; the instance level
-// (bvh/instanced.py:instance_tables): inst_bounds (8, I) f32 world AABBs of
-// the instances, inst_oct_perm (8, I) i32 their front-to-back order per
-// octant, icl_oct (8, Ci) i32 per octant the instance-clusters grouped by
-// instance (group i at [icl_start[i], icl_start[i + 1])), each group
-// front-to-back, and icl_bounds (8, 8, Ci) f32 their world AABBs in that
-// order. The slot's cluster is the instance-cluster.
+// All three (hydra_cluster_traverse) read the pool through an upper level
+// (ops/traverse_cluster.py:LEVEL_TABLES): lvl_bounds (8, N) f32 the AABBs
+// of its N boxes, lvl_oct_perm (8, N) i32 per octant the boxes in one
+// front-to-back order, lvl_members (8, M) i32 per octant the members
+// grouped by box (box u at [lvl_start[u], lvl_start[u + 1])), each group
+// front to back, and lvl_member_bounds (8, 8, M) f32 their AABBs in that
+// order. B1/B2's boxes (bvh/clusters.py:group_tables) are groups: runs of
+// at most CL_GROUP (8) consecutive real clusters of one chunk, each box the union of
+// its clusters', the groups of all chunks in one order (by their nearest
+// cluster's centre key: a group comes up where its first cluster would in
+// a walk over every cluster); a member is a pool block, chunk * Cp +
+// cluster. Instanced (B3): the boxes are the instances' world AABBs
+// (bvh/instanced.py:instance_tables), a member an instance-cluster; tris is
+// the shared pool (Cpool, 4, 384) in mesh-local space, cl_map (2, Ci) i32
+// names each instance-cluster's [pool block; instance] and inst_woop
+// (I, 4, 4) f32 holds A^T, A the affine world -> mesh-local matrix of the
+// instance. The slot's cluster is the member.
 // A hit needs t = -ow/dw with t > 1e-5, t < current t, u >= 0, v >= 0,
 // u + v <= 1 (_mt_block). Unlike the TPU kernel, t is exact: no lane bits in
 // its mantissa.
 //
-// Design: one CTA per ray block, one thread per ray. The CTA walks the
-// octant's front-to-back cluster order; each live thread slab-tests the
-// cluster against its own current t, and __syncthreads_or decides whether
-// the CTA stages the cluster's 6 KiB Woop block in shared memory. Threads
-// whose box test passed then run the 128-lane Moller-Trumbore in Woop form
-// (a broadcast read of shared memory, no bank conflicts). The per-cluster
-// test against the current t is the TPU kernel's refilter, done at every
-// cluster instead of every K visits. Any-hit retires a thread at its first
-// hit; the CTA leaves when no thread is live.
+// Design, one two-level walk for all three (two_level_kernel): one CTA
+// per ray block, one thread per ray. The CTA walks the upper level's boxes (B1/B2: the groups of
+// clusters of all chunks; B3: the instances) in the octant's front-to-back
+// order; each live thread slab-tests the box against its own current t,
+// and one __syncthreads_or vote decides whether the CTA walks the box's
+// members at all, so closest hit also drops whole groups (instances) that
+// lie behind every ray's hit, across chunks. Inside an entered box the CTA
+// walks only its members (walk_members): one vote per member on the
+// per-thread box test against the current t, and for each voted member the
+// 128-lane Moller-Trumbore in Woop form by the threads whose test passed (a
+// broadcast read of shared memory, no bank conflicts). The member's 6 KiB
+// Woop block is staged asynchronously into one of two shared buffers
+// (cp.async, 16 bytes a thread): the vote for the next member is taken
+// against each ray's t as it stands and its block copied while the current
+// block's 128 lanes are tested; in closest-hit mode a thread then tests the
+// member's box once more against the live t before its Moller-Trumbore, so
+// the early vote costs no Woop test that the t from the block before rules
+// out, and the nearest hit is the same. Any hit retires a thread at its
+// first hit; the CTA leaves when no thread is live. Each member box lies inside its upper
+// box and the slab test is monotone under rounding, so the cull changes no
+// box test: only the visit order differs from a walk over every cluster,
+// and with it the pick among equal t.
 //
 // Partitioned pools: the TPU chains one launch per chunk because a chunk is
-// what fits its on-chip memory, threading each ray's best t through the
-// rays' t_lim between launches. Here the pool stays in device memory and L2,
-// so the chain is a loop inside the kernel: chunk after chunk, each in its
-// own front-to-back order, with the current t (and the any-hit retirement)
-// carried in registers. The visit order and the pruning are the chain's; no
-// host work lies between chunks.
+// what fits its on-chip memory. Here the pool stays in device memory and L2
+// and one launch walks the groups of every chunk in one front-to-back
+// order, with the current t (and the any-hit retirement) in registers: a
+// group never straddles a chunk, so the slot keeps its chunk-major form.
 //
-// Instanced pools (B3), a two-level walk: the CTA walks the instances in
-// the octant's front-to-back order; each live thread slab-tests the
-// instance's world box against its own current t, and one vote decides
-// whether the CTA walks the instance at all (closest hit so also drops
-// whole instances behind every ray's hit). A thread that entered the box
-// moves its ray into mesh-local space once per instance, [o 1] A^T and
-// [d 0] A^T with the direction left unnormalized, so t stays the world ray
-// parameter; the CTA then walks only that instance's group of
-// instance-clusters, with the world-space box test, the vote and the Woop
-// test of B1 on the pool block as it is; a thread outside the instance box
-// skips its cluster tests. Each cluster box lies inside its instance box
-// and the slab test is monotone under rounding, so the cull changes no box
-// test: only the visit order (instance-major) differs from a walk over all
-// instance-clusters, and with it the pick among equal t. (The TPU kernel
-// walks every instance-cluster and folds A^T into the staged block: the
-// same function, rounded differently. The twin moves the ray as here.)
-// The Woop blocks are staged asynchronously into two shared buffers
-// (cp.async, 16 bytes a thread): the vote for the next visited cluster is
-// taken against each ray's t as it stands, its block copied while the
-// current block's 128 lanes are tested; the test compares with the live t,
-// so the nearest hit is the same.
+// B3 only: a thread that entered an instance box moves its ray into
+// mesh-local space once per instance, [o 1] A^T and [d 0] A^T with the
+// direction left unnormalized, so t stays the world ray parameter; the
+// member box tests stay in world space, the Woop test runs on the pool
+// block as it is. (The TPU kernel walks every instance-cluster and folds
+// A^T into the staged block: the same function, rounded differently. The
+// twin moves the ray as here.)
 //
 // Bound on the H100: operations. A visit costs ~30 f32 operations per lane
-// (128 lanes per cluster) against ~40 bytes of ray in and out, so the work
-// is far above the card's 20 operations per byte of f32 balance; the pool
-// (a few MiB) stays in L2. What the design does about it: the box test
-// prunes clusters behind the current hit per ray, so a ray runs the MT only
-// on clusters it may still hit; a warp still steps through a cluster when
-// any of its threads needs it, which costs divergence (idle lanes) on
-// incoherent bounce rays — the ray sort by (octant, origin Morton) before
-// each bounce keeps a CTA's rays together. In B3 the instance cull leaves a
-// block a few hundred positions of thousands (chip_smoke.py phase 6 logs
-// them); what remains is mostly the Woop test of every cluster some ray of
-// the block enters, run by each warp that holds one such ray.
+// (128 lanes per cluster) against ~40 bytes of ray in and out, far above
+// the card's 20 operations per byte of f32 balance; the pool (a few MiB)
+// stays in L2. What the design does about it: the upper level cuts the
+// positions a block walks (a box test and a CTA vote each, entered or not)
+// from every cluster of every chunk to the groups plus the members of the
+// groups its rays enter (chip_smoke.py phases 3, 6 and 7 log them); the
+// member test prunes clusters behind each ray's current hit, so a ray runs
+// the Moller-Trumbore only on clusters it may still hit; a warp still steps
+// through a cluster when any of its threads needs it, which costs
+// divergence (idle lanes) on incoherent bounce rays, and the ray sort by
+// (octant, origin Morton) before each bounce keeps a CTA's rays together.
+// What remains is mostly the Woop test of every cluster some ray of the
+// block enters, and the busiest blocks of a wavefront set its time.
 //
 // Numerics: built without --use_fast_math, so -ow/dw keeps IEEE division
 // and the inf/NaN results that make parallel rays fail the hit test, and
@@ -164,77 +167,29 @@ __device__ __forceinline__ void woop_lanes(const float* w, float ox, float oy,
   }
 }
 
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kMaxBlock)
-cluster_traverse_kernel(const float* __restrict__ rays,
-                        const float* __restrict__ bounds_oct,
-                        const float* __restrict__ tris,
-                        const int* __restrict__ perm,
-                        float* __restrict__ t_out,
-                        int* __restrict__ slot_out,
-                        int n_rays, int r_blk, int Cp, int P) {
-  __shared__ __align__(16) float woop[kWoop];
-
-  const int first = blockIdx.x * r_blk;
-  const int idx = first + threadIdx.x;
-  const bool valid = idx < n_rays;  // ragged last block
-  const float* r0 = rays + (size_t)first * 8;
-  const int oct = (r0[3] > 0.0f) + 2 * (r0[4] > 0.0f) + 4 * (r0[5] > 0.0f);
-
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
-  float t_cur = -kBig;
-  bool live = false;
+// This thread's ray (origin o, direction d) and its t limit as the current
+// t; an inactive or missing ray (the ragged last block) is not live and
+// keeps t = -kBig. Returns the block's direction octant, from its first ray.
+__device__ __forceinline__ int load_ray(const float* __restrict__ rays,
+                                        int first, int idx, bool valid,
+                                        float (&o)[3], float (&d)[3],
+                                        float& t_cur, bool& live) {
+  o[0] = o[1] = o[2] = 0.f;
+  d[0] = d[1] = d[2] = 1.f;
+  t_cur = -kBig;
+  live = false;
   if (valid) {
     const float* r = rays + (size_t)idx * 8;
-    ox = r[0]; oy = r[1]; oz = r[2];
-    dx = r[3]; dy = r[4]; dz = r[5];
+    o[0] = r[0]; o[1] = r[1]; o[2] = r[2];
+    d[0] = r[3]; d[1] = r[4]; d[2] = r[5];
     if (r[7] > 0.0f) {
       t_cur = r[6] < kBig ? r[6] : kBig;
       live = true;
     }
   }
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const float oxix = ox * ix, oyiy = oy * iy, oziz = oz * iz;
-
-  int slot = -1;
-  bool done = false;
-
-  for (int p = 0; p < P && !done; ++p) {
-    const float* bo = bounds_oct + ((size_t)p * 8 + oct) * 8 * Cp;
-    const int* po = perm + ((size_t)p * 8 + oct) * Cp;
-    const float* pool = tris + (size_t)p * Cp * kWoop;
-    for (int pos = 0; pos < Cp; ++pos) {
-      // uniform over the CTA: every thread leaves both loops together
-      if (!__syncthreads_or(live)) { done = true; break; }
-      const bool hit = live && enters(bo, Cp, pos, ix, iy, iz, oxix, oyiy,
-                                      oziz, t_cur);
-      // every thread has finished the previous cluster's MT past this barrier,
-      // so the shared block may be overwritten below
-      if (!__syncthreads_or(hit)) continue;
-
-      const int c = __ldg(po + pos);
-      const float4* src = reinterpret_cast<const float4*>(pool + (size_t)c * kWoop);
-      float4* dst = reinterpret_cast<float4*>(woop);
-      for (int i = threadIdx.x; i < kWoop / 4; i += blockDim.x) dst[i] = __ldg(src + i);
-      __syncthreads();
-
-      if (hit) {
-        woop_lanes<kAnyHit>(woop, ox, oy, oz, dx, dy, dz, t_cur, slot,
-                            (p * Cp + c) * kLanes);
-        if (kAnyHit && slot >= 0) {  // occluded: retire for all later chunks
-          live = false;
-          t_cur = -kBig;
-        }
-      }
-    }
-  }
-  if (valid) {
-    t_out[idx] = t_cur;
-    slot_out[idx] = slot;
-  }
+  const float* r0 = rays + (size_t)first * 8;
+  return (r0[3] > 0.0f) + 2 * (r0[4] > 0.0f) + 4 * (r0[5] > 0.0f);
 }
-
-// ---- B3: the two-level walk over an instanced pool
 
 // Copy one 6 KiB Woop block into shared memory, 16 bytes a thread, as one
 // cp.async group (committed empty when blk < 0, so that every thread always
@@ -252,112 +207,143 @@ __device__ __forceinline__ void stage_async(float* dst, const float* pool,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// The lower level of both two-level walks: positions [beg, end) of the
+// octant's member order `co` (boxes `bo`, row stride `stride`) that belong
+// to one entered upper box (`in_up`: this thread entered it). One vote a
+// position on the per-thread box test against the current t (uniform over
+// the CTA); each voted member's Woop block (pool block blk_of[c], or c
+// itself when blk_of is null) is staged into the other buffer while the
+// current one is tested against (w_o, w_d), slot c * 128 + lane. Returns
+// true when no thread of the CTA is live any more (any hit): the CTA leaves.
 template <bool kAnyHit>
+__device__ __forceinline__ bool walk_members(
+    float (*woop)[kWoop], const float* __restrict__ tris,
+    const int* __restrict__ blk_of, const int* __restrict__ co,
+    const float* __restrict__ bo, int stride, int beg, int end, bool in_up,
+    float ix, float iy, float iz, float oxix, float oyiy, float oziz,
+    float wox, float woy, float woz, float wdx, float wdy, float wdz,
+    bool& live, float& t_cur, int& slot) {
+  // the next position of [pos, end) whose box some thread enters, and this
+  // thread's own test
+  auto next_visit = [&](int pos, bool* mine) {
+    for (; pos < end; ++pos) {
+      const bool e = in_up && live && enters(bo, stride, pos, ix, iy, iz,
+                                             oxix, oyiy, oziz, t_cur);
+      if (__syncthreads_or(e)) { *mine = e; return pos; }
+    }
+    *mine = false;
+    return end;
+  };
+  auto block = [&](int c) {
+    return c < 0 ? -1 : (blk_of != nullptr ? __ldg(blk_of + c) : c);
+  };
+
+  bool h_cur;
+  int cur = next_visit(beg, &h_cur);
+  int c_cur = cur < end ? __ldg(co + cur) : -1;
+  stage_async(woop[0], tris, block(c_cur));
+  int b = 0;
+  bool done = false;
+  while (cur < end) {
+    // the next visit is voted on against t as it stands and its block
+    // copied while this one is tested
+    bool h_nxt;
+    const int nxt = next_visit(cur + 1, &h_nxt);
+    const int c_nxt = nxt < end ? __ldg(co + nxt) : -1;
+    stage_async(woop[b ^ 1], tris, block(c_nxt));
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();  // the current block has landed, every thread's part
+
+    // the vote came before the previous block's test shortened t: a
+    // closest-hit thread tests its box again against the live t, so that it
+    // runs the Moller-Trumbore only where a nearer hit may still lie (any
+    // hit keeps t_lim while live: the first test stands)
+    if (h_cur && live &&
+        (kAnyHit || enters(bo, stride, cur, ix, iy, iz, oxix, oyiy, oziz,
+                           t_cur))) {
+      woop_lanes<kAnyHit>(woop[b], wox, woy, woz, wdx, wdy, wdz, t_cur, slot,
+                          c_cur * kLanes);
+      if (kAnyHit && slot >= 0) {  // occluded: retire
+        live = false;
+        t_cur = -kBig;
+      }
+    }
+    // every thread is done with this buffer before the copy after next
+    // lands in it; with no live ray left (any hit) the CTA leaves
+    if (!__syncthreads_or(live)) { done = true; break; }
+    cur = nxt;
+    c_cur = c_nxt;
+    h_cur = h_nxt;
+    b ^= 1;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  return done;
+}
+
+// ---- B1 / B2 / B3: the two-level walk. kInst (B3) moves each ray into an
+// entered instance's mesh-local space and reads a member's pool block
+// through cl_map; B1/B2's members are pool blocks themselves.
+
+template <bool kAnyHit, bool kInst>
 __global__ void __launch_bounds__(kMaxBlock)
-inst_traverse_kernel(const float* __restrict__ rays,
-                     const float* __restrict__ tris,
-                     const int* __restrict__ cl_map,
-                     const float* __restrict__ inst_woop,
-                     const float* __restrict__ inst_bounds,
-                     const int* __restrict__ inst_oct_perm,
-                     const int* __restrict__ icl_oct,
-                     const float* __restrict__ icl_bounds,
-                     const int* __restrict__ icl_start,
-                     float* __restrict__ t_out,
-                     int* __restrict__ slot_out,
-                     int n_rays, int r_blk, int Ci, int I) {
+two_level_kernel(const float* __restrict__ rays,
+                 const float* __restrict__ tris,
+                 const int* __restrict__ cl_map,
+                 const float* __restrict__ inst_woop,
+                 const float* __restrict__ lvl_bounds,
+                 const int* __restrict__ lvl_oct_perm,
+                 const int* __restrict__ lvl_members,
+                 const float* __restrict__ lvl_member_bounds,
+                 const int* __restrict__ lvl_start,
+                 float* __restrict__ t_out,
+                 int* __restrict__ slot_out,
+                 int n_rays, int r_blk, int M, int N) {
   __shared__ __align__(16) float woop[2][kWoop];
 
   const int first = blockIdx.x * r_blk;
   const int idx = first + threadIdx.x;
   const bool valid = idx < n_rays;  // ragged last block
-  const float* r0 = rays + (size_t)first * 8;
-  const int oct = (r0[3] > 0.0f) + 2 * (r0[4] > 0.0f) + 4 * (r0[5] > 0.0f);
+  float o[3], d[3], t_cur;
+  bool live;
+  const int oct = load_ray(rays, first, idx, valid, o, d, t_cur, live);
+  const float ix = safe_inv(d[0]), iy = safe_inv(d[1]), iz = safe_inv(d[2]);
+  const float oxix = o[0] * ix, oyiy = o[1] * iy, oziz = o[2] * iz;
 
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
-  float t_cur = -kBig;
-  bool live = false;
-  if (valid) {
-    const float* r = rays + (size_t)idx * 8;
-    ox = r[0]; oy = r[1]; oz = r[2];
-    dx = r[3]; dy = r[4]; dz = r[5];
-    if (r[7] > 0.0f) {
-      t_cur = r[6] < kBig ? r[6] : kBig;
-      live = true;
-    }
-  }
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const float oxix = ox * ix, oyiy = oy * iy, oziz = oz * iz;
-
-  const int* io = inst_oct_perm + (size_t)oct * I;
-  const float* bo = icl_bounds + (size_t)oct * 8 * Ci;
-  const int* co = icl_oct + (size_t)oct * Ci;
+  const int* uo = lvl_oct_perm + (size_t)oct * N;
+  const float* bo = lvl_member_bounds + (size_t)oct * 8 * M;
+  const int* co = lvl_members + (size_t)oct * M;
   int slot = -1;
-  bool done = false;
+  // B1/B2: a block without a live ray (the dead tail of a sorted
+  // wavefront) leaves at once; B3 keeps the entry it was measured with
+  bool done = kInst ? false : !__syncthreads_or(live);
 
-  for (int k = 0; k < I && !done; ++k) {
-    const int inst = __ldg(io + k);
-    const bool in_inst = live && enters(inst_bounds, I, inst, ix, iy, iz,
-                                        oxix, oyiy, oziz, t_cur);
-    if (!__syncthreads_or(in_inst)) continue;
+  for (int k = 0; k < N && !done; ++k) {
+    const int u = __ldg(uo + k);
+    const bool in_up = live && enters(lvl_bounds, N, u, ix, iy, iz, oxix,
+                                      oyiy, oziz, t_cur);
+    if (!__syncthreads_or(in_up)) continue;
 
-    // the ray in the instance's mesh-local space, moved once
-    float lox = 0.f, loy = 0.f, loz = 0.f, ldx = 0.f, ldy = 0.f, ldz = 0.f;
-    if (in_inst) {
-      const float* a = inst_woop + (size_t)inst * 16;
-      lox = ox * __ldg(a + 0) + oy * __ldg(a + 4) + oz * __ldg(a + 8) + __ldg(a + 12);
-      loy = ox * __ldg(a + 1) + oy * __ldg(a + 5) + oz * __ldg(a + 9) + __ldg(a + 13);
-      loz = ox * __ldg(a + 2) + oy * __ldg(a + 6) + oz * __ldg(a + 10) + __ldg(a + 14);
-      ldx = dx * __ldg(a + 0) + dy * __ldg(a + 4) + dz * __ldg(a + 8);
-      ldy = dx * __ldg(a + 1) + dy * __ldg(a + 5) + dz * __ldg(a + 9);
-      ldz = dx * __ldg(a + 2) + dy * __ldg(a + 6) + dz * __ldg(a + 10);
-    }
-
-    // the next position of [pos, end) whose box some thread enters, one
-    // vote a position (uniform over the CTA), and this thread's own test
-    const int end = __ldg(icl_start + inst + 1);
-    auto next_visit = [&](int pos, bool* mine) {
-      for (; pos < end; ++pos) {
-        const bool e = in_inst && live && enters(bo, Ci, pos, ix, iy, iz,
-                                                 oxix, oyiy, oziz, t_cur);
-        if (__syncthreads_or(e)) { *mine = e; return pos; }
+    // the ray the members' Woop blocks are tested against: B3 moves it
+    // once into the instance's mesh-local space (in scalars: an array cost
+    // B3 registers and a spill)
+    float lox = o[0], loy = o[1], loz = o[2], ldx = d[0], ldy = d[1], ldz = d[2];
+    if (kInst) {
+      lox = 0.f; loy = 0.f; loz = 0.f; ldx = 0.f; ldy = 0.f; ldz = 0.f;
+      if (in_up) {
+        const float* a = inst_woop + (size_t)u * 16;
+        lox = o[0] * __ldg(a + 0) + o[1] * __ldg(a + 4) + o[2] * __ldg(a + 8) + __ldg(a + 12);
+        loy = o[0] * __ldg(a + 1) + o[1] * __ldg(a + 5) + o[2] * __ldg(a + 9) + __ldg(a + 13);
+        loz = o[0] * __ldg(a + 2) + o[1] * __ldg(a + 6) + o[2] * __ldg(a + 10) + __ldg(a + 14);
+        ldx = d[0] * __ldg(a + 0) + d[1] * __ldg(a + 4) + d[2] * __ldg(a + 8);
+        ldy = d[0] * __ldg(a + 1) + d[1] * __ldg(a + 5) + d[2] * __ldg(a + 9);
+        ldz = d[0] * __ldg(a + 2) + d[1] * __ldg(a + 6) + d[2] * __ldg(a + 10);
       }
-      *mine = false;
-      return end;
-    };
-
-    bool h_cur;
-    int cur = next_visit(__ldg(icl_start + inst), &h_cur);
-    int c_cur = cur < end ? __ldg(co + cur) : -1;
-    stage_async(woop[0], tris, c_cur >= 0 ? __ldg(cl_map + c_cur) : -1);
-    int b = 0;
-    while (cur < end) {
-      // the next visit is voted on against t as it stands and its block
-      // copied while this one is tested
-      bool h_nxt;
-      const int nxt = next_visit(cur + 1, &h_nxt);
-      const int c_nxt = nxt < end ? __ldg(co + nxt) : -1;
-      stage_async(woop[b ^ 1], tris, c_nxt >= 0 ? __ldg(cl_map + c_nxt) : -1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-      __syncthreads();  // the current block has landed, every thread's part
-
-      if (h_cur && live) {
-        woop_lanes<kAnyHit>(woop[b], lox, loy, loz, ldx, ldy, ldz, t_cur, slot,
-                            c_cur * kLanes);
-        if (kAnyHit && slot >= 0) {  // occluded: retire
-          live = false;
-          t_cur = -kBig;
-        }
-      }
-      // every thread is done with this buffer before the copy after next
-      // lands in it; with no live ray left (any hit) the CTA leaves
-      if (!__syncthreads_or(live)) { done = true; break; }
-      cur = nxt;
-      c_cur = c_nxt;
-      h_cur = h_nxt;
-      b ^= 1;
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    done = walk_members<kAnyHit>(woop, tris, kInst ? cl_map : nullptr, co,
+                                 bo, M, __ldg(lvl_start + u),
+                                 __ldg(lvl_start + u + 1), in_up, ix, iy, iz,
+                                 oxix, oyiy, oziz, lox, loy, loz, ldx, ldy,
+                                 ldz, live, t_cur, slot);
   }
   if (valid) {
     t_out[idx] = t_cur;
@@ -369,50 +355,36 @@ inst_traverse_kernel(const float* __restrict__ rays,
 
 extern "C" {
 
-// Launches B1 (any_hit == 0) or B2 on `stream` over the P chunks of a flat
-// (P = 1) or partitioned pool. Returns cudaGetLastError() right after the
-// launch (0 on success).
-int hydra_cluster_traverse(const float* rays, const float* bounds_oct,
-                           const float* tris, const int* perm, float* t_out,
-                           int* slot_out, int n_rays, int r_blk, int Cp,
-                           int P, int any_hit, void* stream) {
+// Launches the two-level walk on `stream` over an upper level of N boxes
+// and M members: B1 (any_hit == 0) or B2 over a flat or partitioned pool
+// (cl_map and inst_woop null), B3 in either hit mode over an instanced one.
+// Returns cudaGetLastError() right after the launch (0 on success).
+int hydra_cluster_traverse(const float* rays, const float* tris,
+                           const int* cl_map, const float* inst_woop,
+                           const float* lvl_bounds, const int* lvl_oct_perm,
+                           const int* lvl_members,
+                           const float* lvl_member_bounds,
+                           const int* lvl_start, float* t_out, int* slot_out,
+                           int n_rays, int r_blk, int M, int N, int any_hit,
+                           void* stream) {
   if (n_rays <= 0) return 0;
-  if (r_blk <= 0 || r_blk > kMaxBlock || Cp <= 0 || P <= 0)
+  if (r_blk <= 0 || r_blk > kMaxBlock || M < 0 || N < 0 ||
+      (cl_map == nullptr) != (inst_woop == nullptr))
     return (int)cudaErrorInvalidValue;
   const int grid = (n_rays + r_blk - 1) / r_blk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    cluster_traverse_kernel<true><<<grid, r_blk, 0, s>>>(
-        rays, bounds_oct, tris, perm, t_out, slot_out, n_rays, r_blk, Cp, P);
+  auto go = [&](auto kernel) {
+    kernel<<<grid, r_blk, 0, s>>>(rays, tris, cl_map, inst_woop, lvl_bounds,
+                                  lvl_oct_perm, lvl_members,
+                                  lvl_member_bounds, lvl_start, t_out,
+                                  slot_out, n_rays, r_blk, M, N);
+  };
+  if (cl_map != nullptr)
+    any_hit ? go(two_level_kernel<true, true>)
+            : go(two_level_kernel<false, true>);
   else
-    cluster_traverse_kernel<false><<<grid, r_blk, 0, s>>>(
-        rays, bounds_oct, tris, perm, t_out, slot_out, n_rays, r_blk, Cp, P);
-  return (int)cudaGetLastError();
-}
-
-// Launches B3 in either hit mode on `stream` over an instanced pool of Ci
-// instance-clusters and I instances. Returns cudaGetLastError() right after
-// the launch (0 on success).
-int hydra_inst_traverse(const float* rays, const float* tris,
-                        const int* cl_map, const float* inst_woop,
-                        const float* inst_bounds, const int* inst_oct_perm,
-                        const int* icl_oct, const float* icl_bounds,
-                        const int* icl_start, float* t_out, int* slot_out,
-                        int n_rays, int r_blk, int Ci, int I, int any_hit,
-                        void* stream) {
-  if (n_rays <= 0) return 0;
-  if (r_blk <= 0 || r_blk > kMaxBlock || Ci <= 0 || I <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int grid = (n_rays + r_blk - 1) / r_blk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    inst_traverse_kernel<true><<<grid, r_blk, 0, s>>>(
-        rays, tris, cl_map, inst_woop, inst_bounds, inst_oct_perm, icl_oct,
-        icl_bounds, icl_start, t_out, slot_out, n_rays, r_blk, Ci, I);
-  else
-    inst_traverse_kernel<false><<<grid, r_blk, 0, s>>>(
-        rays, tris, cl_map, inst_woop, inst_bounds, inst_oct_perm, icl_oct,
-        icl_bounds, icl_start, t_out, slot_out, n_rays, r_blk, Ci, I);
+    any_hit ? go(two_level_kernel<true, false>)
+            : go(two_level_kernel<false, false>);
   return (int)cudaGetLastError();
 }
 

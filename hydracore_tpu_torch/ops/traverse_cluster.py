@@ -6,12 +6,13 @@ The kernels (csrc/traverse_cluster.cu, CUDA C++ for sm_90a, built with
 nvcc at first use and loaded with ctypes) replace the JAX package's Pallas
 kernel hydracore_tpu/ops/traverse_cluster.py::_make_kernel as launched by
 _cluster_traverse, in its flat and its inst_mode variants, and the chain
-of launches of _partitioned_traverse: a partitioned pool is walked chunk
-by chunk inside ONE launch. They compute the same function, not its TPU
-block structure: B3 walks the instances first and an instance's
-instance-clusters only when a ray of the block enters its box (the
-instance level of bvh/instanced.py:instance_tables). The source note in
-the .cu file gives the design and its bound.
+of launches of _partitioned_traverse: a partitioned pool is walked inside
+ONE launch. They compute the same function, not its TPU block structure:
+one two-level walk. It votes on the boxes of an upper level first and walks
+a box's clusters only when a ray of the block enters it: groups of clusters
+for B1/B2 (bvh/clusters.py:group_tables, all chunks in one front-to-back
+order), instances for B3 (bvh/instanced.py:instance_tables). The source
+note in the .cu file gives the design and its bound.
 
 cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs cluster_traverse_plain, the twin with
@@ -52,45 +53,58 @@ def reset_launch_counts() -> None:
     this.inst_any_launches = 0
 
 
-# the instance level of B3's two-level walk (bvh/instanced.py:
-# instance_tables), in the order hydra_inst_traverse takes it
-INST_TABLES = ("inst_bounds", "inst_oct_perm", "icl_oct", "icl_bounds",
-               "icl_start")
+# the upper level of the two-level walk, in the order the kernel takes it:
+# the upper boxes (8, N), per octant their front-to-back order (8, N), per
+# octant the members grouped by upper box (8, M), the members' boxes in that
+# order (8, 8, M) and each box's offset into the members (N + 1,). B1/B2's
+# boxes are groups of clusters (bvh/clusters.py:group_tables), B3's the
+# instances (bvh/instanced.py:instance_tables).
+LEVEL_TABLES = ("lvl_bounds", "lvl_oct_perm", "lvl_members",
+                "lvl_member_bounds", "lvl_start")
 
 
 def _kernel_lib():
     global _lib
     if _lib is None:
         _lib = load_lib("traverse_cluster.cu", "hydra_cluster_traverse",
-                        [VP] * 6 + [CI] * 5 + [VP])
-        _lib.hydra_inst_traverse.argtypes = [VP] * 11 + [CI] * 5 + [VP]
-        _lib.hydra_inst_traverse.restype = CI
+                        [VP] * 11 + [CI] * 5 + [VP])
     return _lib
 
 
 def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level):
-    """Validate shapes, types and devices; returns (P, Cp): the number of
-    chunks (1 for a flat or an instanced pool) and clusters per chunk.
-    `level` maps INST_TABLES to the instance level's tensors (all None
-    when not given)."""
+    """Validate shapes, types and devices. `level` maps LEVEL_TABLES to the
+    upper level's tensors (all None when not given); cbl_oct and perm may
+    be None (only the twin reads them)."""
     if rays.dim() != 3 or rays.shape[2] != 8:
         raise ValueError(f"rays must be (G, r_blk, 8), got {tuple(rays.shape)}")
     if (cl_map is None) != (inst_woop is None):
         raise ValueError("cl_map and inst_woop come together")
+    if (cbl_oct is None) != (perm is None):
+        raise ValueError("cbl_oct and perm come together")
     given = [k for k, x in level.items() if x is not None]
-    if given and (cl_map is None or len(given) != len(INST_TABLES)):
-        raise ValueError(f"the instance level {INST_TABLES} comes whole and "
-                         "with cl_map")
-    lead = tuple(cbl_oct.shape[:-3]) if cbl_oct.dim() in (3, 4) else None
-    Cp = cbl_oct.shape[-1] if lead is not None else -1
-    if lead is None or tuple(cbl_oct.shape[-3:]) != (8, 8, Cp) or Cp <= 0:
-        raise ValueError("cbl_oct must be (8, 8, Cp) or (P, 8, 8, Cp), got "
-                         f"{tuple(cbl_oct.shape)}")
-    if tuple(perm.shape) != lead + (8, Cp):
-        raise ValueError(f"perm must be {lead + (8, Cp)}, got {tuple(perm.shape)}")
-    tensors = [("rays", rays, torch.float32), ("cbl_oct", cbl_oct, torch.float32),
-               ("tris", tris, torch.float32), ("perm", perm, torch.int32)]
-    if cl_map is None:
+    if given and len(given) != len(LEVEL_TABLES):
+        raise ValueError(f"the upper level {LEVEL_TABLES} comes whole")
+    inst = cl_map is not None
+    tensors = [("rays", rays, torch.float32), ("tris", tris, torch.float32)]
+    if cbl_oct is not None:
+        lead = tuple(cbl_oct.shape[:-3]) if cbl_oct.dim() in (3, 4) else None
+        Cp = cbl_oct.shape[-1] if lead is not None else -1
+        if lead is None or tuple(cbl_oct.shape[-3:]) != (8, 8, Cp) or Cp <= 0:
+            raise ValueError("cbl_oct must be (8, 8, Cp) or (P, 8, 8, Cp), "
+                             f"got {tuple(cbl_oct.shape)}")
+        if tuple(perm.shape) != lead + (8, Cp):
+            raise ValueError(f"perm must be {lead + (8, Cp)}, got "
+                             f"{tuple(perm.shape)}")
+        tensors += [("cbl_oct", cbl_oct, torch.float32),
+                    ("perm", perm, torch.int32)]
+    elif inst:
+        lead, Cp = (), cl_map.shape[-1]
+    elif tris.dim() in (3, 4):
+        lead, Cp = tuple(tris.shape[:-3]), tris.shape[-3]
+    else:
+        raise ValueError("tris must be (Cp, 4, 384) or (P, Cp, 4, 384), got "
+                         f"{tuple(tris.shape)}")
+    if not inst:
         if tuple(tris.shape) != lead + (Cp, 4, 3 * LANES):
             raise ValueError(f"tris must be {lead + (Cp, 4, 3 * LANES)}, got "
                              f"{tuple(tris.shape)}")
@@ -106,66 +120,75 @@ def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level):
                              f"{tuple(inst_woop.shape)}")
         tensors += [("cl_map", cl_map, torch.int32),
                     ("inst_woop", inst_woop, torch.float32)]
-        if given:
-            I = inst_woop.shape[0]
-            for name, shape, dt in (
-                    ("inst_bounds", (8, I), torch.float32),
-                    ("inst_oct_perm", (8, I), torch.int32),
-                    ("icl_oct", (8, Cp), torch.int32),
-                    ("icl_bounds", (8, 8, Cp), torch.float32),
-                    ("icl_start", (I + 1,), torch.int32)):
-                if tuple(level[name].shape) != shape:
-                    raise ValueError(f"{name} must be {shape}, got "
-                                     f"{tuple(level[name].shape)}")
-                tensors.append((name, level[name], dt))
+    if given:
+        N = level["lvl_bounds"].shape[-1]
+        M = level["lvl_members"].shape[-1]
+        if inst and N != inst_woop.shape[0]:
+            raise ValueError(f"lvl_bounds holds {N} boxes, the instances "
+                             f"{inst_woop.shape[0]}")
+        if M > (lead[0] if lead else 1) * Cp:
+            raise ValueError(f"lvl_members holds {M} clusters, the pool "
+                             f"{(lead[0] if lead else 1) * Cp}")
+        for name, shape, dt in (
+                ("lvl_bounds", (8, N), torch.float32),
+                ("lvl_oct_perm", (8, N), torch.int32),
+                ("lvl_members", (8, M), torch.int32),
+                ("lvl_member_bounds", (8, 8, M), torch.float32),
+                ("lvl_start", (N + 1,), torch.int32)):
+            if tuple(level[name].shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got "
+                                 f"{tuple(level[name].shape)}")
+            tensors.append((name, level[name], dt))
     for name, x, dt in tensors:
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if x.device != rays.device:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
-    return (lead[0] if lead else 1), Cp
 
 
-def cluster_traverse(rays, cbl_oct, tris, perm, any_hit_mode: bool = False,
-                     cl_map=None, inst_woop=None, inst_bounds=None,
-                     inst_oct_perm=None, icl_oct=None, icl_bounds=None,
-                     icl_start=None):
+def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
+                     any_hit_mode: bool = False, cl_map=None, inst_woop=None,
+                     lvl_bounds=None, lvl_oct_perm=None, lvl_members=None,
+                     lvl_member_bounds=None, lvl_start=None):
     """rays (G, r_blk, 8) f32 [o d t_lim active] -> (t (G, r_blk) f32,
-    slot (G, r_blk) i32). The pool is flat (cbl_oct (8, 8, Cp)), partitioned
-    (a leading chunk axis P on cbl_oct, tris and perm; slots come back as
+    slot (G, r_blk) i32). The pool is flat (tris (Cp, 4, 384)), partitioned
+    (a leading chunk axis P on tris, cbl_oct and perm; slots come back as
     (chunk * Cp + cluster) * 128 + lane) or, with cl_map and inst_woop,
-    instanced (cbl_oct and perm over instance-clusters, tris the shared
-    pool). CUDA tensors launch kernel B1 / B2, or for an instanced pool B3,
-    which walks the instance level INST_TABLES (a scene's fields of those
-    names) and raises without it; CPU tensors run the plain twin, which
-    needs no instance level."""
-    level = dict(inst_bounds=inst_bounds, inst_oct_perm=inst_oct_perm,
-                 icl_oct=icl_oct, icl_bounds=icl_bounds, icl_start=icl_start)
-    P, Cp = _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level)
+    instanced (tris the shared pool, cbl_oct and perm over
+    instance-clusters). CUDA tensors launch kernel B1 / B2, or B3 for an
+    instanced pool, which walk the upper level LEVEL_TABLES (a scene's
+    fields of those names, scene_pool) and raise without it. CPU tensors run
+    the plain twin, which needs cbl_oct and perm and no level."""
+    if tris is None:
+        raise ValueError("tris is required")
+    level = dict(lvl_bounds=lvl_bounds, lvl_oct_perm=lvl_oct_perm,
+                 lvl_members=lvl_members, lvl_member_bounds=lvl_member_bounds,
+                 lvl_start=lvl_start)
+    _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level)
     if not rays.is_cuda:
+        if cbl_oct is None:
+            raise ValueError("the plain twin (CPU tensors) needs cbl_oct and "
+                             "perm")
         return cluster_traverse_plain(rays, cbl_oct, tris, perm, any_hit_mode,
                                       cl_map, inst_woop)
     G, r_blk, _ = rays.shape
     if r_blk > 256:
         raise ValueError(f"r_blk {r_blk} > 256 threads per block")
     inst = cl_map is not None
-    if inst and inst_bounds is None:
-        raise ValueError(f"kernel B3 needs the instance level {INST_TABLES} "
-                         "(bvh/instanced.py:instance_tables)")
+    if lvl_bounds is None:
+        raise ValueError(f"kernel {'B3' if inst else 'B1/B2'} needs the upper "
+                         f"level {LEVEL_TABLES} (bvh/"
+                         + ("instanced.py:instance_tables)" if inst
+                            else "clusters.py:group_tables)"))
     t = torch.empty((G, r_blk), dtype=torch.float32, device=rays.device)
     slot = torch.empty((G, r_blk), dtype=torch.int32, device=rays.device)
-    if inst:
-        args = [x.contiguous() for x in (rays, tris, cl_map, inst_woop)] \
-            + [level[k].contiguous() for k in INST_TABLES]
-        launch(_kernel_lib(), "hydra_inst_traverse", "instanced traversal",
-               rays.device, *(x.data_ptr() for x in args), t.data_ptr(),
-               slot.data_ptr(), G * r_blk, r_blk, Cp, inst_woop.shape[0],
-               int(any_hit_mode))
-    else:
-        args = [x.contiguous() for x in (rays, cbl_oct, tris, perm)]
-        launch(_kernel_lib(), "hydra_cluster_traverse", "cluster traversal",
-               rays.device, *(x.data_ptr() for x in args), t.data_ptr(),
-               slot.data_ptr(), G * r_blk, r_blk, Cp, P, int(any_hit_mode))
+    args = [x.contiguous() if x is not None else None
+            for x in (rays, tris, cl_map, inst_woop)] \
+        + [level[k].contiguous() for k in LEVEL_TABLES]
+    launch(_kernel_lib(), "hydra_cluster_traverse", "cluster traversal",
+           rays.device, *(None if x is None else x.data_ptr() for x in args),
+           t.data_ptr(), slot.data_ptr(), G * r_blk, r_blk,
+           lvl_members.shape[1], lvl_bounds.shape[1], int(any_hit_mode))
     this = sys.modules[__name__]
     name = ("inst_" if inst else "") + ("any" if any_hit_mode else "closest") \
         + "_launches"
@@ -192,22 +215,32 @@ def slab_enters(o, inv, bounds, t_lim):
     return (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim[:, None])
 
 
-def inst_walk_positions(rays, inst_bounds, icl_start, t=None):
-    """Positions B3 walks in each block of `rays` (G, r_blk, 8): one vote
-    per instance, plus the group of instance-clusters of every instance
-    whose box some active ray of the block enters before its t (`t` (G *
-    r_blk,) where given, else each ray's t_lim). Against t_lim this is the
-    most the walk can take (no hit shortens t), against the final t of a
-    closest-hit walk the least. Returns (G,) int64."""
+def walk_positions(rays, level, t=None):
+    """Positions B1/B2/B3 walk in each block of `rays` (G, r_blk, 8): one
+    vote per box of the upper level `level` (lvl_bounds (8, N) and
+    lvl_start: a scene's scene_pool, say), plus the members [lvl_start[i],
+    lvl_start[i + 1]) of every box i that some active ray of the block
+    enters before its t (`t` (G * r_blk,) where given, else each ray's
+    t_lim). Against t_lim this is the most the walk can take (no hit
+    shortens t), against the final t of a closest-hit walk the least.
+    Returns (G,) int64."""
+    boxes, start = level["lvl_bounds"], level["lvl_start"]
     G, RB, _ = rays.shape
     flat = rays.reshape(-1, 8)
     act = flat[:, 7] > 0.0
     if t is None:
         t = torch.clamp(flat[:, 6], max=BIG)
-    sizes = (icl_start[1:] - icl_start[:-1]).to(torch.int64)
-    ent = slab_enters(flat[:, 0:3], safe_inv(flat[:, 3:6]), inst_bounds, t)
-    ent = (ent & act[:, None]).reshape(G, RB, -1).any(dim=1)
-    return sizes.numel() + (ent.to(torch.int64) * sizes).sum(dim=1)
+    sizes = (start[1:] - start[:-1]).to(torch.int64)
+    N = sizes.numel()
+    out = torch.full((G,), N, dtype=torch.int64, device=rays.device)
+    step = max(1, _TWIN_STEP_ELEMS // (RB * max(N, 1)))  # blocks a step
+    for g in range(0, G, step):
+        nb = min(step, G - g)
+        sl = slice(g * RB, (g + nb) * RB)
+        ent = slab_enters(flat[sl, 0:3], safe_inv(flat[sl, 3:6]), boxes, t[sl])
+        ent = (ent & act[sl, None]).reshape(nb, RB, N).any(dim=1)
+        out[g:g + nb] += (ent.to(torch.int64) * sizes).sum(dim=1)
+    return out
 
 
 def _pairs_mt(o, d, t_lim, blk):
@@ -368,12 +401,13 @@ def local_rays(scene, inst, ray_o, ray_d):
 
 
 def scene_pool(scene) -> dict:
-    """The pool arguments of cluster_traverse held by `scene` (the instance
-    level is None for a flat or partitioned pool)."""
+    """The pool arguments of cluster_traverse held by `scene`, with the
+    upper level of its kernel's two-level walk (cl_map and inst_woop are
+    None but for an instanced pool)."""
     return dict(cbl_oct=scene.cl_bounds_oct, tris=scene.cl_tris,
                 perm=scene.cl_oct_perm, cl_map=scene.cl_map,
                 inst_woop=scene.inst_woop,
-                **{k: getattr(scene, k) for k in INST_TABLES})
+                **{k: getattr(scene, k) for k in LEVEL_TABLES})
 
 
 def _traverse_scene(scene, rays, any_hit_mode: bool):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from hydracore_tpu_torch.bvh.clusters import (CL_PART_CAP, cut_clusters,
-                                              maybe_partition)
+                                              group_tables, maybe_partition)
 from hydracore_tpu_torch.bvh.native import build_bvh_auto
 from hydracore_tpu_torch.scene.camera import build_camera
 from hydracore_tpu_torch.scene.lights import (
@@ -304,6 +304,7 @@ class SceneBuilder:
             camera=cam, env_color=self.env,
             env_rows_cdf=env_rows, env_cols_cdf=env_cols, env_pdf_uv=env_pdf,
             settings=settings, traversal=traversal, **pools,
+            **group_tables(cl.bounds_lane, cl.oct_perm),
         ))
 
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from hydracore_tpu_torch.bvh.clusters import (CL_PART_CAP, cut_clusters,
-                                              maybe_partition)
+                                              group_tables, maybe_partition)
 from hydracore_tpu_torch.bvh.native import build_bvh_auto
 from hydracore_tpu_torch.bvh.wide import collapse_wide
 from hydracore_tpu_torch.ops.traverse_packet import pack_pools
@@ -113,13 +113,16 @@ class SceneData:
     inst_attr: object = None  # (I, 32) f32 [M 3x4 | invM 3x4 | pad]
     inst_orig: object = None  # (I,) i32 row -> desc.instances index (-1 = flattened world)
     inst_woop: object = None  # (I, 4, 4) f32 A^T (world -> mesh-local)
-    # the instance level of kernel B3's walk, derived from the tables above
-    # (bvh/instanced.py:instance_tables), never read from a compiled scene
-    inst_bounds: object = None  # (8, I) f32 world AABB of each instance
-    inst_oct_perm: object = None  # (8, I) i32 front-to-back per octant
-    icl_oct: object = None  # (8, Ci) i32 instance-clusters grouped by instance
-    icl_start: object = None  # (I + 1,) i32 group offsets into icl_oct
-    icl_bounds: object = None  # (8, 8, Ci) f32 cl_bounds in icl_oct order
+    # the upper level of the cluster kernels' two-level walk, derived from
+    # cl_bounds / cl_oct_perm (and cl_map): the instances of an instanced
+    # pool (bvh/instanced.py:instance_tables, kernel B3), groups of clusters
+    # of any other (bvh/clusters.py:group_tables, B1/B2); never read from a
+    # compiled scene
+    lvl_bounds: object = None  # (8, N) f32 AABB of each upper box
+    lvl_oct_perm: object = None  # (8, N) i32 front-to-back per octant
+    lvl_members: object = None  # (8, M) i32 clusters grouped by upper box
+    lvl_member_bounds: object = None  # (8, 8, M) f32 their boxes, that order
+    lvl_start: object = None  # (N + 1,) i32 group offsets into lvl_members
     # split shadow sets of alpha scenes (None unless has_alpha)
     cl_tris_shadow: object = None  # (Cp, 4, 384) f32
     alpha_tri9f: object = None  # (9, A) f32
@@ -143,9 +146,10 @@ class SceneData:
 # leaves that may be None: the instanced layout's tables, the shadow split
 # of alpha scenes, the sky back plate
 _INSTANCED = ("cl_map", "cl_slot_inst", "inst_attr", "inst_orig", "inst_woop")
-# derived from the instanced tables: not leaves of a compiled scene
-_DERIVED = ("inst_bounds", "inst_oct_perm", "icl_oct", "icl_start",
-            "icl_bounds")
+# derived from the cluster tables: not leaves of a compiled scene (the
+# upper level of the two-level walk)
+_DERIVED = ("lvl_bounds", "lvl_oct_perm", "lvl_members", "lvl_member_bounds",
+            "lvl_start")
 _OPTIONAL = _INSTANCED + _DERIVED + ("cl_tris_shadow", "alpha_tri9f",
                                      "alpha_tri_id", "env_back")
 
@@ -457,6 +461,7 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
         camera=cam, env_color=env, env_back=env_back,
         env_rows_cdf=env_rows, env_cols_cdf=env_cols, env_pdf_uv=env_pdf,
         settings=st2, traversal=traversal, **pools,
+        **group_tables(cl.bounds_lane, cl.oct_perm),
     ))
 
 
@@ -828,8 +833,9 @@ def scene_from_arrays(leaves: dict, settings: dict, device=None,
     packages render the very same scene. `settings` holds the
     RenderSettings fields; the camera takes its width/height from them.
     `traversal` is the port's static choice of traversal for the scene.
-    An instanced scene's instance level (_DERIVED) is derived from its
-    instance-cluster tables here, as assemble derives it."""
+    The level of the two-level walk (_DERIVED: an instanced scene's
+    instance level, any other's group level) is derived from the cluster
+    tables here, as assemble derives it."""
     dev = resolve_device(device)
     st = RenderSettings(**settings)
     kw = {"traversal": traversal}
@@ -860,4 +866,7 @@ def scene_from_arrays(leaves: dict, settings: dict, device=None,
         from hydracore_tpu_torch.bvh.instanced import instance_tables
         sc = dataclasses.replace(sc, **instance_tables(
             sc.cl_bounds, sc.cl_oct_perm, sc.cl_map, sc.inst_woop.shape[0]))
+    else:
+        sc = dataclasses.replace(sc, **group_tables(sc.cl_bounds,
+                                                    sc.cl_oct_perm))
     return sc.to(dev)

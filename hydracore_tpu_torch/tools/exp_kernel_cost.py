@@ -28,7 +28,10 @@ card the mean of n calls replayed from a CUDA graph, so that the host's
 time to issue a call is not in it) beside the card's name and power limit,
 and with "all" the split of the whole kernel's time: scan (stagea1 - floor), compaction (compact1 - stagea1) and
 the rest, staging and Moller-Trumbore (full - compact1), each as a share of
-full.
+full. The lab variants scan every cluster position, as B1 did before its
+two-level walk over groups of clusters; B1 now walks the groups first, so
+the split describes that single-level walk and "full - compact1" is no
+longer B1's own staging and Moller-Trumbore (it may come out negative).
 """
 from __future__ import annotations
 
@@ -197,8 +200,7 @@ def run_variant(variant: str, rays, oct_, scene):
     """One call of the variant: the lab kernel, or B1 for "full"."""
     kind, n = parse(variant)
     if kind == "full":
-        return tc.cluster_traverse(rays, scene.cl_bounds_oct, scene.cl_tris,
-                                   scene.cl_oct_perm)
+        return tc.cluster_traverse(rays, **tc.scene_pool(scene))
     return cluster_cost(kind, rays, oct_, scene.cl_bounds_oct, n)
 
 

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: kernels B1/B2 (flat and
-partitioned pools), B3 (instanced pools) and B4 (warp packets over the
+partitioned pools, a two-level walk over groups of clusters), B3
+(instanced pools) and B4 (warp packets over the
 8-wide BVH) against their plain twins, the path tracer on the card
 against the CPU twins, by the cluster and by the packet route, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
@@ -135,7 +136,8 @@ def test_kernel_matches_twin(cuda, any_hit_mode, r_blk):
     blocks, _ = tc._to_blocks(ro, rd, t_max, act, r_blk)
     pool = (sc.cl_bounds_oct, sc.cl_tris, sc.cl_oct_perm)
     before = (tc.closest_launches, tc.any_launches)
-    t_k, s_k = tc.cluster_traverse(blocks, *pool, any_hit_mode=any_hit_mode)
+    t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode,
+                                   **tc.scene_pool(sc))
     after = (tc.closest_launches, tc.any_launches)
     t_t, s_t = tc.cluster_traverse_plain(blocks, *pool,
                                          any_hit_mode=any_hit_mode)
@@ -171,12 +173,13 @@ def test_chunked_kernel_matches_twin_and_flat(cuda, any_hit_mode, r_blk):
     blocks, R = _random_blocks(cuda, -5, 5, r_blk, 1.0)
     pool = (part.cl_bounds_oct, part.cl_tris, part.cl_oct_perm)
     before = (tc.closest_launches, tc.any_launches)
-    t_k, s_k = tc.cluster_traverse(blocks, *pool, any_hit_mode=any_hit_mode)
+    t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode,
+                                   **tc.scene_pool(part))
     after = (tc.closest_launches, tc.any_launches)
     t_t, s_t = tc.cluster_traverse_plain(blocks, *pool,
                                          any_hit_mode=any_hit_mode)
-    t_f, s_f = tc.cluster_traverse(blocks, flat.cl_bounds_oct, flat.cl_tris,
-                                   flat.cl_oct_perm, any_hit_mode=any_hit_mode)
+    t_f, s_f = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode,
+                                   **tc.scene_pool(flat))
     torch.cuda.synchronize()
     assert after[int(any_hit_mode)] == before[int(any_hit_mode)] + 1
     hit = s_k >= 0
@@ -210,9 +213,9 @@ def _instanced_blocks(sc, r_blk):
         d = np.abs(d) if positive else d
         return d / np.linalg.norm(d, axis=1, keepdims=True)
 
-    ib = sc.inst_bounds.cpu().numpy()
+    ib = sc.lvl_bounds.cpu().numpy()
     ctr = (ib[0:3] + ib[3:6]).T * 0.5  # (I, 3)
-    first = next(int(i) for i in sc.inst_oct_perm[7].tolist() if i > 0)
+    first = next(int(i) for i in sc.lvl_oct_perm[7].tolist() if i > 0)
     d_aim = unit(r_blk, positive=True)
     d_aim[0] = 1.0 / np.sqrt(3.0)
     o_aim = rng.uniform(-14, 14, (r_blk, 3))
@@ -242,7 +245,7 @@ def test_instanced_kernel_matches_twin(cuda, any_hit_mode, r_blk):
     assert sc.settings.has_inst and sc.inst_woop.shape[0] == 41
     blocks, R, aimed = _instanced_blocks(sc, r_blk)
     pool = tc.scene_pool(sc)
-    twin_pool = {k: v for k, v in pool.items() if k not in tc.INST_TABLES}
+    twin_pool = {k: v for k, v in pool.items() if k not in tc.LEVEL_TABLES}
     before = (tc.inst_closest_launches, tc.inst_any_launches,
               tc.closest_launches, tc.any_launches)
     t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode, **pool)
@@ -273,8 +276,8 @@ def test_instanced_kernel_matches_twin(cuda, any_hit_mode, r_blk):
 def test_instanced_kernel_needs_the_instance_level(cuda):
     sc = _instanced_scene().to(cuda)
     pool = {k: v for k, v in tc.scene_pool(sc).items()
-            if k not in tc.INST_TABLES}
-    with pytest.raises(ValueError, match="instance level"):
+            if k not in tc.LEVEL_TABLES}
+    with pytest.raises(ValueError, match="B3 needs the upper level"):
         tc.cluster_traverse(torch.zeros((1, 64, 8), device=cuda), **pool)
 
 
@@ -289,7 +292,8 @@ def test_b1_b2_equal_their_twin_bit_for_bit(cuda, any_hit_mode, pool_kind):
     sc = sc.to(cuda)
     blocks, _ = _random_blocks(cuda, -5, 5, 64, 1.0)
     pool = (sc.cl_bounds_oct, sc.cl_tris, sc.cl_oct_perm)
-    t_k, s_k = tc.cluster_traverse(blocks, *pool, any_hit_mode=any_hit_mode)
+    t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode,
+                                   **tc.scene_pool(sc))
     t_t, s_t = tc.cluster_traverse_plain(blocks, *pool,
                                          any_hit_mode=any_hit_mode)
     torch.cuda.synchronize()
@@ -305,6 +309,87 @@ def test_wrapper_refuses_mixed_devices(cuda):
     with pytest.raises(ValueError, match="cpu"):
         tc.cluster_traverse(blocks, sc.cl_bounds_oct, sc.cl_tris,
                             sc.cl_oct_perm)
+
+
+def _grazing_blocks(sc, r_blk, n=6144):
+    """Rays in the plane of a group box face (the origin outside or on the
+    face, a third exactly on a corner, the direction in the plane) and rays
+    from inside group boxes, t limits infinite or finite."""
+    rng = np.random.default_rng(23)
+    gb = sc.lvl_bounds.cpu().numpy()
+    pick = rng.integers(0, gb.shape[1], n)
+    bmin, bmax = gb[0:3, pick].T, gb[3:6, pick].T
+    axis = rng.integers(0, 3, n)
+    face = np.where(rng.integers(0, 2, n) == 1, bmax[np.arange(n), axis],
+                    bmin[np.arange(n), axis])
+    o = rng.uniform(bmin - 1.0, bmax + 1.0)
+    o[np.arange(n), axis] = face
+    corner = np.arange(n) % 3 == 0
+    o[corner] = np.where(rng.integers(0, 2, (corner.sum(), 3)) == 1,
+                         bmax[corner], bmin[corner])
+    inside = np.arange(n) % 3 == 1
+    o[inside] = rng.uniform(bmin[inside], bmax[inside])
+    d = rng.normal(size=(n, 3))
+    d[~inside, axis[~inside]] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dev = sc.cl_tris.device
+    t_max = torch.where(torch.arange(n, device=dev) % 2 == 0, 1e30, 2.0)
+    return tc._to_blocks(torch.tensor(o, dtype=torch.float32, device=dev),
+                         torch.tensor(d, dtype=torch.float32, device=dev),
+                         t_max, None, r_blk)[0], n
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("rays", ["random", "grazing"])
+@pytest.mark.parametrize("pool_kind", ["flat", "chunked", "one group"])
+def test_group_walk_matches_twin(cuda, pool_kind, rays, any_hit_mode):
+    """B1/B2 as a two-level walk (groups of clusters of every chunk in one
+    front-to-back order, then the entered groups' clusters) against the
+    twin, which tests every cluster: equal hit masks and t, slots equal on
+    >= 99.9% (the cull changes no box test, so only the pick among equal t
+    may differ), occlusion equal; on a pool of one group too, and on rays
+    that graze group faces or start inside group boxes."""
+    n_rects = {"flat": 30000, "chunked": 30000, "one group": 350}[pool_kind]
+    sc = _rects_scene(n_rects, part_cap=128 if pool_kind == "chunked"
+                      else 1024).to(cuda)
+    Gn = sc.lvl_bounds.shape[1]
+    assert (Gn == 1) == (pool_kind == "one group")
+    assert (sc.cl_tris.dim() == 4) == (pool_kind == "chunked")
+    if rays == "random":
+        lo, hi = (-6, 6) if n_rects == 350 else (-5, 5)
+        blocks, R = _random_blocks(cuda, lo, hi, tc.R_BLK_BOUNCE, 1.0)
+    else:
+        blocks, R = _grazing_blocks(sc, tc.R_BLK_BOUNCE)
+    pool = tc.scene_pool(sc)
+    twin = (sc.cl_bounds_oct, sc.cl_tris, sc.cl_oct_perm)
+    before = (tc.closest_launches, tc.any_launches)
+    t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode, **pool)
+    after = (tc.closest_launches, tc.any_launches)
+    t_t, s_t = tc.cluster_traverse_plain(blocks, *twin,
+                                         any_hit_mode=any_hit_mode)
+    torch.cuda.synchronize()
+    assert after[int(any_hit_mode)] == before[int(any_hit_mode)] + 1
+    hit = s_k >= 0
+    assert 50 < int(hit.sum()) < R
+    assert torch.equal(hit, s_t >= 0)
+    assert torch.equal(t_k, t_t)
+    if not any_hit_mode:
+        assert float((s_k[hit] == s_t[hit]).float().mean()) >= 0.999
+    # the kernel reads the level, not the twin's cbl_oct and perm
+    t_n, s_n = tc.cluster_traverse(
+        blocks, any_hit_mode=any_hit_mode,
+        **{k: v for k, v in pool.items() if k not in ("cbl_oct", "perm")})
+    assert torch.equal(t_n, t_k) and torch.equal(s_n, s_k)
+
+
+def test_b1_b2_need_the_group_level(cuda):
+    sc = _rects_scene(30000, part_cap=128).to(cuda)
+    pool = {k: v for k, v in tc.scene_pool(sc).items()
+            if k not in tc.LEVEL_TABLES}
+    for any_hit_mode in (False, True):
+        with pytest.raises(ValueError, match="B1/B2 needs the upper level"):
+            tc.cluster_traverse(torch.zeros((1, 64, 8), device=cuda),
+                                any_hit_mode=any_hit_mode, **pool)
 
 
 @pytest.mark.parametrize("any_hit_mode", [False, True])

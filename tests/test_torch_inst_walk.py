@@ -1,20 +1,21 @@
-"""The instance level of kernel B3's two-level walk
-(hydracore_tpu_torch/bvh/instanced.py:instance_tables) on a small
+"""The instance level, the upper level of kernel B3's two-level walk
+(hydracore_tpu_torch/bvh/instanced.py:instance_tables), on a small
 instanced SceneDesc: a ground plane (flattened into the world instance),
 ten rotated, non-uniformly scaled instances of a 1,200-triangle blob (one
 mirrored) and two boxes, built for both packages from the same numpy data.
 
-  * the tables: icl_oct[o] is a permutation of the real instance-clusters,
-    grouped by icl_start and front-to-back within each group; icl_bounds is
-    cl_bounds in that order; inst_bounds is the union of each instance's
-    cluster boxes; inst_oct_perm follows the centre key;
+  * the tables: lvl_members[o] is a permutation of the real
+    instance-clusters, grouped by lvl_start and front-to-back within each
+    group; lvl_member_bounds is cl_bounds in that order; lvl_bounds is the
+    union of each instance's cluster boxes; lvl_oct_perm follows the centre
+    key;
   * the cull is exact: on 65,536+ float32 rays (axis-parallel directions,
     origins inside instance boxes, rays grazing box faces) every
     instance-cluster box a ray enters, in the kernels' slab arithmetic,
     lies in an instance whose box it enters;
   * scene_from_arrays over the JAX package's instanced arrays derives the
     same tables as assemble (bit for bit);
-  * the walk counts of inst_walk_positions against a direct count, and the
+  * the walk counts of walk_positions against a direct count, and the
     wrapper's checks of the instance level.
 """
 import xml.etree.ElementTree as ET
@@ -96,14 +97,14 @@ def test_tables_group_instance_clusters(scene):
     sc = scene
     real = _real(sc)
     I, Ci = sc.inst_woop.shape[0], sc.cl_map.shape[1]
-    start = sc.icl_start.long()
+    start = sc.lvl_start.long()
     sizes = start[1:] - start[:-1]
     assert start[0] == 0 and int(start[-1]) == real.numel() and (sizes >= 0).all()
     inst_of = sc.cl_map[1].long()
     assert torch.equal(sizes, torch.bincount(inst_of[real], minlength=I))
     assert int(sizes[1:11].min()) >= 8  # each blob instance: several clusters
     for o in range(8):
-        ids = sc.icl_oct[o].long()
+        ids = sc.lvl_members[o].long()
         assert torch.equal(ids[:real.numel()].sort().values, real)
         assert not bool((sc.cl_bounds[0, ids[real.numel():]] < 1e29).any())
         # the octant's position of each cluster in the single-level order
@@ -113,20 +114,20 @@ def test_tables_group_instance_clusters(scene):
             grp = ids[start[i]:start[i + 1]]
             assert (inst_of[grp] == i).all()
             assert (rank[grp].diff() > 0).all()  # front to back
-        assert torch.equal(sc.icl_bounds[o], sc.cl_bounds[:, ids])
+        assert torch.equal(sc.lvl_member_bounds[o], sc.cl_bounds[:, ids])
         # instances front to back by the centre key of the cluster order
         s = torch.tensor([1.0 if o & b else -1.0 for b in (1, 2, 4)],
                          dtype=torch.float64)
-        ctr = (sc.inst_bounds[0:3] + sc.inst_bounds[3:6]).double() * 0.5
-        key = (s[:, None] * ctr).sum(0)[sc.inst_oct_perm[o].long()]
+        ctr = (sc.lvl_bounds[0:3] + sc.lvl_bounds[3:6]).double() * 0.5
+        key = (s[:, None] * ctr).sum(0)[sc.lvl_oct_perm[o].long()]
         assert (key.diff() >= 0).all()
     for i in range(I):
         grp = real[inst_of[real] == i]
         if grp.numel():
             b = sc.cl_bounds[:, grp]
-            assert torch.equal(sc.inst_bounds[0:3, i], b[0:3].amin(1))
-            assert torch.equal(sc.inst_bounds[3:6, i], b[3:6].amax(1))
-    assert (sc.inst_bounds[6:] == 0).all()
+            assert torch.equal(sc.lvl_bounds[0:3, i], b[0:3].amin(1))
+            assert torch.equal(sc.lvl_bounds[3:6, i], b[3:6].amax(1))
+    assert (sc.lvl_bounds[6:] == 0).all()
 
 
 def test_instance_without_cluster_gets_the_far_point_box(scene):
@@ -134,10 +135,10 @@ def test_instance_without_cluster_gets_the_far_point_box(scene):
     I = sc.inst_woop.shape[0]
     tabs = instance_tables(sc.cl_bounds.numpy(), sc.cl_oct_perm.numpy(),
                            sc.cl_map.numpy(), I + 1)
-    assert (tabs["inst_bounds"][0:6, I] == np.float32(1e30)).all()
-    assert (tabs["inst_oct_perm"][:, -1] == I).all()
-    assert tabs["icl_start"][-1] == tabs["icl_start"][-2]
-    for k in ("icl_oct", "icl_bounds"):
+    assert (tabs["lvl_bounds"][0:6, I] == np.float32(1e30)).all()
+    assert (tabs["lvl_oct_perm"][:, -1] == I).all()
+    assert tabs["lvl_start"][-1] == tabs["lvl_start"][-2]
+    for k in ("lvl_members", "lvl_member_bounds"):
         assert np.array_equal(tabs[k], getattr(sc, k).numpy())
     with pytest.raises(ValueError, match="outside"):
         instance_tables(sc.cl_bounds.numpy(), sc.cl_oct_perm.numpy(),
@@ -152,7 +153,7 @@ def _rays(sc, n_random=32768, n_axis=8192, n_inside=8192, n_graze=16384):
     rng = np.random.default_rng(17)
     real = _real(sc).numpy()
     cb = sc.cl_bounds.numpy()[:, real]
-    ib = sc.inst_bounds.numpy()[:, 1:]
+    ib = sc.lvl_bounds.numpy()[:, 1:]
     lo, hi = cb[0:3].min(1) - 1.0, cb[3:6].max(1) + 1.0
 
     def unit(n):
@@ -209,7 +210,7 @@ def test_instance_cull_is_exact(scene):
     for s in range(0, o.shape[0], 8192):
         e = s + 8192
         cl = tc.slab_enters(o[s:e], inv[s:e], sc.cl_bounds[:, real], t[s:e])
-        ins = tc.slab_enters(o[s:e], inv[s:e], sc.inst_bounds, t[s:e])
+        ins = tc.slab_enters(o[s:e], inv[s:e], sc.lvl_bounds, t[s:e])
         missed += int((cl & ~ins[:, inst_of]).sum())
         entered += int(cl.sum())
     assert missed == 0
@@ -221,20 +222,19 @@ def test_walk_positions_count_the_entered_groups(scene):
     o, d, t = _rays(sc, 2048, 256, 256, 512)
     act = torch.arange(o.shape[0]) % 5 != 0
     blocks, _ = tc._to_blocks(o, d, t, act, 64)
-    most = tc.inst_walk_positions(blocks, sc.inst_bounds, sc.icl_start)
+    most = tc.walk_positions(blocks, tc.scene_pool(sc))
     short = torch.clamp(blocks[:, :, 6].reshape(-1), max=0.5)
-    least = tc.inst_walk_positions(blocks, sc.inst_bounds, sc.icl_start,
-                                   short)
+    least = tc.walk_positions(blocks, tc.scene_pool(sc), short)
     I = sc.inst_woop.shape[0]
-    sizes = (sc.icl_start[1:] - sc.icl_start[:-1]).tolist()
+    sizes = (sc.lvl_start[1:] - sc.lvl_start[:-1]).tolist()
     for g in range(blocks.shape[0]):
         r = blocks[g]
-        ent = tc.slab_enters(r[:, 0:3], safe_inv(r[:, 3:6]), sc.inst_bounds,
+        ent = tc.slab_enters(r[:, 0:3], safe_inv(r[:, 3:6]), sc.lvl_bounds,
                              r[:, 6]) & (r[:, 7] > 0)[:, None]
         want = I + sum(sz for i, sz in enumerate(sizes) if bool(ent[:, i].any()))
         assert int(most[g]) == want
     assert (least <= most).all() and bool((least < most).any())
-    assert int(least.min()) >= I and int(most.max()) <= I + int(sc.icl_start[-1])
+    assert int(least.min()) >= I and int(most.max()) <= I + int(sc.lvl_start[-1])
 
 
 def test_scene_from_arrays_derives_the_tables():
@@ -243,6 +243,7 @@ def test_scene_from_arrays_derives_the_tables():
     js = jscene.assemble(_desc(JAX), instancing="force")
     ps = pscene.assemble(_desc(PORT), instancing="force")
     pj = to_port(js)
+    assert set(tc.LEVEL_TABLES) == set(pscene._DERIVED)
     for k in pscene._DERIVED:
         a, b = getattr(ps, k), getattr(pj, k)
         assert a is not None and a.dtype == b.dtype and torch.equal(a, b), k
@@ -254,16 +255,21 @@ def test_wrapper_checks_the_instance_level(scene):
     sc = scene
     pool = tc.scene_pool(sc)
     rays = torch.zeros((1, 64, 8))
-    for k in tc.INST_TABLES:
+    for k in tc.LEVEL_TABLES:
         with pytest.raises(ValueError, match="comes whole"):
             tc.cluster_traverse(rays, **{**pool, k: None})
-    with pytest.raises(ValueError, match="icl_oct must be"):
-        tc.cluster_traverse(rays, **{**pool, "icl_oct": sc.icl_oct[:, :64]})
-    with pytest.raises(ValueError, match="inst_bounds must be"):
+    # members and their boxes disagree
+    with pytest.raises(ValueError, match=r"lvl_member_bounds must be \(8, 8, 64\)"):
         tc.cluster_traverse(rays, **{**pool,
-                                     "inst_bounds": sc.inst_bounds[:, 1:]})
-    with pytest.raises(TypeError, match="icl_start"):
-        tc.cluster_traverse(rays, **{**pool, "icl_start": sc.icl_start.long()})
+                                     "lvl_members": sc.lvl_members[:, :64]})
+    with pytest.raises(ValueError, match="boxes, the instances"):
+        tc.cluster_traverse(rays, **{**pool,
+                                     "lvl_bounds": sc.lvl_bounds[:, 1:]})
+    with pytest.raises(ValueError, match="lvl_oct_perm must be"):
+        tc.cluster_traverse(rays, **{**pool,
+                                     "lvl_oct_perm": sc.lvl_oct_perm[:, 1:]})
+    with pytest.raises(TypeError, match="lvl_start"):
+        tc.cluster_traverse(rays, **{**pool, "lvl_start": sc.lvl_start.long()})
     flat_pool = {k: pool[k] for k in ("cbl_oct", "tris", "perm")}
     with pytest.raises(ValueError, match="comes whole"):
-        tc.cluster_traverse(rays, **flat_pool, inst_bounds=sc.inst_bounds)
+        tc.cluster_traverse(rays, **flat_pool, lvl_bounds=sc.lvl_bounds)
