@@ -25,7 +25,11 @@ depth 5, seed 777, each through its kernels:
 For each path it first holds the kernels against their plain PyTorch twin
 on the card at the path's shapes (primary, bounce and shadow wavefronts of
 2^18 rays) and times both, then resets the launch counters, renders, and
-checks the counters (and, for B4, that no packet reached MAX_VISITS). The
+checks the counters (and, for B4, that no packet reached MAX_VISITS). B4
+also runs in its profiling instantiation on the unsorted wavefronts (the
+cycles and the node and leaf entries of each packet, each SM's span and
+tail, the CTAs an SM holds), and cuobjdump reports the registers, spills
+and SASS instructions of each B4 instantiation. The
 flat and the instanced scene are also rendered at 64x64, 8 spp on the card
 (kernels) and on the CPU (twins) and compared; the instanced one also
 against the flattened assembly of the same SceneDesc; the chunked kernels
@@ -66,6 +70,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 import xml.etree.ElementTree as ET
@@ -599,6 +606,130 @@ def check_packet(tag, tp, scene, raw, card, twin: bool = True) -> dict:
             (name, ms, plain, bms, by, err))
         out["hits"][name] = (tk.reshape(-1)[:R], sk.reshape(-1)[:R])
     return out
+
+
+def packet_profile(tag, tp, scene, raw, card) -> None:
+    """B4's profiling instantiation on every wavefront of `raw`: its outputs
+    must equal the plain instantiation's (t, u, v, slot, visits) and its
+    node + leaf entries the visit counts. Logs per packet the cycles of its
+    walk and the node and leaf entries it popped (mean, largest), and per SM
+    the cycles from its first packet's start to its last packet's end (the
+    SM's span) and from its first packet's end to its last packet's end
+    (the SM's tail), with the CTAs an SM holds."""
+    for name, o, d, t_max, act, any_hit in raw:
+        packets, _ = tp._to_packets(o, d, t_max, act)
+        prof = torch.zeros((packets.shape[0], 5), dtype=torch.int64,
+                           device=packets.device)
+        plain = tp.packet_traverse(packets, scene.pkt_nodes, scene.pkt_tris,
+                                   any_hit)
+        prof_out = tp.packet_traverse(packets, scene.pkt_nodes,
+                                      scene.pkt_tris, any_hit, profile=prof)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(plain, prof_out)):
+            raise AssertionError(f"{tag} {name}: the profiling instantiation "
+                                 "differs from the plain one")
+        start, end, sm, n_node, n_leaf = prof.unbind(dim=1)
+        if not torch.equal(n_node + n_leaf, plain[4].long()):
+            raise AssertionError(f"{tag} {name}: node + leaf entries differ "
+                                 "from the visit counts")
+        cyc = (end - start).double()
+        n_sm = int(sm.max()) + 1
+        span_lo = torch.full((n_sm,), 2**62, dtype=torch.int64,
+                             device=sm.device).scatter_reduce(
+            0, sm, start, "amin")
+        first_end = torch.full_like(span_lo, 2**62).scatter_reduce(
+            0, sm, end, "amin")
+        last_end = torch.zeros_like(span_lo).scatter_reduce(0, sm, end, "amax")
+        used = last_end > 0
+        span = (last_end - span_lo)[used].double()
+        tail = (last_end - first_end)[used].double()
+        busiest = int(plain[4].argmax())
+        log(f"{tag} {name} profile: cycles a packet mean {float(cyc.mean()):.0f}"
+            f", largest {int(cyc.max())} (the busiest packet by entries "
+            f"{int(cyc[busiest])}); node entries mean "
+            f"{float(n_node.double().mean()):.1f}, largest {int(n_node.max())}; "
+            f"leaf entries mean {float(n_leaf.double().mean()):.1f}, largest "
+            f"{int(n_leaf.max())}; {int(used.sum())} SMs: span mean "
+            f"{float(span.mean()):.0f}, largest {int(span.max())} cycles; tail "
+            f"(first packet's end to the last's) mean {float(tail.mean()):.0f}, "
+            f"largest {int(tail.max())} cycles; CTAs an SM "
+            f"{tp.ctas_per_sm(any_hit)} (profiling {tp.ctas_per_sm(any_hit, True)})"
+            f" [{card}]")
+
+
+SASS_CLASSES = {
+    "global loads": ("LDG",), "shared loads": ("LDS",),
+    "shared stores": ("STS",), "async copies": ("LDGSTS",),
+    "votes and shuffles": ("VOTE", "VOTEU", "SHFL", "REDUX", "MATCH"),
+    "f32 arithmetic": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL",
+                       "MUFU"),
+    "branches": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "CALL"),
+}
+
+
+def kernel_code(tag, src: str) -> None:
+    """Registers, spills (the stack frame and local memory), shared memory
+    and SASS instructions of every kernel in csrc/`src`'s library, read with
+    cuobjdump (-res-usage, -sass). The instructions are counted by class
+    over the whole function, and in the loop's node and leaf bodies: the
+    code is cut into basic blocks at branch targets and after branches; a
+    leaf block holds a Moller-Trumbore's |det| > 1e-12 or t > 1e-5 test
+    (FSETP.GT against that constant), a node block 6 or more FMNMX (the
+    slab tests) and neither; a body is the address range from its first
+    block to its last, in the kernel's own code (up to its last EXIT: the
+    out-of-line paths after it, the division's slow path among them, are in
+    neither)."""
+    from hydracore_tpu_torch.utils import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib_so = build.lib_path(src)
+    res = subprocess.run([tool, "-res-usage", lib_so], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", res))
+    sass = subprocess.run([tool, "-sass", lib_so], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    for fn, body in re.findall(
+            r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        code = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)"
+            r"([^;]*);", body)]
+        counts = {k: sum(op in v for _, op, _ in code)
+                  for k, v in SASS_CLASSES.items()}
+        ends = [a for a, op, _ in code if op == "EXIT"]
+        own = [c for c in code if c[0] <= max(ends, default=-1)]
+        leaders = {0}
+        for i, (a, op, rest) in enumerate(own):
+            if op in ("BRA", "CALL", "EXIT", "RET", "JMP"):
+                if i + 1 < len(own):
+                    leaders.add(own[i + 1][0])
+                tgt = re.findall(r"0x([0-9a-f]+)", rest)
+                if op != "EXIT" and tgt:
+                    leaders.add(int(tgt[-1], 16))
+        blocks = []
+        for a, op, rest in own:
+            if a in leaders or not blocks:
+                blocks.append([])
+            blocks[-1].append((a, op, rest))
+
+        def leafy(b) -> bool:
+            return any(op == "FSETP" and rest.startswith(".GT") and
+                       re.search(r"e-(13|06)\b", rest) for _, op, rest in b)
+
+        def body_len(pick) -> int:
+            addrs = [a for b in blocks if pick(b) for a, _, _ in b]
+            if not addrs:
+                return 0
+            lo, hi = min(addrs), max(addrs)
+            return sum(lo <= a <= hi for a, _, _ in own)
+
+        node = body_len(lambda b: not leafy(b)
+                        and sum(op == "FMNMX" for _, op, _ in b) >= 6)
+        leaf = body_len(leafy)
+        short = re.sub(r"Ev.*$", "", re.sub(r"^_ZN\d+_GLOBAL__N_\w+?\d+", "", fn))
+        log(f"{tag} code {short}: {usage.get(fn, 'no resource line')}; "
+            f"{len(code)} SASS instructions ("
+            f"{', '.join(f'{k} {v}' for k, v in counts.items())}); the "
+            f"loop's node body {node}, leaf body {leaf} instructions")
 
 
 def golden_cornell(width: int, height: int, traversal: str = "auto"):
@@ -1227,8 +1358,11 @@ def main() -> int:
         f" MiB, built in {time.time() - t0:.2f} s")
     pkt_scene = host_pkt.to(dev)
     # the wavefronts as this route's path tracer sends them: not sorted
-    pkt_recs = check_packet("phase 8 packet", tp, pkt_scene,
-                            wavefronts(pt, pkt_scene, sort=False), card)
+    pkt_raw = wavefronts(pt, pkt_scene, sort=False)
+    pkt_recs = check_packet("phase 8 packet", tp, pkt_scene, pkt_raw, card)
+    packet_profile("phase 8 packet", tp, pkt_scene, pkt_raw, card)
+    kernel_code("phase 8 packet", "traverse_packet.cu")
+    del pkt_raw
     # and B4 on the very rays the chunked B1/B2 got in phase 7 (sorted)
     srt_recs = check_packet("phase 8 packet, sorted rays", tp, pkt_scene,
                             part_raw, card, twin=False)

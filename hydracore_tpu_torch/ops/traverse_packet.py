@@ -10,7 +10,10 @@ tree with one stack: a popped node pushes every child some ray of the
 packet may still hit, a popped leaf tests its 8 triangles against every ray
 of the packet. The function is the TPU kernel's; the packet is a warp of 32
 rays instead of 1024 (the source note in the .cu file says why), which
-changes no ray's answer except among triangles at exactly equal t.
+changes no ray's answer except among triangles at exactly equal t. On the
+card persistent warps take packets from a queue, copy each popped row into
+shared memory with the next one in flight, and push a node's children by
+one vote at the offsets push_positions gives.
 
 packet_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs packet_traverse_plain, the twin with
@@ -21,6 +24,7 @@ itself adds nothing to the launch.
 """
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
@@ -56,7 +60,9 @@ def _kernel_lib():
     global _lib
     if _lib is None:
         lib = load_lib("traverse_packet.cu", "hydra_packet_traverse",
-                       [VP] * 8 + [CI, CI, VP], err_fn=ERR_FN)
+                       [VP] * 9 + [CI, CI, VP], err_fn=ERR_FN)
+        lib.hydra_packet_ctas_per_sm.argtypes = [CI, CI, VP]
+        lib.hydra_packet_ctas_per_sm.restype = CI
         built = (lib.hydra_packet_size(), lib.hydra_packet_stack_depth(),
                  lib.hydra_packet_max_visits())
         if built != (PKT, STACK_D, MAX_VISITS):
@@ -107,16 +113,29 @@ def _check_inputs(rays, nodes, tris) -> None:
             raise ValueError(f"{name} is on {x.device}, rays on {rays.device}")
 
 
-def packet_traverse(rays, nodes, tris, any_hit_mode: bool = False):
+def packet_traverse(rays, nodes, tris, any_hit_mode: bool = False,
+                    profile=None):
     """rays (G, PKT, 8) f32 [o d t_lim active] -> (t, u, v (G, PKT) f32,
     slot (G, PKT) i32, visits (G,) i32): per ray the closest t (3e38 on a
     miss), the barycentrics as the walk computed them, the slot block * 8 +
     k (-1 on a miss; any-hit mode: >= 0 where occluded), per packet the
     entries it popped. CUDA tensors launch kernel B4; CPU tensors run the
-    plain twin."""
+    plain twin. `profile`, a (G, 5) int64 tensor on the card, selects the
+    kernel's profiling instantiation, which fills it with each packet's
+    [clock64 at the start of its walk, at its end, SM id, node entries,
+    leaf entries] (the outputs are the same)."""
     _check_inputs(rays, nodes, tris)
     if not rays.is_cuda:
+        if profile is not None:
+            raise ValueError("profile needs CUDA tensors: the twin has no clock")
         return packet_traverse_plain(rays, nodes, tris, any_hit_mode)
+    if profile is not None:
+        shape = (rays.shape[0], 5)
+        if (profile.dtype != torch.int64 or tuple(profile.shape) != shape
+                or profile.device != rays.device
+                or not profile.is_contiguous()):
+            raise ValueError(f"profile must be a contiguous {shape} int64 "
+                             f"tensor on {rays.device}")
     G = rays.shape[0]
     rays, nodes, tris = rays.contiguous(), nodes.contiguous(), tris.contiguous()
     dev = rays.device
@@ -127,7 +146,8 @@ def packet_traverse(rays, nodes, tris, any_hit_mode: bool = False):
     launch(_kernel_lib(), "hydra_packet_traverse", "packet traversal", dev,
            rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(), t.data_ptr(),
            u.data_ptr(), v.data_ptr(), slot.data_ptr(), visits.data_ptr(),
-           G * PKT, int(any_hit_mode), err_fn=ERR_FN)
+           None if profile is None else profile.data_ptr(), G * PKT,
+           int(any_hit_mode), err_fn=ERR_FN)
     this = sys.modules[__name__]
     if any_hit_mode:
         this.any_launches += 1
@@ -138,14 +158,38 @@ def packet_traverse(rays, nodes, tris, any_hit_mode: bool = False):
     return t, u, v, slot, visits
 
 
+def ctas_per_sm(any_hit_mode: bool = False, profile: bool = False) -> int:
+    """CTAs of B4 (an instantiation) an SM of the current card holds at
+    once, from the CUDA occupancy query."""
+    out = ctypes.c_int(0)
+    err = _kernel_lib().hydra_packet_ctas_per_sm(
+        int(any_hit_mode), int(profile), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError("B4 occupancy query failed: "
+                           + _kernel_lib().hydra_packet_error_string(err).decode())
+    return out.value
+
+
+def push_positions(mask):
+    """Where a node's pushes land: for push masks (int tensor, bit c set
+    where the packet pushes child c) the offset of each child above the
+    stack top, popcount(mask & ((1 << c) - 1)), shape (..., 8), and the
+    number of pushes, popcount(mask). The stack then holds what pushing the
+    children one by one in order 0..7 leaves (child 7 is popped first); B4's
+    lanes 0..7 store their child's payload at these offsets at once."""
+    bits = (mask[..., None] >> torch.arange(8, device=mask.device)) & 1
+    return torch.cumsum(bits, dim=-1) - bits, bits.sum(dim=-1)
+
+
 def packet_traverse_plain(rays, nodes, tris, any_hit_mode: bool = False):
     """Plain PyTorch twin of B4 with the kernel's contract. All packets step
     together, each with its own row of a (G, STACK_D) stack tensor, so the
     walk order, the pruning and the ties are the kernel's: a step pops one
     entry per live packet, the node entries push their children 0..7 where
-    some ray of the packet passes the slab test against its current t, the
-    leaf entries test their 8 triangles and keep the first among the
-    nearest (what the kernel's 8 sequential updates come to)."""
+    some ray of the packet passes the slab test against its current t (at
+    the offsets push_positions gives), the leaf entries test their 8
+    triangles and keep the first among the nearest (what the kernel's 8
+    sequential updates come to)."""
     G = rays.shape[0]
     dev = rays.device
     nodes_i = nodes.view(torch.int32)
@@ -190,12 +234,11 @@ def packet_traverse_plain(rays, nodes, tris, any_hit_mode: bool = False):
             tf = torch.minimum(torch.minimum(fx, fy), fz)
             hit = (tf >= torch.clamp(tn, min=0.0)) & (tn < t_cap)
             push = hit.any(dim=1) & (pay != EMPTY_PAYLOAD)    # (K, 8)
+            offs, n_push = push_positions((push.long() << k8).sum(dim=1))
             top = sp[g]
-            for c in range(8):
-                m = push[:, c]
-                stack[g[m], top[m]] = pay[m, c]
-                top = top + m.long()
-            sp[g] = torch.clamp(top, max=STACK_D - 9)
+            k, c = torch.nonzero(push, as_tuple=True)
+            stack[g[k], top[k] + offs[k, c]] = pay[k, c]
+            sp[g] = torch.clamp(top + n_push, max=STACK_D - 9)
 
         g = live[~is_node]  # packets that popped a leaf
         if g.numel() > 0:

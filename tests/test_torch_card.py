@@ -434,6 +434,91 @@ def test_packet_kernel_matches_twin(cuda, any_hit_mode, n_rects):
         assert float((tri_p == tri_w).float().mean()) > 0.999
 
 
+def _packet_rays(cuda, R: int, seed: int):
+    """R random rays over the 350 rects in packets: every third with a short
+    t limit, every seventh inactive (the last packet ragged unless R is a
+    multiple of 32)."""
+    rng = np.random.default_rng(seed)
+    ro = torch.tensor(rng.uniform(-6, 6, (R, 3)), dtype=torch.float32, device=cuda)
+    rd = torch.tensor(rng.normal(size=(R, 3)), dtype=torch.float32, device=cuda)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    t_max = torch.where(torch.arange(R, device=cuda) % 3 == 0, 4.0, 1e30)
+    act = torch.tensor(np.arange(R) % 7 != 0, device=cuda)
+    return tp._to_packets(ro, rd, t_max, act)[0]
+
+
+def _assert_equal_outputs(a, b):
+    for name, x, y in zip(("t", "u", "v", "slot", "visits"), a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("case", ["37 rays", "more packets than warps",
+                                  "two launches", "graph replayed 3 times"])
+def test_packet_queue_matches_twin(cuda, case, any_hit_mode):
+    """B4's persistent warps take packets from a queue that the last warp
+    out resets: fewer packets than one CTA's warps, more packets than the
+    card holds warps (with inactive rays), two launches in a row, and one
+    launch captured in a CUDA graph and replayed three times (its outputs
+    overwritten before each replay), each equal to the twin bit for bit."""
+    sc = _rects_scene(traversal="packet").to(cuda)
+    walk = (sc.pkt_nodes, sc.pkt_tris, any_hit_mode)
+    if case == "37 rays":
+        sets = [_packet_rays(cuda, 37, 1)]
+    elif case == "more packets than warps":
+        sets = [_packet_rays(cuda, (1 << 18) + 5, 2)]
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert sets[0].shape[0] > sms * tp.ctas_per_sm(any_hit_mode) * 8
+    else:
+        sets = [_packet_rays(cuda, 5000, 3), _packet_rays(cuda, 3000, 4)]
+    if case == "graph replayed 3 times":
+        packets = sets[0]
+        tp.packet_traverse(packets, *walk)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = tp.packet_traverse(packets, *walk)
+        ref = tp.packet_traverse_plain(packets, *walk)
+        for _ in range(3):
+            for x in out:
+                x.fill_(-7)
+            g.replay()
+            torch.cuda.synchronize()
+            _assert_equal_outputs(out, ref)
+        return
+    outs = [tp.packet_traverse(packets, *walk) for packets in sets]
+    torch.cuda.synchronize()
+    for packets, out in zip(sets, outs):
+        assert 0 < int(out[4].max()) < tp.MAX_VISITS
+        _assert_equal_outputs(out, tp.packet_traverse_plain(packets, *walk))
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+def test_packet_profile_matches_plain(cuda, any_hit_mode):
+    """The profiling instantiation gives the plain one's outputs and visit
+    counts, node + leaf entries equal to the visits, a clock that runs
+    forward and the SM each packet ran on."""
+    sc = _rects_scene(traversal="packet").to(cuda)
+    packets = _packet_rays(cuda, 20000, 5)
+    prof = torch.zeros((packets.shape[0], 5), dtype=torch.int64, device=cuda)
+    plain = tp.packet_traverse(packets, sc.pkt_nodes, sc.pkt_tris, any_hit_mode)
+    out = tp.packet_traverse(packets, sc.pkt_nodes, sc.pkt_tris, any_hit_mode,
+                             profile=prof)
+    torch.cuda.synchronize()
+    _assert_equal_outputs(out, plain)
+    start, end, sm, n_node, n_leaf = prof.unbind(dim=1)
+    assert torch.equal(n_node + n_leaf, plain[4].long())
+    assert bool((n_node >= 1).all()) and bool((end > start).all())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 0 <= int(sm.min()) and int(sm.max()) < sms
+    with pytest.raises(ValueError, match="profile"):
+        tp.packet_traverse(packets, sc.pkt_nodes, sc.pkt_tris, any_hit_mode,
+                           profile=prof[:-1])
+    with pytest.raises(ValueError, match="profile"):
+        tp.packet_traverse(packets, sc.pkt_nodes, sc.pkt_tris, any_hit_mode,
+                           profile=prof.int())
+
+
 def test_packet_wrapper_refuses_mixed_devices(cuda):
     sc = _rects_scene()
     packets = torch.zeros((2, tp.PKT, 8), device=cuda)
