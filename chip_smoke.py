@@ -4,8 +4,9 @@
 
 Builds the port's native code from the checkout (csrc/ -> the git-ignored
 hydracore_tpu_torch/_build/, the compilers started together), then drives
-four main paths of the MIS+NEE path tracer, render_passes at 1024x1024,
-depth 5, seed 777, each through its kernels:
+four main paths of the MIS+NEE path tracer, and a textured fifth (phase
+14), render_passes at 1024x1024, depth 5, seed 777, each through its
+kernels:
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit), a
                two-level walk over groups of clusters (the positions and
@@ -61,6 +62,19 @@ tools' coherent and incoherent rays, each against its plain version on
 packets at MAX_VISITS logged; B4 on the same rays against both (hit masks,
 t on hits, slots on >= 99.9%), the three packet sizes timed side by side
 against one bound.
+Phase 14 is textured shading and alpha shadows: a SceneDesc written with
+its texture files and an IES profile (textured_desc: bench_builder's
+geometry without the right wall, 512 opacity-mapped quads, a tiled 1024^2
+floor texture, a height map baked to a normal map, a reflection texture, a
+mask blend and a two-level blend tree, a 2048x1024 sky image with a
+camera-projected back plate, an IES point light) through assemble; B1 on
+its wavefronts and B2 over the opaque shadow pool on its shadow wavefront
+against their twins, flat and in chunks of 128 clusters, rays onto the
+alpha triangles hitting the full pool and never the opaque one; the dense
+alpha layer timed; the main path (the opaque-pool counter > 0, B2 over the
+full pool 0) flat and chunked, a profile; 64x64 card images against the CPU
+twins on the cluster and the packet route. The 64x64 checks of phases 4,
+6, 9 and 11 run at depth CHECK_DEPTH, phase 14's at the scene's depth.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -74,6 +88,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import xml.etree.ElementTree as ET
 
@@ -89,6 +104,11 @@ WIDTH = HEIGHT = 1024
 DEPTH = 5
 N_PASS = 2
 N_INSTANCES = 24
+# depth of the 64x64 card-against-CPU images of phases 4, 6, 9 and 11: the
+# CPU twins' render there costs the script more time than anything else.
+# Russian roulette starts at depth 3, so these images do not reach it;
+# phase 14's, on the cluster and packet routes, stay at DEPTH and do
+CHECK_DEPTH = 3
 # operations the traversal needs: a ray-box slab test (6 mul-sub pairs,
 # 10 min/max, 2 compares), one lane's Woop test (the w row dot products,
 # the divide and the t range test; u, v only for the rare candidates), and
@@ -116,9 +136,11 @@ def real_boxes(scene):
     return b[:, b[0] < 1e29]
 
 
-def needed_visits(scene, rays, t_end) -> int:
+def needed_visits(scene, rays, t_end, lanes=None) -> int:
     """Ray-cluster pairs whose box a ray enters before its final t: the
-    Woop blocks this run's data needs, whatever walks them."""
+    Woop blocks this run's data needs, whatever walks them. With `lanes`
+    (one count per real cluster, real_boxes' order) each pair counts that
+    many lanes."""
     from hydracore_tpu_torch.ops.intersect import safe_inv
     from hydracore_tpu_torch.ops.traverse_cluster import BIG
 
@@ -137,7 +159,8 @@ def needed_visits(scene, rays, t_end) -> int:
         te = t_end[s:s + step]
         te = torch.where(te <= -BIG * 0.5, f[:, 6], te)[:, None]
         hit = (tf >= tn.clamp(min=0)) & (tn < te) & act[s:s + step, None]
-        visits += int(hit.sum())
+        visits += int(hit.sum() if lanes is None
+                      else (hit.to(torch.int64) * lanes).sum())
     return visits
 
 
@@ -182,13 +205,14 @@ def block_visits(scene, rays, t_end) -> torch.Tensor:
     return out
 
 
-def cluster_bound_ms(scene, rays, t_end) -> tuple[float, str]:
+def cluster_bound_ms(scene, rays, t_end, lanes=None) -> tuple[float, str]:
     """The least time the card could take: rays in, t and slot out and the
     arrays the kernel reads (the pool and its upper level) once, over the
     memory rate; over the f32 rate the box tests of the two-level walk
     (two_level_box_tests) and Woop lanes (and for an instanced scene the
     ray's move into local space) for every cluster a ray enters before its
-    final t."""
+    final t: all 128 lanes, or the cluster's count in `lanes` (the lanes
+    that can hit, live_lanes)."""
     from hydracore_tpu_torch.ops.traverse_cluster import LEVEL_TABLES
 
     n = rays.shape[0] * rays.shape[1]
@@ -198,42 +222,52 @@ def cluster_bound_ms(scene, rays, t_end) -> tuple[float, str]:
     bytes_ = n * 8 * 4 + n * 8 + sum(x.numel() * x.element_size()
                                      for x in pool if x is not None)
     visits = needed_visits(scene, rays, t_end)
+    lane_visits = (visits * 128 if lanes is None
+                   else needed_visits(scene, rays, t_end, lanes))
     ops = (two_level_box_tests(scene, rays, t_end) * OPS_BOX
-           + visits * (128 * OPS_LANE + (OPS_INST if inst else 0)))
+           + lane_visits * OPS_LANE + visits * (OPS_INST if inst else 0))
     return lab.bound_ms(bytes_, ops)
 
 
 def profile_pass(pt, scene, card: str, tag: str) -> None:
     """torch.profiler over one 1024x1024 pass: wall time, device busy time
-    and the kernels that take it, largest first."""
+    and the kernels that take it, largest first. The profiler records the
+    device's activity alone, and its raw kineto events are summed here by
+    name: recording the host's events and reading key_averages() give the
+    same device times and take many times the pass's own wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_all = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         pt.render_passes(scene, 200, SEED, n_pass=1, max_depth=DEPTH,
                          device=scene.tri_attr.device)
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = by_name.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
     if busy <= 0.0:
         log(f"{tag} profile: device time not measured (no CUDA events)")
         return
     log(f"{tag} profile, one pass: wall {wall:.2f} ms, device busy "
-        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), {sum(e.count for e in evs)} "
-        f"kernel launches [{card}]")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
-        ms = e.self_device_time_total / 1e3
-        log(f"{tag}   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{e.count:5d} "
-            f"{e.key[:90]}")
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(n for _, n in by_name.values())} kernel launches [{card}] "
+        f"(the profiler's own time {time.time() - t_all - wall / 1e3:.2f} s)")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"{tag}   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:5d} {name[:90]}")
 
 
-def wavefronts(pt, scene, sort: bool = True):
+def wavefronts(pt, scene, sort: bool = True, light_row: int = 0):
     """The main path's three kinds of wavefront on `scene`, 2^18 rays each:
     every 4th primary ray of the frame in Morton order (spread over the
     whole image), cosine-sampled bounce rays off their hit points and
-    shadow rays to uniform points on the rect light (light row 0). With
+    shadow rays to uniform points on the rect light (light row
+    `light_row`). With
     `sort` the last two come in coherence order, as the path tracer sends
     them to the cluster kernels; without, in the primaries' order with the
     dead rays in place, as it sends them to every other route. Returns
@@ -262,8 +296,9 @@ def wavefronts(pt, scene, sort: bool = True):
     perm = coherence_order(scene, bo, wi, hit) if sort else everyone
     bounce_o, bounce_d, bounce_act = bo[perm], wi[perm], hit[perm]
     lt = scene.lights
-    lp = (lt.pos[0] + (2 * rnd[:, 2:3] - 1) * lt.vx[0]
-          + (2 * rnd[:, 3:4] - 1) * lt.vy[0])
+    k = light_row
+    lp = (lt.pos[k] + (2 * rnd[:, 2:3] - 1) * lt.vx[k]
+          + (2 * rnd[:, 3:4] - 1) * lt.vy[k])
     to_l = lp - pos
     dist = to_l.norm(dim=-1)
     sd = to_l / dist[:, None].clamp(min=1e-12)
@@ -396,14 +431,15 @@ def group_sizes(tag, tc, scene, cases, card, sizes=(8, 16, 32)) -> None:
             f"[{card}]")
 
 
-COUNTERS = ("closest_launches", "any_launches", "inst_closest_launches",
-            "inst_any_launches", "pkt_closest_launches", "pkt_any_launches")
+COUNTERS = ("closest_launches", "any_launches", "opaque_any_launches",
+            "inst_closest_launches", "inst_any_launches",
+            "pkt_closest_launches", "pkt_any_launches")
 
 
 def launch_counts(tc, tp) -> dict:
-    """Every wrapper's launch count: B1, B2, B3 (closest, any), B4 (closest,
-    any)."""
-    out = {k: getattr(tc, k) for k in COUNTERS[:4]}
+    """Every wrapper's launch count: B1, B2, B2 over the opaque shadow pool,
+    B3 (closest, any), B4 (closest, any)."""
+    out = {k: getattr(tc, k) for k in COUNTERS[:5]}
     out.update(pkt_closest_launches=tp.closest_launches,
                pkt_any_launches=tp.any_launches)
     return out
@@ -463,15 +499,19 @@ def pixels_close(a, b) -> float:
     return float(((a - b).abs().amax(dim=-1) <= 1e-3).float().mean())
 
 
-def card_vs_cpu(tag, pt, small, spp: int = 8) -> torch.Tensor:
-    """64x64, `spp` samples on the card against the CPU (the kernels'
-    twins, or the same plain code): >= 99% of pixels within 1e-3. Returns
-    the card's image."""
-    img_gpu = pt.render(small, spp=spp, seed=SEED, device="cuda").cpu()
-    img_cpu = pt.render(small, spp=spp, seed=SEED, device="cpu")
+def card_vs_cpu(tag, pt, small, spp: int = 8, max_depth=None) -> torch.Tensor:
+    """64x64, `spp` samples (to max_depth, else the scene's depth) on the
+    card against the CPU (the kernels' twins, or the same plain code):
+    >= 99% of pixels within 1e-3. Returns the card's image."""
+    img_gpu = pt.render(small, spp=spp, seed=SEED, max_depth=max_depth,
+                        device="cuda").cpu()
+    t0 = time.time()
+    img_cpu = pt.render(small, spp=spp, seed=SEED, max_depth=max_depth,
+                        device="cpu")
     close = pixels_close(img_gpu, img_cpu)
-    log(f"{tag} 64x64 {spp} spp: pixels within 1e-3 of the CPU's image: "
-        f"{close:.4f}")
+    depth = max_depth or small.settings.trace_depth
+    log(f"{tag} 64x64 {spp} spp depth {depth}: pixels within 1e-3 of the "
+        f"CPU's image: {close:.4f} (the CPU's render {time.time() - t0:.2f} s)")
     if close < 0.99:
         raise AssertionError(f"{tag}: card vs CPU image: {close} of pixels agree")
     return img_gpu
@@ -746,6 +786,33 @@ def golden_cornell(width: int, height: int, traversal: str = "auto"):
                    height=height, trace_depth=4, traversal=traversal)
 
 
+def mesh_of(builder, sphere_uv: bool = False):
+    """A SceneBuilder's triangles as one MeshData, three vertices each; the
+    builder's material ids become the mesh's. With sphere_uv the texcoords
+    are the lat-long of each vertex normal (SceneBuilder's spheres carry
+    none)."""
+    from hydracore_tpu_torch.scene.vsgf import MeshData
+
+    tris = builder.tris
+    T = len(tris)
+
+    def col(k, w):
+        a = np.stack([t[k + j] for t in tris for j in range(3)])
+        return np.concatenate([a, np.zeros((3 * T, w - a.shape[1]),
+                                           np.float32)], 1)
+
+    norm = col(3, 4)
+    uv = col(6, 2)
+    if sphere_uv:
+        uv = np.stack([0.5 + np.arctan2(norm[:, 0], norm[:, 2]) / (2 * np.pi),
+                       np.arccos(np.clip(norm[:, 1], -1, 1)) / np.pi],
+                      1).astype(np.float32)
+    tang = np.tile(np.array([[1, 0, 0, 0]], np.float32), (3 * T, 1))
+    return MeshData(pos=col(0, 4), norm=norm, tang=tang, texcoord=uv,
+                    indices=np.arange(3 * T, dtype=np.int32).reshape(T, 3),
+                    mat_indices=np.asarray([t[9] for t in tris], np.int32))
+
+
 def instanced_desc(width: int, height: int):
     """A SceneDesc built in memory: the cornell box and its rect light as
     world geometry (single-use mesh, emitter: both flatten) and
@@ -754,22 +821,7 @@ def instanced_desc(width: int, height: int):
     tessellated as SceneBuilder.add_sphere does."""
     from hydracore_tpu_torch.scene import statefile as sf
     from hydracore_tpu_torch.scene.procedural import SceneBuilder
-    from hydracore_tpu_torch.scene.vsgf import MeshData, make_rect_mesh
-
-    def mesh_of(builder) -> MeshData:
-        tris = builder.tris
-        T = len(tris)
-
-        def col(k, w):
-            a = np.stack([t[k + j] for t in tris for j in range(3)])
-            return np.concatenate([a, np.zeros((3 * T, w - a.shape[1]),
-                                               np.float32)], 1)
-
-        tang = np.tile(np.array([[1, 0, 0, 0]], np.float32), (3 * T, 1))
-        return MeshData(pos=col(0, 4), norm=col(3, 4), tang=tang,
-                        texcoord=col(6, 2),
-                        indices=np.arange(3 * T, dtype=np.int32).reshape(T, 3),
-                        mat_indices=np.asarray([t[9] for t in tris], np.int32))
+    from hydracore_tpu_torch.scene.vsgf import make_rect_mesh
 
     walls = SceneBuilder()
     walls.add_box_interior(2.0, 0, 0, 0, 1, 2)
@@ -825,6 +877,392 @@ def instanced_desc(width: int, height: int):
                 2: mesh_of(ball)},
         mesh_light_id={}, instances=instances,
         light_instances=[sf.LightInstanceDesc(light_id=0, matrix=m_light)])
+
+
+# an IES profile written as text: 1000 cd along the axis, falling to 0 at
+# 180 degrees, three planes of phi
+TEXTURED_IES = """IESNA:LM-63-2002
+[TEST] chip_smoke lamp
+TILT=NONE
+1 1000.0 1.0 5 3 1 2 0.0 0.0 0.0
+1.0 1.0 0.0
+0.0 45.0 90.0 135.0 180.0
+0.0 45.0 90.0
+1000.0 800.0 300.0 50.0 0.0
+900.0 600.0 250.0 40.0 0.0
+700.0 500.0 200.0 30.0 0.0
+"""
+N_FOLIAGE = 512
+
+
+def _write_image(path, img) -> int:
+    """Write (h, w, 4) as .image4f (float) or .image4ub (bytes, by the
+    file's suffix); returns the byte size."""
+    h, w = img.shape[:2]
+    if path.endswith("image4f"):
+        data = img.astype(np.float32).tobytes()
+    else:
+        data = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8).tobytes()
+    with open(path, "wb") as f:
+        f.write(np.array([w, h], np.int32).tobytes() + data)
+    return 8 + len(data)
+
+
+def _textures(rng) -> dict:
+    """The textured scene's images, from SEED: name -> (h, w, 4)."""
+    def grid(h, w):
+        return np.mgrid[0:h, 0:w].astype(np.float32) / np.float32(max(h, w))
+
+    def rgba(rgb):
+        out = np.ones(rgb.shape[:2] + (4,), np.float32)
+        out[..., :3] = rgb
+        return out
+
+    y, x = grid(1024, 1024)
+    checker = ((np.floor(x * 16) + np.floor(y * 16)) % 2)[..., None]
+    floor = rgba(0.25 + 0.5 * checker * np.array([0.9, 0.8, 0.6])
+                 + 0.15 * rng.random((1024, 1024, 1)))
+    y, x = grid(256, 256)
+    wall = rgba(0.5 + 0.4 * np.stack([np.sin(9 * x), np.cos(7 * y),
+                                      np.sin(5 * (x + y))], -1))
+    y, x = grid(512, 512)
+    height = rgba(np.repeat((0.5 + 0.25 * np.sin(40 * x) * np.sin(30 * y)
+                             + 0.1 * rng.random((512, 512)))[..., None], 3, -1))
+    y, x = grid(256, 256)
+    mask = rgba(np.repeat(((np.sin(25 * x) * np.sin(25 * y)) > 0)[..., None],
+                          3, -1) * 0.9 + 0.05)
+    y, x = grid(512, 512)
+    refl = rgba(0.3 + 0.6 * ((np.floor(x * 12) + np.floor(y * 6)) % 2)[..., None]
+                * np.array([1.0, 0.85, 0.6]))
+    y, x = grid(256, 256)
+    r2 = (x - 0.5) ** 2 + ((y - 0.5) * 1.6) ** 2
+    leaf = rgba(np.stack([np.where(r2 < 0.16, 1.0, np.where(r2 < 0.2, 0.5,
+                                                            0.0))] * 3, -1))
+    v, u = np.mgrid[0:1024, 0:2048].astype(np.float32)
+    v, u = v / 1024, u / 2048
+    sky = rgba(np.stack([0.4 + 0.6 * v, 0.6 + 0.4 * v, 1.2 - 0.2 * v], -1)
+               * (1.0 - 0.5 * v)[..., None])
+    sun = ((u - 0.3) ** 2 + (v - 0.25) ** 2) < 4e-4
+    sky[sun, :3] = 60.0
+    y, x = grid(1024, 1024)
+    plate = rgba(np.stack([0.2 + 0.6 * x, 0.3 + 0.5 * y,
+                           0.5 + 0.3 * np.sin(20 * x)], -1))
+    return {"floor.image4ub": floor, "wall.image4ub": wall,
+            "height.image4ub": height, "mask.image4ub": mask,
+            "refl.image4ub": refl, "leaf.image4ub": leaf,
+            "sky.image4f": sky, "plate.image4ub": plate}
+
+
+def textured_desc(lib_dir: str, width: int, height: int):
+    """A SceneDesc whose texture files and IES profile are written to
+    lib_dir: bench_builder's geometry (the cornell box without its right
+    wall, so the sky shows, the GGX and the glass sphere, the rect light)
+    and N_FOLIAGE opacity-mapped quads. The floor has a 1024^2 diffuse
+    texture tiled 4 times (wrap addressing); the back wall a 256^2 diffuse
+    texture and a 512^2 height map (baked to a 512^2 normal map), both bound
+    with clamp addressing; the GGX sphere a 512^2 reflection texture; the
+    left wall a mask blend; the ceiling a two-level blend tree (a Fresnel
+    blend over the left wall's mask blend); the quads a 256^2 opacity map.
+    Lights: the rect light, a point light with an IES profile and a sky
+    with a 2048x1024 .image4f image and a camera-projected 1024^2 back
+    plate."""
+    from hydracore_tpu_torch.scene import statefile as sf
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+    from hydracore_tpu_torch.scene.vsgf import make_rect_mesh
+
+    rng = np.random.default_rng(SEED)
+    textures = {}
+    for tid, (name, img) in enumerate(_textures(rng).items(), start=1):
+        size = _write_image(os.path.join(lib_dir, name), img)
+        textures[tid] = sf.TextureDesc(id=tid, name=name, loc=name, offset=0,
+                                       bytesize=size)
+    with open(os.path.join(lib_dir, "lamp.ies"), "w") as f:
+        f.write(TEXTURED_IES)
+
+    def diffuse(rgb, tex=""):
+        return f'<diffuse brdf_type="lambert"><color val="{rgb}"/>{tex}</diffuse>'
+
+    clamp = 'addressing_mode_u="clamp" addressing_mode_v="clamp"'
+    mats = {
+        0: diffuse("0.8 0.8 0.8", '<texture id="1" type="texref" matrix="4 0 0 '
+                   '0 0 4 0 0 0 0 1 0 0 0 0 1"/>'),
+        1: diffuse("0.75 0.75 0.75", f'<texture id="2" type="texref" {clamp} '
+                   'matrix="1.3 0 0 -0.15 0 1.3 0 -0.15 0 0 1 0 0 0 0 1"/>')
+        + '<displacement type="height_bump"><height_map amount="0.6">'
+          f'<texture id="3" type="texref" {clamp}/></height_map></displacement>',
+        4: diffuse("0.1 0.1 0.1") + '<reflectivity brdf_type="ggx"><color '
+           'val="0.8 0.7 0.5"/><glossiness val="0.75"/><texture id="5" '
+           'type="texref"/></reflectivity>',
+        5: '<transparency><color val="0.95 0.95 0.95"/><glossiness val="1"/>'
+           '<ior val="1.5"/></transparency>',
+        7: diffuse("0.25 0.55 0.2") + '<opacity><texture id="6" type="texref"/>'
+           '</opacity>',
+        10: diffuse("0.7 0.12 0.1"),
+        11: diffuse("0.2 0.2 0.25") + '<reflectivity brdf_type="ggx"><color '
+            'val="0.6 0.6 0.6"/><glossiness val="0.85"/></reflectivity>',
+        12: diffuse("0.65 0.65 0.65"),
+    }
+    materials = {k: ET.fromstring(f'<material id="{k}" type="hydra_material">'
+                                  f'{v}</material>') for k, v in mats.items()}
+    materials[2] = ET.fromstring(
+        '<material id="2" type="hydra_blend" node_top="10" node_bottom="11">'
+        '<blend type="mask_blend"><mask><texture id="4" type="texref"/></mask>'
+        '</blend></material>')
+    materials[3] = ET.fromstring(
+        '<material id="3" type="hydra_blend" node_top="2" node_bottom="12">'
+        '<blend type="fresnel_blend" fresnel_ior="1.8"/></material>')
+    materials[6] = ET.fromstring(
+        '<material id="6" type="hydra_material" light_id="0"><emission>'
+        '<color val="12 12 12"/><multiplier val="1"/></emission></material>')
+    lights = {
+        0: ET.fromstring(
+            '<light id="0" type="area" shape="rect" distribution="diffuse" '
+            'mat_id="6"><size half_length="0.5" half_width="0.5"/><intensity>'
+            '<color val="12 12 12"/><multiplier val="1"/></intensity></light>'),
+        1: ET.fromstring(
+            '<light id="1" type="sky" shape="point"><intensity><color val="1 1 '
+            '1"/><multiplier val="1"/><texture id="7" type="texref"/></intensity>'
+            '<back mode="camera_mapped" multcolor="1 1 1"><texture id="8" '
+            'type="texref"/></back></light>'),
+        2: ET.fromstring(
+            '<light id="2" type="point" shape="point"><intensity><color val="6 '
+            '6 6"/><multiplier val="1"/></intensity><ies data="lamp.ies"/>'
+            '</light>'),
+    }
+    h = 2.0
+    walls = SceneBuilder()
+    walls.add_rect([0, -h, 0], [h, 0, 0], [0, 0, h], 0, flip=True)  # floor
+    walls.add_rect([0, h, 0], [h, 0, 0], [0, 0, h], 3)  # ceiling
+    walls.add_rect([0, 0, -h], [h, 0, 0], [0, h, 0], 1)  # back
+    walls.add_rect([-h, 0, 0], [0, h, 0], [0, 0, h], 2)  # left; no right wall
+    ggx = SceneBuilder()
+    ggx.add_sphere([-0.6, -1.1, -0.4], 0.9, 4, n_seg=160, n_ring=80)
+    glass = SceneBuilder()
+    glass.add_sphere([0.9, -1.5, 0.7], 0.5, 5)
+    leaves = SceneBuilder()
+    spheres = ((np.array([-0.6, -1.1, -0.4]), 0.9), (np.array([0.9, -1.5, 0.7]),
+                                                      0.5))
+    while len(leaves.tris) < 2 * N_FOLIAGE:
+        c = rng.uniform([-1.6, -1.4, -1.6], [1.6, 1.6, 1.5])
+        if any(np.linalg.norm(c - p) < r + 0.3 for p, r in spheres):
+            continue
+        a = rng.normal(size=(2, 3))
+        vx = a[0] / np.linalg.norm(a[0]) * rng.uniform(0.12, 0.2)
+        vy = np.cross(a[0], a[1])
+        vy = vy / np.linalg.norm(vy) * rng.uniform(0.12, 0.2)
+        leaves.add_rect(c, vx, vy, 7)
+    m_light = np.eye(4, dtype=np.float32)
+    m_light[1, 3] = 1.95
+    m_lamp = np.eye(4, dtype=np.float32)
+    m_lamp[:3, 3] = [0.8, 1.2, 0.4]
+    eye = np.eye(4, dtype=np.float32)
+    meshes = {0: mesh_of(walls), 1: mesh_of(ggx, sphere_uv=True),
+              2: mesh_of(glass, sphere_uv=True), 3: mesh_of(leaves),
+              4: make_rect_mesh(0.5, 0.5, 6)}
+    instances = [sf.InstanceDesc(mesh_id=k, matrix=eye) for k in range(4)]
+    instances.append(sf.InstanceDesc(mesh_id=4, matrix=m_light, light_id=0,
+                                     linst_id=0))
+    cam = sf.CameraDesc()
+    cam.position = np.array([1.0, 0.3, 5.6], np.float32)
+    cam.look_at = np.array([0.6, 0.0, 0.0], np.float32)
+    return sf.SceneDesc(
+        lib_dir=lib_dir, textures=textures, materials=materials, lights=lights,
+        camera=cam,
+        settings=sf.RenderSettings(width=width, height=height,
+                                   trace_depth=DEPTH),
+        meshes=meshes, mesh_light_id={}, instances=instances,
+        light_instances=[sf.LightInstanceDesc(light_id=0, matrix=m_light),
+                         sf.LightInstanceDesc(light_id=1, matrix=eye),
+                         sf.LightInstanceDesc(light_id=2, matrix=m_lamp)])
+
+
+def live_lanes(scene) -> torch.Tensor:
+    """Per real cluster (real_boxes' order) the lanes of the opaque shadow
+    pool that can hit: a triangle's lane whose Woop rows are not zeroed."""
+    slot = scene.cl_slot_tri.reshape(-1, 128)
+    zero = (scene.cl_tris_shadow.reshape(-1, 4, 384) == 0).all(dim=1)
+    dead = zero[:, :128] & zero[:, 128:256] & zero[:, 256:]
+    b = scene.cl_bounds
+    if b.dim() == 3:
+        b = b.permute(1, 0, 2).reshape(8, -1)
+    return ((slot >= 0) & ~dead).sum(dim=1)[b[0] < 1e29]
+
+
+def leaf_rays(scene):
+    """One ray per alpha triangle, from 0.01 off its centroid along its
+    normal towards the centroid, limited to 0.011: only that triangle lies
+    in range (the quads keep 0.3 from the spheres and the walls)."""
+    tri = scene.alpha_tri9f[:, scene.alpha_tri_id >= 0]
+    v0, e1, e2 = tri[0:3].T, tri[3:6].T, tri[6:9].T
+    c = v0 + (e1 + e2) / 3.0
+    n = torch.linalg.cross(e1, e2)
+    n = n / n.norm(dim=1, keepdim=True)
+    return c + 0.01 * n, -n, torch.full_like(c[:, 0], 0.011)
+
+
+def check_opaque(tag, tc, scene, rays, card, flat_scene=None) -> tuple:
+    """B2 over the opaque shadow pool against its twin on the shadow
+    wavefront `rays` (occlusion masks equal), against the flat pool's
+    kernel when given (equal), beside B2 over the full pool; on leaf_rays
+    the full pool hits every alpha triangle and the opaque pool none, in
+    kernel and twin. Times kernel and twin. Returns (name, ms, plain_ms,
+    bound_ms, bound_by, max_abs_err) and the kernel's occlusion mask."""
+    from hydracore_tpu_torch.ops.traverse_cluster import LEVEL_TABLES
+
+    pool = tc.scene_pool(scene, opaque_only=True)
+    twin = {k: v for k, v in pool.items()
+            if k not in LEVEL_TABLES and k != "opaque_pool"}
+    full = tc.scene_pool(scene)
+
+    def kernel(r, p=pool):
+        return tc.cluster_traverse(r, any_hit_mode=True, **p)
+
+    tk, sk = kernel(rays)
+    _, st = tc.cluster_traverse_plain(rays, any_hit_mode=True, **twin)
+    _, sf = tc.cluster_traverse(rays, any_hit_mode=True, **full)
+    torch.cuda.synchronize()
+    hk, ht = sk >= 0, st >= 0
+    err = float((hk.float() - ht.float()).abs().max())
+    n_act = int((rays[:, :, 7] > 0).sum())
+    log(f"{tag} shadow: {n_act} active rays, occluded by the opaque pool "
+        f"{int(hk.sum())}, by the full pool {int((sf >= 0).sum())}; masks "
+        f"{'equal' if torch.equal(hk, ht) else 'DIFFERENT'} to the twin's")
+    if not torch.equal(hk, ht):
+        raise AssertionError(f"{tag}: opaque-pool B2 differs from its twin on "
+                             f"{int((hk != ht).sum())} rays")
+    if not ((sf >= 0) & ~hk).any():
+        raise AssertionError(f"{tag}: no ray is occluded by alpha geometry alone")
+    if flat_scene is not None:
+        _, s_flat = kernel(rays, tc.scene_pool(flat_scene, opaque_only=True))
+        if not torch.equal(hk, s_flat >= 0):
+            raise AssertionError(f"{tag}: chunked and flat opaque pools differ")
+    o, d, t = leaf_rays(scene)
+    blocks, R = tc._to_blocks(o, d, t, None, tc.R_BLK)
+    hit_full = tc.cluster_traverse(blocks, any_hit_mode=True, **full)[1]
+    hit_opq = kernel(blocks)[1]
+    hit_twin = tc.cluster_traverse_plain(blocks, any_hit_mode=True, **twin)[1]
+    hit_full, hit_opq, hit_twin = (x.reshape(-1)[:R] >= 0
+                                   for x in (hit_full, hit_opq, hit_twin))
+    log(f"{tag} zeroed lanes: {R} rays onto alpha triangles: full pool hits "
+        f"{int(hit_full.sum())}, opaque pool kernel {int(hit_opq.sum())}, twin "
+        f"{int(hit_twin.sum())}")
+    if not hit_full.all() or hit_opq.any() or hit_twin.any():
+        raise AssertionError(f"{tag}: a zeroed lane hit, or an alpha triangle "
+                             "was missed in the full pool")
+    err = max(err, float((hit_opq.float() - hit_twin.float()).abs().max()))
+    ms = lab.time_ms(lambda: kernel(rays), 20, rays.device)
+    plain = lab.time_ms(lambda: tc.cluster_traverse_plain(
+        rays, any_hit_mode=True, **twin), 1, rays.device)
+    bms, by = cluster_bound_ms(scene, rays, tk.reshape(-1), live_lanes(scene))
+    log(f"{tag} shadow: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound "
+        f"{bms:.5f} ms ({by}, {int(live_lanes(scene).sum())} live lanes) "
+        f"[{card}]")
+    return ("shadow", ms, plain, bms, by, err), hk.reshape(-1)
+
+
+def textured_phase(card, pt, tc, tp, trace_api, dev) -> list:
+    """Phase 14: the textured scene of textured_desc assembled through
+    assemble(SceneDesc) into the git-ignored hydracore_tpu_torch/_build/
+    (its texture files written there and removed after): B1 on its primary
+    and bounce wavefronts against the twin, B2 over the opaque shadow pool
+    against its twin, flat and in chunks of 128 clusters (check_opaque),
+    the dense alpha layer timed on the shadow wavefront, the main path at
+    1024^2 (the opaque-pool counter > 0, B2 over the full pool 0) on both
+    pools with a profile of one pass, and 64x64 card images against the CPU
+    twins on the cluster route (split shadows) and on the packet route (the
+    layered walk through B4 closest hit, B4 any hit 0). Returns the two
+    "kernels" rows of B2 over the opaque pool."""
+    from hydracore_tpu_torch.scene.lights import LIGHT_AREA_RECT
+    from hydracore_tpu_torch.scene.scene import assemble
+    from hydracore_tpu_torch.utils.build import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = tempfile.mkdtemp(prefix="textured_", dir=BUILD_DIR)
+    try:
+        t0 = time.time()
+        desc = textured_desc(lib, WIDTH, HEIGHT)
+        host = assemble(desc)
+        st = host.settings
+        gates = ("has_diff_tex", "has_refl_tex", "has_bump", "has_blend",
+                 "has_alpha", "has_ies", "has_env_back", "has_sky")
+        if not all(getattr(st, g) for g in gates) or st.blend_depth != 2:
+            raise AssertionError(f"phase 14: gates {[getattr(st, g) for g in gates]}"
+                                 f", blend depth {st.blend_depth}")
+        if trace_api._pick(host) is not tc or not trace_api.has_shadow_split(host):
+            raise AssertionError("phase 14: the scene does not take the cluster "
+                                 "route with split shadows")
+        n_alpha = int((host.alpha_tri_id >= 0).sum())
+        log(f"phase 14 textured scene: {host.num_triangles} triangles, "
+            f"{real_boxes(host).shape[1]} clusters (Cp {host.cl_tris.shape[0]}), "
+            f"texture heap {host.texels.numel() * 4 / 2**20:.1f} MiB in "
+            f"{host.tex_table.shape[0]} slots, alpha set {n_alpha} triangles "
+            f"(A {host.alpha_tri9f.shape[1]}), assembled in "
+            f"{time.time() - t0:.2f} s")
+        host_part = assemble(desc, part_cap=128)
+        P = host_part.cl_tris.shape[0] if host_part.cl_tris.dim() == 4 else 1
+        if P < 2:
+            raise AssertionError(f"phase 14: the pool has {P} chunks at part_cap 128")
+        scene, part = host.to(dev), host_part.to(dev)
+        rect = int(torch.nonzero(host.lights.ltype == LIGHT_AREA_RECT)[0])
+        raw = wavefronts(pt, scene, light_row=rect)
+        cases = cluster_cases(tc, raw)
+        b1 = check_kernels("phase 14 textured", tc, scene, cases[:2], card)
+        shadow = cases[2][1]
+        rec_flat, occ = check_opaque("phase 14 textured flat", tc, scene,
+                                     shadow, card)
+        rec_part, _ = check_opaque(f"phase 14 textured {P} chunks", tc, part,
+                                   shadow, card, flat_scene=scene)
+        # the first alpha layer of those shadow rays, timed alone
+        _, o, d, t_max, act, _ = raw[2]
+        n = o.shape[0]
+        searching = act & ~occ[:n]
+        t_lo = torch.full_like(t_max, 1e-5)
+        lay_ms, (_, tid, _, _) = lab.time_ms(
+            lambda: trace_api.alpha_layer_hit(scene, o, d, t_lo, t_max,
+                                              searching), 5, dev, result=True)
+        log(f"phase 14 textured: B1 primary {b1['closest'][0][1]:.4f} ms, "
+            f"bounce {b1['closest'][1][1]:.4f} ms; B2 over the opaque pool "
+            f"{rec_flat[1]:.4f} ms (flat), {rec_part[1]:.4f} ms ({P} chunks); "
+            f"alpha_layer_hit {lay_ms:.4f} ms on {int(searching.sum())} rays "
+            f"(hits {int((tid >= 0).sum())}) [{card}]")
+        log(f"phase 14 assembly and kernel checks: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        counts = drive_main_path("phase 14 textured", pt, tc, tp, scene, card,
+                                 {"closest_launches", "opaque_any_launches"})
+        profile_pass(pt, scene, card, "phase 14 textured")
+        part_counts = drive_main_path(
+            f"phase 14 textured {P} chunks", pt, tc, tp, part, card,
+            {"closest_launches", "opaque_any_launches"})
+        del scene, part
+        log(f"phase 14 main paths: {time.time() - t0:.2f} s")
+        card_vs_cpu("phase 14 cluster", pt, assemble(desc, 64, 64))
+        small_pkt = assemble(desc, 64, 64, traversal="packet")
+        tc.reset_launch_counts()
+        tp.reset_launch_counts()
+        card_vs_cpu("phase 14 packet", pt, small_pkt)
+        pkt = launch_counts(tc, tp)
+        log(f"phase 14 packet 64x64: launches {pkt}")
+        if (pkt["pkt_closest_launches"] == 0 or pkt["pkt_any_launches"] != 0
+                or any(pkt[k] for k in COUNTERS[:5])):
+            raise AssertionError("phase 14 packet: the layered walk did not run "
+                                 f"through B4 closest hit alone: {pkt}")
+    finally:
+        shutil.rmtree(lib, ignore_errors=True)
+    at = "hydracore_tpu/ops/traverse_cluster.py"
+    rows = []
+    for label, rec, n, line in (
+            (f"flat pool Cp {host.cl_tris.shape[0]}", rec_flat,
+             counts["opaque_any_launches"], 576),
+            (f"{P} chunks of 128", rec_part, part_counts["opaque_any_launches"],
+             663)):
+        rows.append({
+            "name": f"B2 cluster traversal over the opaque shadow pool, any hit,"
+                    f" textured scene, {label} (shadow)",
+            "route": "cuda", "source": CLUSTER_CU, "replaces": f"{at}:{line}",
+            "launches": n, "max_abs_err": rec[5], "ms": rec[1],
+            "plain_ms": rec[2], "bound_ms": rec[3], "bound_by": rec[4],
+            "library_ms": None})
+    return rows
 
 
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
@@ -1277,12 +1715,14 @@ def main() -> int:
     flat_counts = drive_main_path("phase 4 flat", pt, tc, tp, scene, card,
                                   {"closest_launches", "any_launches"})
     img_flat_cluster = card_vs_cpu("phase 4 flat", pt,
-                                   bench_scene(64, 64, DEPTH))
+                                   bench_scene(64, 64, DEPTH),
+                                   max_depth=CHECK_DEPTH)
     profile_pass(pt, scene, card, "phase 5 flat")
     del scene
+    log(f"phases 2-5 flat: {time.time() - t0:.2f} s")
 
     # ---- phase 6: the instanced layout (B3), assembled from a SceneDesc
-    t0 = time.time()
+    t0 = t_phase = time.time()
     desc = instanced_desc(WIDTH, HEIGHT)
     host_inst = assemble(desc, instancing="auto")
     if not host_inst.settings.has_inst:
@@ -1307,21 +1747,24 @@ def main() -> int:
     profile_pass(pt, inst_scene, card, "phase 6 instanced")
     del inst_scene
     img_inst = card_vs_cpu("phase 6 instanced", pt,
-                           assemble(desc, 64, 64, instancing="auto"))
+                           assemble(desc, 64, 64, instancing="auto"),
+                           max_depth=CHECK_DEPTH)
     t0 = time.time()
     flattened = assemble(desc, 64, 64, instancing="off")
-    img_flat = pt.render(flattened, spp=8, seed=SEED, device="cuda").cpu()
+    img_flat = pt.render(flattened, spp=8, seed=SEED, max_depth=CHECK_DEPTH,
+                         device="cuda").cpu()
     mse = float(((img_inst - img_flat) ** 2).mean())
-    log(f"phase 6 instanced 64x64 8 spp: MSE {mse:.3e} against the flattened "
-        f"assembly ({flattened.num_triangles} triangles, pool "
+    log(f"phase 6 instanced 64x64 8 spp depth {CHECK_DEPTH}: MSE {mse:.3e} "
+        f"against the flattened assembly ({flattened.num_triangles} triangles, pool "
         f"{tuple(flattened.cl_tris.shape[:-2])}, assembled and rendered in "
         f"{time.time() - t0:.2f} s)")
     if not mse < 1e-4:
         raise AssertionError(f"instanced vs flattened image: MSE {mse}")
     del flattened
+    log(f"phase 6 instanced: {time.time() - t_phase:.2f} s")
 
     # ---- phase 7: the partitioned pool (B1, B2 over the groups of 3 chunks)
-    t0 = time.time()
+    t0 = t_phase = time.time()
     big = bench_builder(n_seg=450, n_ring=225)
     host_part = bench_scene(WIDTH, HEIGHT, DEPTH, builder=big)
     P = host_part.cl_tris.shape[0] if host_part.cl_tris.dim() == 4 else 1
@@ -1345,9 +1788,10 @@ def main() -> int:
                                   part_scene, card,
                                   {"closest_launches", "any_launches"})
     profile_pass(pt, part_scene, card, "phase 7 partitioned")
+    log(f"phase 7 partitioned: {time.time() - t_phase:.2f} s")
 
     # ---- phase 8: the packet route (B4) on the partitioned phase's geometry
-    t0 = time.time()
+    t0 = t_phase = time.time()
     host_pkt = bench_scene(WIDTH, HEIGHT, DEPTH, builder=big, traversal="packet")
     if trace_api._pick(host_pkt) is not tp or host_pkt.cl_tris.dim() != 3:
         raise AssertionError("traversal='packet' was not honoured")
@@ -1388,6 +1832,7 @@ def main() -> int:
         {"pkt_closest_launches", "pkt_any_launches"})
     profile_pass(pt, pkt_scene, card, "phase 8 packet")
     del pkt_scene
+    log(f"phase 8 packet: {time.time() - t_phase:.2f} s")
 
     # ---- phase 9: the wide-BVH loop (plain PyTorch) on the same geometry,
     # 256x256, one pass; 64x64 card against CPU
@@ -1398,7 +1843,8 @@ def main() -> int:
                     width=256, height=256, n_pass=1)
     del wide_scene
     card_vs_cpu("phase 9 wide", pt,
-                bench_scene(64, 64, DEPTH, builder=big, traversal="wide"), spp=2)
+                bench_scene(64, 64, DEPTH, builder=big, traversal="wide"), spp=2,
+                max_depth=CHECK_DEPTH)
     log(f"phase 9 wide: {time.time() - t0:.2f} s")
 
     # ---- phase 10: the dense route (plain PyTorch) on a golden recipe
@@ -1415,13 +1861,16 @@ def main() -> int:
 
     # ---- phase 11: the flat scene through B4 at 64x64 against the CPU
     # twins and against the cluster route's image of phase 4
+    t0 = time.time()
     img_flat_packet = card_vs_cpu(
-        "phase 11 packet", pt, bench_scene(64, 64, DEPTH, traversal="packet"))
+        "phase 11 packet", pt, bench_scene(64, 64, DEPTH, traversal="packet"),
+        max_depth=CHECK_DEPTH)
     close = pixels_close(img_flat_packet, img_flat_cluster)
-    log(f"phase 11 packet 64x64 8 spp: pixels within 1e-3 of the cluster "
-        f"route's image: {close:.4f}")
+    log(f"phase 11 packet 64x64 8 spp depth {CHECK_DEPTH}: pixels within 1e-3 "
+        f"of the cluster route's image: {close:.4f}")
     if close < 0.99:
         raise AssertionError(f"packet vs cluster route image: {close}")
+    log(f"phase 11 packet: {time.time() - t0:.2f} s")
 
     # ---- phase 12: the kernel lab, each tool's kernels at its own size
     t0 = time.time()
@@ -1440,6 +1889,12 @@ def main() -> int:
         raise AssertionError("phase 13: a lab kernel was not launched by its "
                              "tool's main()")
     log(f"phase 13 traversal prototypes: {time.time() - t0:.2f} s")
+
+    # ---- phase 14: textured shading and alpha shadows (B2 over the opaque
+    # shadow pool), a scene assembled from a SceneDesc with its files
+    t0 = time.time()
+    opaque_rows = textured_phase(card, pt, tc, tp, trace_api, dev)
+    log(f"phase 14 textured: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -1462,7 +1917,7 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + lab_rows + trav_rows)
+            + opaque_rows + lab_rows + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ shading is ONE-SAMPLE MIS over lobes — evaluation sums all non-delta lobes
 branch-free, sampling picks a lobe proportionally to its luminance and
 divides by the mixture pdf.
 
-This slice fetches untextured materials: one packed-row index per ray
-(scene.mat_attr); textured, blended, bumped, SSS and fog materials raise at
-scene build (scene.check_supported).
+A material is one packed row per ray (scene.mat_attr) with the meta rows
+of its textures baked in: the fetch reads the texture channels the
+scene's static gates allow (ops/texture.py), lerps or walks blend trees,
+and bends the shading normal by a normal map (apply_bump). Procedural
+textures, SSS and fog raise at scene build (scene.check_supported).
 
 Conventions:
   wo — unit vector from surface TOWARD the viewer (= -ray_dir)
@@ -36,7 +38,7 @@ EPS_PDF = 1e-20
 
 
 class MatParams(NamedTuple):
-    """Per-ray material parameters after fetch."""
+    """Per-ray material parameters after texture fetch."""
 
     em_color: torch.Tensor  # (R,3)
     diff_color: torch.Tensor  # (R,3)
@@ -58,6 +60,11 @@ class MatParams(NamedTuple):
     refl_aniso: torch.Tensor  # (R,)
     refl_aniso_rot: torch.Tensor  # (R,)
     skip_shadow: torch.Tensor  # (R,) shadow-catcher opacity flag
+    # the baked normal-map meta row (materials.MA_META_BUMP), bitcast ints
+    # inside, and the map's rgb fetched with the other channels: a blend
+    # switches both, never lerps them
+    bump_meta: torch.Tensor = None  # (R, 12)
+    bump_rgb: torch.Tensor = None  # (R, 3)
 
 
 def luminance(c):
@@ -86,10 +93,25 @@ def scene_feats(scene) -> tuple:
     return tuple(out)
 
 
-def _fetch_leaf(scene, mat_id) -> MatParams:
-    """One packed material row per ray (scene.mat_attr); untextured."""
+def _gate(st, name: str) -> bool:
+    """Static feature gate; permissive when settings are absent."""
+    return True if st is None else bool(getattr(st, name, True))
+
+
+def _mat_rows(scene, mat_id):
     n = scene.mat_attr.shape[0]
-    m = scene.mat_attr[torch.clamp(mat_id.long(), 0, n - 1)]
+    return scene.mat_attr[torch.clamp(mat_id.long(), 0, n - 1)]
+
+
+def _fetch_leaf(scene, mat_id, uv) -> MatParams:
+    """One packed material row per ray (scene.mat_attr) and the texture
+    channels the scene's static gates allow (emission, diffuse,
+    reflection, opacity, translucency, normal map), each fetched through
+    the meta row baked into the material row, all in one stacked fetch."""
+    from hydracore_tpu_torch.ops.texture import tex_fetch_rows_batch
+
+    st = scene.settings
+    m = _mat_rows(scene, mat_id)
 
     def col(c):
         return m[:, c]
@@ -100,12 +122,35 @@ def _fetch_leaf(scene, mat_id) -> MatParams:
     def coli(c):
         return m[:, c].to(torch.int32)
 
+    chans = []
+    if _gate(st, "has_em_tex"):
+        chans.append(("em", MC.MA_META_EM))
+    if _gate(st, "has_diff_tex"):
+        chans.append(("diff", MC.MA_META_DIFF))
+    if _gate(st, "has_refl_tex"):
+        chans.append(("refl", MC.MA_META_REFL))
+    if _gate(st, "has_alpha"):
+        chans.append(("op", MC.MA_META_OPACITY))
+    if _gate(st, "has_transl") and _gate(st, "has_transl_tex"):
+        chans.append(("transl", MC.MA_META_TRANSL))
+    if _gate(st, "has_bump"):
+        chans.append(("bump", MC.MA_META_BUMP))
+    fetched = {}
+    if chans:
+        outs = tex_fetch_rows_batch(scene, [m[:, c:c + 12] for _, c in chans],
+                                    uv)
+        fetched = {nm: o for (nm, _), o in zip(chans, outs)}
+
+    def textured(c, name):
+        # an untextured channel launches nothing
+        return col3(c) * fetched[name][:, :3] if name in fetched else col3(c)
+
     tg = col(MC.MA_TRANSP_GLOSS)
     return MatParams(
-        em_color=col3(MC.MA_EM),
-        diff_color=col3(MC.MA_DIFF),
+        em_color=textured(MC.MA_EM, "em"),
+        diff_color=textured(MC.MA_DIFF, "diff"),
         diff_rough=col(MC.MA_DIFF_ROUGH),
-        refl_color=col3(MC.MA_REFL),
+        refl_color=textured(MC.MA_REFL, "refl"),
         refl_cospow=col(MC.MA_REFL_COSPOW),
         refl_alpha=col(MC.MA_REFL_ALPHA),
         refl_dist=coli(MC.MA_REFL_DIST),
@@ -114,22 +159,137 @@ def _fetch_leaf(scene, mat_id) -> MatParams:
         transp_color=col3(MC.MA_TRANSP),
         transp_ior=col(MC.MA_TRANSP_IOR),
         thin_walled=coli(MC.MA_THIN_WALLED),
-        opacity=torch.ones_like(tg),
+        opacity=(fetched["op"][:, 0] if "op" in fetched
+                 else torch.ones_like(tg)),
         light_id=coli(MC.MA_LIGHT_ID),
         bump_tex=coli(MC.MA_BUMP_TEX),
-        transl_color=col3(MC.MA_TRANSL),
+        transl_color=textured(MC.MA_TRANSL, "transl"),
         transp_alpha=torch.where(tg < 0.999, torch.clamp(1.0 - tg, min=1e-3),
                                  0.0),
         refl_aniso=col(MC.MA_REFL_ANISO),
         refl_aniso_rot=col(MC.MA_REFL_ANISO_ROT),
         skip_shadow=coli(MC.MA_SKIP_SHADOW),
+        bump_meta=(m[:, MC.MA_META_BUMP:MC.MA_META_BUMP + 12]
+                   if _gate(st, "has_bump") else None),
+        bump_rgb=fetched["bump"][:, :3] if "bump" in fetched else None,
     )
 
 
-def fetch_material(scene, mat_id, uv=None) -> MatParams:
-    """Material record per ray (ref: materialLeafEval fetch path). `uv` is
-    taken for the textured fetch of a later slice and unused here."""
-    return _fetch_leaf(scene, mat_id)
+def _blend_weight(scene, mrow, uv, normal, wo, pos):
+    """Per-ray top weight of a blend record: mask-texture luminance, the
+    Fresnel of the view angle, or falloff (BlendMaskMaterial semantics,
+    PlainMaterialConverter.cpp:750)."""
+    from hydracore_tpu_torch.ops.texture import tex_fetch_row
+
+    btype = mrow[:, MC.MA_BLEND_TYPE].to(torch.int32)
+    mask = tex_fetch_row(scene,
+                         mrow[:, MC.MA_META_BLEND:MC.MA_META_BLEND + 12],
+                         uv)[:, :3]
+    w_mask = luminance(mask)
+    if normal is not None and wo is not None:
+        cos_v = dot3(normal, wo).abs()
+    elif normal is not None and pos is not None:
+        cos_v = dot3(normal, normalize3(pos)).abs()
+    else:
+        cos_v = torch.full_like(w_mask, 0.5)
+    w_fres = fresnel_dielectric(
+        cos_v, torch.clamp(mrow[:, MC.MA_BLEND_IOR], min=1.0 + 1e-4))
+    w_fall = 1.0 - cos_v
+    w = torch.where(btype == 2, w_fres, torch.where(btype == 3, w_fall, w_mask))
+    return torch.clamp(w, 0.0, 1.0)
+
+
+def resolve_blend_leaf(scene, mat_id, uv, normal, wo, pos, u_blend):
+    """Stochastic blend-tree descent (materialRandomWalkBRDF,
+    cmaterial.h:2345): at each blend record take the top branch with the
+    probability of its blend weight, re-normalizing the uniform, else the
+    bottom, until a leaf record; at most the scene's static blend_depth
+    levels. Sampling branch k with probability w_k and evaluating leaf k
+    alone estimates the mixture without bias."""
+    st = scene.settings
+    levels = 1 if st is None else max(int(getattr(st, "blend_depth", 1)), 1)
+    mid = mat_id
+    u = u_blend
+    done = torch.zeros(mat_id.shape, dtype=torch.bool, device=mat_id.device)
+    for _ in range(levels):
+        mrow = _mat_rows(scene, mid)
+        bn = mrow[:, MC.MA_BLEND_NODE].to(torch.int32)
+        bt = mrow[:, MC.MA_BLEND_TOP].to(torch.int32)
+        is_blend = (bn >= 0) | (bt >= 0)
+        w = _blend_weight(scene, mrow, uv, normal, wo, pos)
+        take_top = u < w
+        # re-normalize the uniform for the next level (stream reuse)
+        u = torch.clamp(torch.where(take_top, u / torch.clamp(w, min=1e-6),
+                                    (u - w) / torch.clamp(1.0 - w, min=1e-6)),
+                        0.0, 1.0 - 1e-7)
+        nxt = torch.where(take_top, torch.where(bt >= 0, bt, mid), bn)
+        resolved = ~is_blend | (take_top & (bt < 0))
+        mid = torch.where(done | resolved, mid,
+                          torch.where(take_top & (bt < 0), mid, nxt))
+        done = done | resolved
+    return mid
+
+
+def fetch_material(scene, mat_id, uv, pos=None, normal=None, wo=None,
+                   u_blend=None) -> MatParams:
+    """Material record per ray, modulated by its textures (ref:
+    materialLeafEval's fetch path, cmaterial.h / cfetch.h).
+
+    Blend materials (PlainMaterialConverter.cpp:750 BlendMask): the record
+    holds the top leaf and blend_node points at the bottom leaf; the
+    per-ray top weight comes from the blend type (_blend_weight). One-level
+    trees lerp the two leaves field by field (ints, the baked *_meta rows
+    and bump_rgb switch at w = 0.5); deeper trees (settings.blend_depth >
+    1) walk to one leaf a ray on u_blend (resolve_blend_leaf)."""
+    st = scene.settings
+    if st is not None and not st.has_blend:
+        return _fetch_leaf(scene, mat_id, uv)
+    if st is not None and getattr(st, "blend_depth", 1) > 1:
+        if u_blend is None:
+            u_blend = torch.full(mat_id.shape, 0.5, dtype=torch.float32,
+                                 device=mat_id.device)
+        leaf = resolve_blend_leaf(scene, mat_id, uv, normal, wo, pos, u_blend)
+        return _fetch_leaf(scene, leaf, uv)
+    p_top = _fetch_leaf(scene, mat_id, uv)
+    mrow = _mat_rows(scene, mat_id)
+    bn = mrow[:, MC.MA_BLEND_NODE].to(torch.int32)
+    has = bn >= 0
+    bot_id = torch.where(has, torch.clamp(bn, 0, scene.mat_attr.shape[0] - 1),
+                         mat_id.to(torch.int32))
+    p_bot = _fetch_leaf(scene, bot_id, uv)
+    w = torch.where(has, _blend_weight(scene, mrow, uv, normal, wo, pos), 1.0)
+    top = w >= 0.5
+
+    def lerp(name, a, b):
+        if a is None or b is None:
+            return a if b is None else b
+        if name.endswith("_meta") or name == "bump_rgb":
+            return torch.where(top[:, None], a, b)
+        if a.dim() == 2:
+            return a * w[:, None] + b * (1.0 - w[:, None])
+        if a.dtype == torch.int32:
+            return torch.where(top, a, b)
+        return a * w + b * (1.0 - w)
+
+    return MatParams(*[lerp(f, a, b)
+                       for f, a, b in zip(MatParams._fields, p_top, p_bot)])
+
+
+def apply_bump(scene, p: MatParams, n, tang, uv):
+    """Perturb the shading normal by the material's normal map in the TBN
+    frame of the interpolated tangent (the shading side of the reference's
+    bump pipeline). The map's rgb comes prefetched with the other channels
+    (p.bump_rgb); static no-op for scenes without normal maps."""
+    if not _gate(scene.settings, "has_bump"):
+        return n
+    has = p.bump_tex > 0
+    nm = p.bump_rgb * 2.0 - 1.0
+    t = normalize3(tang - dot3(tang, n)[:, None] * n)
+    b = torch.stack([n[:, 1] * t[:, 2] - n[:, 2] * t[:, 1],
+                     n[:, 2] * t[:, 0] - n[:, 0] * t[:, 2],
+                     n[:, 0] * t[:, 1] - n[:, 1] * t[:, 0]], dim=-1)
+    n2 = normalize3(nm[:, 0:1] * t + nm[:, 1:2] * b + nm[:, 2:3] * n)
+    return torch.where(has[:, None], n2, n)
 
 
 # ----------------------------------------------------------------------------

@@ -1,9 +1,15 @@
 """Wavefront MIS path tracer (PT / MISPT) over megablock ray batches (torch).
 
 The JAX package's integrators/pt.py, main path: per bounce a closest-hit
-trace, compute_hit, fetch_material and the BSDF, then NEE with a shadow
-any-hit trace; ops/trace_api.py picks the traversal (kernels B1/B2, B3
-over an instanced scene, B4 over the packet route, or a plain path). Two
+trace, compute_hit, fetch_material (textures, blends) and the normal map,
+the BSDF, then NEE with a shadow any-hit trace; ops/trace_api.py picks the
+traversal (kernels B1/B2, B3 over an instanced scene, B4 over the packet
+route, or a plain path). Scenes with opacity maps (settings.has_alpha) let
+a ray pass through a surface with probability 1 - opacity, and walk their
+shadow rays through up to MAX_ALPHA_SHADOW_STEPS such layers
+(shadow_trace); the sky's back plate replaces the env for camera-visible
+rays (settings.has_env_back). Every such gate is static on the settings,
+so an opaque, untextured scene runs none of that code. Two
 wavefront modes, as there: with a traversal that wants sorted rays (the
 cluster kernels) the whole live state is permuted into (octant,
 origin-Morton) order once per bounce and both traversals run on the sorted
@@ -30,17 +36,21 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from hydracore_tpu_torch.bsdf.core import (eval_bsdf, fetch_material,
-                                           sample_bsdf, scene_feats)
+from hydracore_tpu_torch.bsdf.core import (apply_bump, eval_bsdf,
+                                           fetch_material, sample_bsdf,
+                                           scene_feats)
 from hydracore_tpu_torch.lights.envmap import env_pdf_for_dir
-from hydracore_tpu_torch.lights.sampling import (env_radiance,
+from hydracore_tpu_torch.lights.sampling import (env_back_radiance,
+                                                 env_radiance,
                                                  light_eval_pdf_from_hit,
                                                  light_rows,
                                                  sample_light_rev,
                                                  select_light)
 from hydracore_tpu_torch.ops import rng
-from hydracore_tpu_torch.ops.trace_api import (any_hit, closest_hit,
+from hydracore_tpu_torch.ops.trace_api import (alpha_layer_hit, any_hit,
+                                               any_hit_opaque, closest_hit,
                                                coherence_order,
+                                               has_shadow_split,
                                                wants_sorted_rays)
 from hydracore_tpu_torch.scene.lights import LIGHT_SKY
 from hydracore_tpu_torch.scene.scene import check_supported
@@ -53,6 +63,9 @@ DG_LENS = 0
 DG_BSDF = 1
 DG_LIGHT = 2
 DG_RR = 3
+DG_ALPHA = 4  # col 0: stochastic alpha; col 1: blend-tree walk
+
+MAX_ALPHA_SHADOW_STEPS = 2  # transparent layers a shadow ray may cross
 
 # max rays per wavefront: decouples image size from device footprint
 # (CalcMegaBlockSize, GPUOCLLayer.cpp:841-876)
@@ -156,11 +169,67 @@ def compute_hit(scene, tri, u, v, ray_o, ray_d, t):
     return pos, n, ng, uv, mat, lgt, tang
 
 
-def shadow_trace(scene, sray_o, sdir, dist, active):
-    """Occlusion query on the wavefront as it stands: already in coherence
-    order when the traversal wants that (opaque scenes; the alpha layer
-    walk is not ported yet)."""
-    return any_hit(scene, sray_o, sdir, dist * 0.995, active=active)
+def _layer_passes(scene, tri, u, v, o, sdir, t, hit, u_alpha, step: int):
+    """Which shadow-ray hits of one layer pass through: a surface with
+    opacity < 0.999 lets the ray through when its uniform (a hash of
+    u_alpha and the layer) reaches the opacity, a skip-shadow one always.
+    The blend walk of the hit material takes a second hash."""
+    _, _, _, uv, mat_id, _, _ = compute_hit(scene, tri, u, v, o, sdir, t)
+    ub = rng.hash_u32(u_alpha ^ ((0xB5297A4D + step * 0x68E31DA4) & rng.M32))
+    ub = (ub >> 8).to(torch.float32) * (1.0 / 16777216.0)
+    p = fetch_material(scene, mat_id, uv, u_blend=ub)
+    ua = rng.hash_u32(rng.add32(u_alpha, (step * 0x9E3779B9) & rng.M32))
+    ua = (ua >> 8).to(torch.float32) * (1.0 / 16777216.0)
+    return hit & (((p.opacity < 0.999) & (ua >= p.opacity))
+                  | (p.skip_shadow != 0))
+
+
+def shadow_trace(scene, sray_o, sdir, dist, active, u_alpha=None):
+    """Occlusion query on the wavefront as it stands (already in coherence
+    order when the traversal wants that). With alpha materials
+    (settings.has_alpha) it walks up
+    to MAX_ALPHA_SHADOW_STEPS stochastic transparent layers (ref: the
+    alpha variants of shadow traversal, trace.cl:244+); u_alpha (R,) u32
+    values (int64) key their uniforms. With the split shadow sets one B2
+    walk over the opaque pool answers for opaque geometry and the layers
+    are taken from the dense alpha set alone (occlusion by opaque and by
+    alpha surfaces does not depend on their order, so the split is exact);
+    without, each layer is a closest-hit trace of the scene's route."""
+    if not scene.settings.has_alpha:
+        return any_hit(scene, sray_o, sdir, dist * 0.995, active=active)
+    if has_shadow_split(scene):
+        occluded = any_hit_opaque(scene, sray_o, sdir, dist * 0.995,
+                                  active=active)
+        searching = active & ~occluded
+        t_lo = torch.full_like(dist, 1e-5)
+        t_hi = dist * 0.995
+        for step in range(MAX_ALPHA_SHADOW_STEPS + 1):
+            t, tri, u, v = alpha_layer_hit(scene, sray_o, sdir, t_lo, t_hi,
+                                           searching)
+            hit = searching & (tri >= 0)
+            if step == MAX_ALPHA_SHADOW_STEPS:  # out of layers: opaque
+                return occluded | hit
+            passthru = _layer_passes(scene, tri, u, v, sray_o, sdir, t, hit,
+                                     u_alpha, step)
+            occluded = occluded | (hit & ~passthru)
+            searching = passthru
+            t_lo = t + 1e-4
+    occluded = torch.zeros_like(active)
+    searching = active
+    o = sray_o
+    d_left = dist * 0.995
+    for step in range(MAX_ALPHA_SHADOW_STEPS + 1):
+        t, tri, u, v = closest_hit(scene, o, sdir, t_max=d_left,
+                                   active=searching)
+        hit = searching & (tri >= 0)
+        if step == MAX_ALPHA_SHADOW_STEPS:  # out of layers: opaque
+            return occluded | hit
+        passthru = _layer_passes(scene, tri, u, v, o, sdir, t, hit, u_alpha,
+                                 step)
+        occluded = occluded | (hit & ~passthru)
+        searching = passthru
+        o = o + t[:, None] * sdir + sdir * 1e-4
+        d_left = torch.clamp(d_left - t - 1e-4, min=0.0)
 
 
 # ----------------------------------------------------------------------------
@@ -172,12 +241,14 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     """Trace a batch of primary rays (already in coherence order, as
     Morton-ordered primaries are) to completion. sample_idx (R,) u32 stream
     ids (int64) key every random number. The live state is re-sorted every
-    bounce only for a traversal that wants sorted rays. Returns (radiance (R,3) in caller
-    order, rays_traced (int64 scalar tensor)): the ray counter feeds the
-    Mrays/s metric (MRaysStat analogue)."""
+    bounce only for a traversal that wants sorted rays. settings.has_alpha
+    turns on alpha pass-through and the layered shadow walk. Returns (radiance (R,3) in caller order, rays_traced
+    (int64 scalar tensor)): the ray counter feeds the Mrays/s metric
+    (MRaysStat analogue)."""
     st = scene.settings
     dev = ray_o.device
     R = ray_o.shape[0]
+    has_alpha = bool(st.has_alpha)
 
     def rand(sidx, depth, group):
         return rng.rand4(sidx, depth, group, seed)
@@ -200,6 +271,14 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     pt_caustics = getattr(st, "pt_caustics", True)
     if not pt_caustics:
         diff_bounce = torch.zeros((R,), dtype=torch.int32, device=dev)
+    # back-plate gate (sky <back>): camera-visible rays (primary, or behind
+    # pure transmission or alpha pass-through) take the back plate's color
+    # in place of the env's (environmentColorExtended, cbidir.h:619-625)
+    has_back = getattr(st, "has_env_back", False)
+    if has_back:
+        pure_t = torch.ones((R,), dtype=torch.bool, device=dev)
+    # the alpha / blend-walk uniforms are drawn only where a gate reads them
+    want_r_a = has_alpha or (st.has_blend and getattr(st, "blend_depth", 1) > 1)
     if has_sky_s:
         sky_rows = scene.lights.ltype == LIGHT_SKY
         has_sky = sky_rows.any()
@@ -219,6 +298,8 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             sidx, orig_pos = sidx[perm], orig_pos[perm]
             if not pt_caustics:
                 diff_bounce = diff_bounce[perm]
+            if has_back:
+                pure_t = pure_t[perm]
 
         rays_traced = rays_traced + alive.sum()
         t, tri, u, v = closest_hit(scene, ray_o, ray_d, active=alive,
@@ -234,12 +315,25 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             w_env = torch.where(prev_spec | ~has_sky, 1.0,
                                 mis_weight(prev_pdf, env_pdf * sky_pick))
             env_c = env * w_env[:, None]
+            if has_back:  # the back plate replaces the env, unweighted
+                env_c = torch.where(pure_t[:, None],
+                                    env_back_radiance(scene, ray_d), env_c)
             acc = acc + torch.where(miss[:, None], throughput * env_c, 0.0)
         alive = alive & hit
 
-        pos, n, ng, uv, mat_id, tri_light, _ = compute_hit(
+        pos, n, ng, uv, mat_id, tri_light, tang = compute_hit(
             scene, tri, u, v, ray_o, ray_d, t)
-        p = fetch_material(scene, mat_id, uv)
+        wo = -ray_d  # toward the viewer
+        r_a = rand(sidx, depth, DG_ALPHA) if want_r_a else None
+        p = fetch_material(scene, mat_id, uv, pos, n, wo=wo,
+                           u_blend=None if r_a is None else r_a[:, 1])
+        n = apply_bump(scene, p, n, tang, uv)
+        # stochastic alpha (ref: alpha-tested traversal + NextTransparentBounce,
+        # material.cl:1080): with probability 1 - opacity the ray passes the
+        # surface unchanged, which takes one wavefront step
+        passthru = None
+        if has_alpha:
+            passthru = alive & (p.opacity < 0.999) & (r_a[:, 0] >= p.opacity)
 
         # one light-row fetch serves the implicit-hit MIS eval (by the hit
         # triangle's light id) and the NEE sample (by the CDF pick)
@@ -257,7 +351,9 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         # ---- implicit emitter hit (HitEnvOrLightKernel light path)
         em_lum = p.em_color.amax(dim=-1)
         is_emitter = alive & (em_lum > 1e-6)
-        front = dot3(n, -ray_d) > 0.0
+        if has_alpha:
+            is_emitter = is_emitter & ~passthru
+        front = dot3(n, wo) > 0.0
         l_pdf_w, l_pick = light_eval_pdf_from_hit(scene, lrow, ray_o, ray_d,
                                                   pos, n, return_pick=True,
                                                   rows=rows_hit)
@@ -276,12 +372,12 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
 
         # ---- NEE (ShadePass: LightSample -> ShadowTrace -> Shade); shade
         # with the viewer-oriented normal (two-sided reflection)
-        ns = torch.where(dot3(n, -ray_d)[:, None] >= 0.0, n, -n)
-        ngs = torch.where(dot3(ng, -ray_d)[:, None] >= 0.0, ng, -ng)
+        ns = torch.where(dot3(n, wo)[:, None] >= 0.0, n, -n)
+        ngs = torch.where(dot3(ng, wo)[:, None] >= 0.0, ng, -ng)
         ls = sample_light_rev(scene, l_idx, r_l[:, :3], pos, rows=rows_nee)
         pick_prob = ls.pick_prob
         sray_o = offs_ray_pos(pos, ngs, ls.dir)
-        f, pdf_fwd = eval_bsdf(p, -ray_d, ls.dir, ns, feats)
+        f, pdf_fwd = eval_bsdf(p, wo, ls.dir, ns, feats)
         # two-sided combine: |cos| credits transmission lobes
         cos_s = dot3(ls.dir, ns).abs()
         w_l = torch.where(ls.is_delta, 1.0,
@@ -289,17 +385,30 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         contrib = (throughput * f * ls.radiance
                    * (cos_s * w_l / torch.clamp(ls.pdf_w * pick_prob, min=1e-12))[:, None])
         ok = alive & (cos_s > 0.0)
+        if has_alpha:
+            ok = ok & ~passthru
         # zero-contribution lanes need no occlusion query
         need_sh = ok & (contrib.amax(dim=-1) > 0.0)
         rays_traced = rays_traced + need_sh.sum()  # shadow rays
-        occluded = shadow_trace(scene, sray_o, ls.dir, ls.dist, need_sh)
+        u_sh = (r_l[:, 0] * 16777216.0).to(torch.int64) if has_alpha else None
+        occluded = shadow_trace(scene, sray_o, ls.dir, ls.dist, need_sh, u_sh)
         acc = acc + torch.where((need_sh & ~occluded)[:, None], contrib, 0.0)
 
         # ---- next bounce (NextBounce: BSDF sample, RR, flags)
-        bs = sample_bsdf(p, -ray_d, ns, rand(sidx, depth, DG_BSDF), feats)
-        prev_pdf = bs.pdf
-        prev_spec = bs.is_specular
-        throughput = throughput * bs.weight
+        bs = sample_bsdf(p, wo, ns, rand(sidx, depth, DG_BSDF), feats)
+        wi, weight, prev_pdf, prev_spec = bs.wi, bs.weight, bs.pdf, bs.is_specular
+        through = bs.is_transmission  # the ray goes on through the surface
+        if has_alpha:
+            # pass-through: direction and throughput unchanged, a specular
+            # event for MIS
+            wi = torch.where(passthru[:, None], ray_d, wi)
+            weight = torch.where(passthru[:, None], 1.0, weight)
+            prev_pdf = torch.where(passthru, 0.0, prev_pdf)
+            prev_spec = prev_spec | passthru
+            through = through | passthru
+        if has_back:  # transmission-only paths stay camera-visible
+            pure_t = pure_t & through
+        throughput = throughput * weight
         if not pt_caustics:  # count diffuse bounces (unpackBounceNumDiff)
             diff_bounce = diff_bounce + (alive & ~prev_spec).to(torch.int32)
 
@@ -311,9 +420,9 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             alive = alive & ~(u_rr >= q)
 
         alive = alive & (throughput.amax(dim=-1) > 1e-7)
-        n_off = torch.where(bs.is_transmission[:, None], -ngs, ngs)
-        ray_o = offs_ray_pos(pos, n_off, bs.wi)
-        ray_d = bs.wi
+        n_off = torch.where(through[:, None], -ngs, ngs)
+        ray_o = offs_ray_pos(pos, n_off, wi)
+        ray_d = wi
 
     if not sorted_mode:
         return acc, rays_traced

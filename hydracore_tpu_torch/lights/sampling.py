@@ -4,8 +4,9 @@ The JAX package's lights/sampling.py: one packed light row per ray
 (scene.light_attr) and every per-type branch combined with masked selects
 over the type enum; branches of light types the scene does not hold are
 skipped (settings.light_types). Covers every light SceneBuilder makes:
-rect, disk, sphere, cylinder, point, spot, direct, mesh and a constant sky.
-IES profiles and sky images raise at scene build (scene.check_supported).
+rect, disk, sphere, cylinder, point, spot (both with an optional IES
+profile), direct, mesh and a sky, constant or textured with a lat-long
+image; and the sky's back plate (env_back_radiance).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from hydracore_tpu_torch.lights.envmap import env_pdf_for_dir, sample_env_dir
 from hydracore_tpu_torch.scene.lights import (
     LA_AREA, LA_COS_IN, LA_COS_OUT, LA_INTEN, LA_MESH_ROW, LA_NORM,
-    LA_PICK_PROB, LA_PORTAL, LA_POS, LA_RADIUS, LA_TYPE, LA_VX, LA_VY,
+    LA_PICK_PROB, LA_PORTAL, LA_POS, LA_RADIUS, LA_TEX, LA_TYPE, LA_VX, LA_VY,
     LIGHT_AREA_DISK, LIGHT_AREA_RECT, LIGHT_CYLINDER, LIGHT_DIRECT,
     LIGHT_MESH, LIGHT_POINT, LIGHT_SKY, LIGHT_SPHERE, LIGHT_SPOT)
 from hydracore_tpu_torch.utils.math3d import (cross3, dot3,
@@ -66,17 +67,56 @@ def _light_types(scene) -> set:
     return set(getattr(st, "light_types", tuple(range(9))))
 
 
+def _latlong_uv(d):
+    """Lat-long texcoords of directions d (R, 3) (the sky image mapping)."""
+    u = 0.5 + torch.atan2(d[:, 0], -d[:, 2]) * (0.5 / PI)
+    v = torch.arccos(torch.clamp(d[:, 1], -1.0, 1.0)) * (1.0 / PI)
+    return torch.stack([u, v], -1)
+
+
 def env_radiance(scene, d):
-    """Sky radiance along direction d (R,3): the sky light's constant
-    color, or env_color in scenes without a sky light (sky images come in a
-    later slice)."""
+    """Sky radiance along direction d (R,3): the sky light's color times
+    its lat-long image where it has one (ref: environmentColorExtended,
+    material.cl:344), or env_color in scenes without a sky light."""
+    from hydracore_tpu_torch.ops.texture import tex_fetch
+
     lt = scene.lights
     if LIGHT_SKY not in _light_types(scene):
         return torch.broadcast_to(scene.env_color, d.shape)
     sky_rows = lt.ltype == LIGHT_SKY
+    has_sky = sky_rows.any()
     sky_row = torch.argmax(sky_rows.to(torch.int32))
-    base = torch.where(sky_rows.any(), lt.intensity[sky_row], scene.env_color)
-    return torch.broadcast_to(base, d.shape)
+    tex = lt.tex[sky_row]
+    texc = tex_fetch(scene, torch.broadcast_to(tex, (d.shape[0],)),
+                     _latlong_uv(d))[:, :3]
+    base = torch.where(has_sky, lt.intensity[sky_row], scene.env_color)
+    return base[None, :] * torch.where(has_sky & (tex > 0), texc, 1.0)
+
+
+def env_back_radiance(scene, d):
+    """The sky's back plate color along direction d (R,3): a spherical
+    lat-long lookup, or a camera-projected one (the screen uv of the
+    direction's vanishing point, exact for pinhole primaries), of the <back>
+    texture (ref backColorOfSecondEnv, cbidir.h:543-572). Only under
+    settings.has_env_back; it replaces the env radiance for camera-visible
+    rays (environmentColorExtended, cbidir.h:624)."""
+    from hydracore_tpu_torch.ops.texture import tex_fetch
+
+    eb = scene.env_back
+    slot = eb[0].to(torch.int32)
+    spherical = eb[1] < 1.5
+    mult = eb[3:6]
+    cam = scene.camera
+    w2v = torch.linalg.inv(cam.mWorldViewInv)
+    proj = torch.linalg.inv(cam.mProjInv)
+    dv = d @ w2v[:3, :3].T
+    pv = torch.cat([dv, torch.zeros_like(dv[:, :1])], -1) @ proj.T
+    ndc = pv[:, :2] / torch.clamp(pv[:, 3:4].abs(), min=1e-12)
+    u_c = torch.clamp(ndc[:, 0] * 0.5 + 0.5, 0.0, 1.0)
+    v_c = torch.clamp(0.5 - ndc[:, 1] * 0.5, 0.0, 1.0)
+    uv = torch.where(spherical, _latlong_uv(d), torch.stack([u_c, v_c], -1))
+    texc = tex_fetch(scene, torch.broadcast_to(slot, (d.shape[0],)), uv)[:, :3]
+    return mult[None, :] * texc
 
 
 def sample_light_rev(scene, l_idx, rnds, sp, rows=None) -> LightSample:
@@ -114,6 +154,25 @@ def sample_light_rev(scene, l_idx, rnds, sp, rows=None) -> LightSample:
     radiance = inten / dc2[:, None]
     pdf_w = torch.ones_like(dc)
     cos_at_light = torch.ones_like(dc)
+
+    # --- IES photometric profile on point/spot (clight.h:411)
+    if (LIGHT_POINT in types or LIGHT_SPOT in types) and \
+            (scene.settings is None or getattr(scene.settings, "has_ies", True)):
+        from hydracore_tpu_torch.ops.texture import tex_fetch
+
+        tex_slot = a[:, LA_TEX].to(torch.int32)
+        emit_dir = -dir_p
+        cos_ax = torch.clamp(dot3(emit_dir, nrm), -1.0, 1.0)
+        theta_v = torch.arccos(cos_ax) * (1.0 / PI)
+        tb2, bb2 = make_orthonormal_basis(nrm)
+        phi_v = torch.remainder(
+            torch.atan2(dot3(emit_dir, bb2), dot3(emit_dir, tb2)) * (0.5 / PI),
+            1.0)
+        ies_val = tex_fetch(scene, tex_slot,
+                            torch.stack([phi_v, theta_v], -1))[:, 0]
+        has_ies = (tex_slot > 0) & ((ltype == LIGHT_POINT)
+                                    | (ltype == LIGHT_SPOT))
+        radiance = radiance * torch.where(has_ies, ies_val, 1.0)[:, None]
 
     # --- spot falloff
     if LIGHT_SPOT in types:

@@ -18,6 +18,12 @@ to choose between the packet kernel and the wide loop; none of these
 carries over, so "packet" and "wide" are reached when named, on the card
 and on the CPU alike.
 
+Alpha scenes with the split shadow sets (scene._build_shadow_split) trace
+NEE shadow rays in two parts: any_hit_opaque, kernel B2 over the opaque
+pool cl_tris_shadow, and alpha_layer_hit, a dense test of the small alpha
+triangle set in plain PyTorch (an XLA computation in the JAX package, not
+a Pallas kernel).
+
 Secondary wavefronts of the cluster path are sorted by (direction octant,
 origin Morton) before traversal so that a ray block shares an octant and a
 small box, the coherence its block kernels prune with. The other paths take
@@ -30,7 +36,7 @@ import torch
 from hydracore_tpu_torch.bvh.wide import LEAF_SIZE
 from hydracore_tpu_torch.ops import (traverse_cluster, traverse_dense,
                                      traverse_packet, traverse_wide)
-from hydracore_tpu_torch.ops.intersect import ray_args
+from hydracore_tpu_torch.ops.intersect import ray_args, want_double
 from hydracore_tpu_torch.ops.rng import M32
 
 _BY_NAME = {"dense": traverse_dense, "cluster": traverse_cluster,
@@ -123,3 +129,81 @@ def any_hit_sorted(scene, ray_o, ray_d, t_max, active=None):
         return any_hit(scene, ray_o, ray_d, t_max, active)
     occ, inv = _sorted_call(any_hit, scene, ray_o, ray_d, t_max, active)
     return occ[inv]
+
+
+def has_shadow_split(scene) -> bool:
+    """True when the scene carries the split shadow sets and its traversal
+    can take them (the cluster kernels over a flattened pool)."""
+    return (scene.cl_tris_shadow is not None
+            and _pick(scene) is traverse_cluster)
+
+
+def any_hit_opaque(scene, ray_o, ray_d, t_max, active=None):
+    """Occlusion by opaque geometry only: B2 over the shadow pool, where the
+    alpha and skip-shadow lanes are zeroed, on the wavefront as it stands
+    (the path tracer's is in coherence order on this route). The caller
+    tests the alpha set with alpha_layer_hit; together they are the
+    reference's one-walk transparent shadow query (trace.cl:244-551)."""
+    return traverse_cluster.any_hit(scene, ray_o, ray_d, t_max, active=active,
+                                    opaque_only=True)
+
+
+# elements of one (rays x alpha triangles) step of alpha_layer_hit: its
+# dozen f32 temporaries stay near 256 MiB each
+ALPHA_STEP_ELEMS = 1 << 26
+
+
+def alpha_layer_hit(scene, ray_o, ray_d, t_lo, t_hi, active):
+    """Closest hit strictly inside (t_lo, t_hi) over the dense alpha set
+    (scene.alpha_tri9f (9, A) field-major, scene.alpha_tri_id (A,)):
+    Moller-Trumbore of every active ray against every alpha triangle, in
+    float64 under settings.double_rt, over steps of at most
+    ALPHA_STEP_ELEMS (ray, triangle) pairs. Returns (t, tri_id, u, v); t = 3e38 and tri_id
+    -1 on a miss (u = v = 0)."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_out = torch.full((R,), 3.0e38, dtype=torch.float32, device=dev)
+    tid_out = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros((R,), dtype=torch.float32, device=dev)
+    v_out = torch.zeros((R,), dtype=torch.float32, device=dev)
+    live = torch.nonzero(active).flatten()
+    tri = scene.alpha_tri9f
+    f64 = want_double(scene)
+    if f64:
+        tri = tri.to(torch.float64)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[k][None]
+                                                    for k in range(9))
+    step = max(1, ALPHA_STEP_ELEMS // tri.shape[1])
+    for s in range(0, live.numel(), step):
+        idx = live[s:s + step]
+        o, d = ray_o[idx], ray_d[idx]
+        if f64:
+            o, d = o.to(torch.float64), d.to(torch.float64)
+        ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+        dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv = torch.where(det.abs() > 1e-12,
+                          1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+        u = (sx * px + sy * py + sz * pz) * inv
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        v = (dx * qx + dy * qy + dz * qz) * inv
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv
+        hit = (inv != 0.0) & (u >= 0) & (v >= 0) & (u + v <= 1.0) \
+            & (t > t_lo[idx, None]) & (t < t_hi[idx, None])
+        t_m = torch.where(hit, t, 3.0e38)
+        k = torch.argmin(t_m, dim=1)
+        t_k = torch.gather(t_m, 1, k[:, None])[:, 0].to(torch.float32)
+        found = t_k < 3.0e38
+        u_k = torch.gather(u, 1, k[:, None])[:, 0].to(torch.float32)
+        v_k = torch.gather(v, 1, k[:, None])[:, 0].to(torch.float32)
+        t_out[idx] = t_k
+        tid_out[idx] = torch.where(found, scene.alpha_tri_id[k], -1)
+        u_out[idx] = torch.where(found, u_k, 0.0)
+        v_out[idx] = torch.where(found, v_k, 0.0)
+    return t_out, tid_out, u_out, v_out

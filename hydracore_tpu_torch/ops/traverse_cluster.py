@@ -17,7 +17,8 @@ note in the .cu file gives the design and its bound.
 cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs cluster_traverse_plain, the twin with
 the same contract. It counts kernel launches in closest_launches /
-any_launches (B1/B2) and inst_closest_launches / inst_any_launches (B3).
+any_launches (B1/B2), opaque_any_launches (B2 over the opaque shadow pool
+of an alpha scene) and inst_closest_launches / inst_any_launches (B3).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ closest_launches = 0
 any_launches = 0
 inst_closest_launches = 0
 inst_any_launches = 0
+opaque_any_launches = 0
 
 _lib = None
 
@@ -51,6 +53,7 @@ def reset_launch_counts() -> None:
     this.any_launches = 0
     this.inst_closest_launches = 0
     this.inst_any_launches = 0
+    this.opaque_any_launches = 0
 
 
 # the upper level of the two-level walk, in the order the kernel takes it:
@@ -149,7 +152,8 @@ def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level):
 def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
                      any_hit_mode: bool = False, cl_map=None, inst_woop=None,
                      lvl_bounds=None, lvl_oct_perm=None, lvl_members=None,
-                     lvl_member_bounds=None, lvl_start=None):
+                     lvl_member_bounds=None, lvl_start=None,
+                     opaque_pool: bool = False):
     """rays (G, r_blk, 8) f32 [o d t_lim active] -> (t (G, r_blk) f32,
     slot (G, r_blk) i32). The pool is flat (tris (Cp, 4, 384)), partitioned
     (a leading chunk axis P on tris, cbl_oct and perm; slots come back as
@@ -158,7 +162,12 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
     instance-clusters). CUDA tensors launch kernel B1 / B2, or B3 for an
     instanced pool, which walk the upper level LEVEL_TABLES (a scene's
     fields of those names, scene_pool) and raise without it. CPU tensors run
-    the plain twin, which needs cbl_oct and perm and no level."""
+    the plain twin, which needs cbl_oct and perm and no level.
+    `opaque_pool` says that tris is a scene's opaque shadow pool
+    (cl_tris_shadow: the alpha lanes zeroed, so that t = -0/0 = NaN fails
+    every test; scene_pool(scene, opaque_only=True) sets it with that
+    pool); it changes no arithmetic, only the counter: B2 over that pool
+    counts in opaque_any_launches."""
     if tris is None:
         raise ValueError("tris is required")
     level = dict(lvl_bounds=lvl_bounds, lvl_oct_perm=lvl_oct_perm,
@@ -190,8 +199,8 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
            t.data_ptr(), slot.data_ptr(), G * r_blk, r_blk,
            lvl_members.shape[1], lvl_bounds.shape[1], int(any_hit_mode))
     this = sys.modules[__name__]
-    name = ("inst_" if inst else "") + ("any" if any_hit_mode else "closest") \
-        + "_launches"
+    name = ("inst_" if inst else "opaque_" if opaque_pool else "") \
+        + ("any" if any_hit_mode else "closest") + "_launches"
     setattr(this, name, getattr(this, name) + 1)
     return t, slot
 
@@ -400,19 +409,22 @@ def local_rays(scene, inst, ray_o, ray_d):
     return ro, rd
 
 
-def scene_pool(scene) -> dict:
+def scene_pool(scene, opaque_only: bool = False) -> dict:
     """The pool arguments of cluster_traverse held by `scene`, with the
     upper level of its kernel's two-level walk (cl_map and inst_woop are
-    None but for an instanced pool)."""
-    return dict(cbl_oct=scene.cl_bounds_oct, tris=scene.cl_tris,
+    None but for an instanced pool). With opaque_only the Woop blocks are
+    the opaque shadow pool cl_tris_shadow of an alpha scene: the same
+    clusters with the alpha lanes zeroed, so the boxes and the level of
+    cl_tris still bound every lane that can hit; the dict then also holds
+    opaque_pool=True, so the launches count as B2 over that pool."""
+    pool = dict(cbl_oct=scene.cl_bounds_oct,
+                tris=scene.cl_tris_shadow if opaque_only else scene.cl_tris,
                 perm=scene.cl_oct_perm, cl_map=scene.cl_map,
                 inst_woop=scene.inst_woop,
                 **{k: getattr(scene, k) for k in LEVEL_TABLES})
-
-
-def _traverse_scene(scene, rays, any_hit_mode: bool):
-    return cluster_traverse(rays, any_hit_mode=any_hit_mode,
-                            **scene_pool(scene))
+    if opaque_only:
+        pool["opaque_pool"] = True
+    return pool
 
 
 def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
@@ -425,7 +437,7 @@ def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
     on a miss); compute_hit resolves it to (mesh triangle, instance)."""
     r_blk = R_BLK_BOUNCE if kind == "bounce" else R_BLK
     rays, R = _to_blocks(ray_o, ray_d, t_max, active, r_blk)
-    _, slot = _traverse_scene(scene, rays, any_hit_mode=False)
+    _, slot = cluster_traverse(rays, **scene_pool(scene))
     slot = slot.reshape(-1)[:R].long()
     hit = slot >= 0
     n_slots = scene.cl_slot_tri2.shape[0]
@@ -444,8 +456,11 @@ def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
     return t, tri, torch.where(hit, u, 0.0), torch.where(hit, v, 0.0)
 
 
-def any_hit(scene, ray_o, ray_d, t_max, active=None):
-    """Shadow query: True where some triangle lies in (1e-5, t_max)."""
+def any_hit(scene, ray_o, ray_d, t_max, active=None, opaque_only=False):
+    """Shadow query: True where some triangle lies in (1e-5, t_max). With
+    opaque_only the walk runs over the opaque shadow pool (scene_pool), so
+    alpha surfaces never occlude here."""
     rays, R = _to_blocks(ray_o, ray_d, t_max, active, R_BLK)
-    _, slot = _traverse_scene(scene, rays, any_hit_mode=True)
+    _, slot = cluster_traverse(rays, any_hit_mode=True,
+                               **scene_pool(scene, opaque_only))
     return slot.reshape(-1)[:R] >= 0

@@ -269,7 +269,15 @@ class SceneBuilder:
         env_img = self.env_img if self.env_img is not None else np.ones((8, 16, 4), np.float32)
         env_rows, env_cols, env_pdf = build_env_pdf(env_img)
         if self.env_img is not None:
-            raise NotImplementedError("textures (sky image)")
+            # the env image goes into the heap as the sky light's texture
+            from hydracore_tpu_torch.scene.textures import TextureStorage
+            storage = TextureStorage()
+            slot = storage.add(np.asarray(self.env_img, np.float32))
+            texels, tex_table, tex_sampler = storage.finalize()
+            for r in self.light_recs:
+                if r["ltype"] == LIGHT_SKY:
+                    r["tex"] = slot
+            lights = _stack_lights(self.light_recs)
 
         n0_arr = np.stack(g(3)).astype(np.float32)
         # procedural meshes carry no authored tangents: derive a stable

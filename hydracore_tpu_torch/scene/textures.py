@@ -4,9 +4,7 @@ The port's own copy of the JAX package's scene/textures.py as far as scene
 assembly needs it: every texture's texels live in ONE float32 (X, 4)
 buffer; a small (num_tex, 4) int32 table holds [texel_offset, width,
 height, flags]. With no textures the heap is the single white texel of
-slot 0. The device-side fetch is not ported yet: a scene that binds a
-texture gets its table slots here, finalize_scene sets the has_*_tex gates
-from them, and check_supported refuses the scene by name.
+slot 0. ops/texture.py fetches from it.
 
 Deviations from the reference, by design:
  - LDR textures are linearized (input gamma 2.2) at LOAD time instead of at

@@ -317,8 +317,10 @@ def _desc_with(materials_xml: str, textures: dict):
 
 
 def test_unported_bindings_raise(tmp_path):
-    """A bound procedural texture and a bound image texture are refused by
-    name; neither renders silently untextured."""
+    """A bound procedural texture is refused by name, never rendered
+    silently untextured; a bound image texture (refused before the port
+    carried textures) assembles with its texels in the heap and its gate
+    set, as the JAX package assembles it."""
     proc = psf.TextureDesc(id=1, name="noise", loc=None, offset=0, bytesize=0,
                            proc_name="noise")
     desc = _desc_with(
@@ -337,5 +339,5 @@ def test_unported_bindings_raise(tmp_path):
         '<color val="1 1 1"/><texture id="1" type="texref"/></diffuse>'
         '</material>', {1: tex})
     desc.lib_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="textures"):
-        pscene.assemble(desc)
+    sc = pscene.assemble(desc)
+    assert sc.settings.has_diff_tex and sc.texels.shape[0] == 1 + 4

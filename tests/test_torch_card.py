@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: kernels B1/B2 (flat and
-partitioned pools, a two-level walk over groups of clusters), B3
+partitioned pools, a two-level walk over groups of clusters; B2 also over
+the opaque shadow pool of an alpha scene), B3
 (instanced pools) and B4 (warp packets over the
 8-wide BVH) against their plain twins, the path tracer on the card
 against the CPU twins, by the cluster and by the packet route, and the
@@ -18,6 +19,7 @@ agree with the CPU twins' image within 1e-3 on >= 99% of pixels. The lab
 kernels round every operation as their plain versions do (separate
 multiplies and adds, IEEE division), so their outputs must be equal.
 """
+import dataclasses
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -29,7 +31,8 @@ from hydracore_tpu_torch.ops import traverse_cluster as tc
 from hydracore_tpu_torch.ops import traverse_packet as tp
 from hydracore_tpu_torch.scene import statefile as sf
 from hydracore_tpu_torch.scene.procedural import SceneBuilder
-from hydracore_tpu_torch.scene.scene import assemble
+from hydracore_tpu_torch.scene.scene import assemble, finalize_scene
+from hydracore_tpu_torch.scene.textures import TextureStorage
 from hydracore_tpu_torch.scene.vsgf import MeshData
 from hydracore_tpu_torch.tools import bench_pallas_gather as t7
 from hydracore_tpu_torch.tools import exp_kernel_cost as t1
@@ -680,3 +683,93 @@ def test_lab_packet_walk_kernel_matches_plain(cuda, tool):
     assert 0 < int(out_k[4].min()) and int(out_k[4].max()) < tool.MAX_VISITS
     for k, p in zip(out_k, out_p):
         assert torch.equal(k, p)
+
+
+def _alpha_scene(size: int = 32, part_cap: int = 1024,
+                 traversal: str = "cluster"):
+    """40 opacity-mapped quads (a checker of opacities 0, 0.35, 0.7, 1)
+    over a floor beside an opaque sphere, under a point and a rect light:
+    8,148 triangles in a flat pool, or with part_cap=128 a finer sphere,
+    79,684 triangles in 8 chunks of 128 clusters."""
+    st = TextureStorage()
+    ys, xs = np.mgrid[0:8, 0:8]
+    op = np.ones((8, 8, 4), np.float32)
+    op[..., 0] = np.array([0.0, 0.35, 0.7, 1.0])[(xs // 2 + ys // 2) % 4]
+    slot = st.add(op)
+    b = SceneBuilder()
+    floor = b.lambert([0.8, 0.8, 0.8])
+    b.add_rect([0, 0, 0], [3, 0, 0], [0, 0, 3], floor, flip=True)
+    soft = b.add_material(diff_color=np.array([0.7, 0.3, 0.2], np.float32),
+                          opacity_tex=slot)
+    rng = np.random.default_rng(4)
+    for _ in range(40):
+        b.add_rect(rng.uniform([-2, 0.3, -2], [2, 2, 2]),
+                   rng.uniform(-0.4, 0.4, 3), rng.uniform(-0.4, 0.4, 3), soft)
+    n = 200 if part_cap == 128 else 64
+    b.add_sphere([1.2, 0.7, -1.0], 0.5, floor, n_seg=n, n_ring=n)
+    b.point_light([0.2, 2.5, 0.1], [14.0] * 3)
+    b.rect_light([-0.8, 2.6, 0.8], 0.4, 0.4, [8.0] * 3)
+    sc = b.build(cam_pos=[0, 3.5, 3.5], cam_lookat=[0, 0, 0], width=size,
+                 height=size, trace_depth=4, part_cap=part_cap,
+                 traversal=traversal)
+    texels, table, samplers = st.finalize()
+    return finalize_scene(dataclasses.replace(
+        sc, texels=texels, tex_table=table, tex_sampler=samplers))
+
+
+@pytest.mark.parametrize("pool_kind", ["flat", "chunked"])
+def test_opaque_pool_b2_matches_twin(cuda, pool_kind):
+    """B2 over the opaque shadow pool (cl_tris_shadow, the alpha lanes
+    zeroed): occlusion equal to the twin's, counted in opaque_any_launches;
+    rays stopped just past an alpha triangle hit the full pool and never
+    the opaque one (t = -0/0 = NaN fails every test)."""
+    sc = _alpha_scene(part_cap=128 if pool_kind == "chunked" else 1024)
+    assert (sc.cl_tris_shadow.dim() == 4) == (pool_kind == "chunked")
+    sc = sc.to(cuda)
+    opaque = tc.scene_pool(sc, opaque_only=True)
+    assert opaque["opaque_pool"]
+    twin = {k: v for k, v in opaque.items()
+            if k not in tc.LEVEL_TABLES and k != "opaque_pool"}
+    blocks, R = _random_blocks(cuda, -2.5, 2.5, tc.R_BLK, 2.0)
+    before = (tc.any_launches, tc.opaque_any_launches)
+    _, s_k = tc.cluster_traverse(blocks, any_hit_mode=True, **opaque)
+    assert (tc.any_launches, tc.opaque_any_launches) == (before[0],
+                                                         before[1] + 1)
+    _, s_t = tc.cluster_traverse_plain(blocks, any_hit_mode=True, **twin)
+    _, s_f = tc.cluster_traverse(blocks, any_hit_mode=True, **tc.scene_pool(sc))
+    torch.cuda.synchronize()
+    assert torch.equal(s_k >= 0, s_t >= 0)
+    assert ((s_f >= 0) & (s_k < 0)).any() and (s_k >= 0).any()
+    tri = sc.alpha_tri9f[:, sc.alpha_tri_id >= 0]
+    v0, e1, e2 = tri[0:3].T, tri[3:6].T, tri[6:9].T
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    c = v0 + (e1 + e2) / 3.0
+    leaf, n_leaf = tc._to_blocks(c + 0.01 * nrm, -nrm, 0.011, None, tc.R_BLK)
+    hits = [tc.cluster_traverse(leaf, any_hit_mode=True, **p)[1]
+            .reshape(-1)[:n_leaf] >= 0 for p in (tc.scene_pool(sc), opaque)]
+    zero_twin = tc.cluster_traverse_plain(leaf, any_hit_mode=True, **twin)[1]
+    assert hits[0].all() and not hits[1].any()
+    assert not (zero_twin.reshape(-1)[:n_leaf] >= 0).any()
+
+
+@pytest.mark.parametrize("traversal", ["cluster", "packet"])
+def test_alpha_render_on_card_matches_cpu_twins(cuda, traversal):
+    """An alpha scene on the card against the CPU twins: on the cluster
+    route its shadow rays take B2 over the opaque pool (the split walk), on
+    the packet route the layered walk through B4 closest hit."""
+    sc = _alpha_scene(traversal=traversal)
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    img_card = pt.render(sc, spp=4, seed=777, device=cuda).cpu()
+    if traversal == "cluster":
+        assert tc.closest_launches > 0 and tc.opaque_any_launches > 0
+        assert tc.any_launches == 0
+    else:
+        assert tp.closest_launches > 0 and tp.any_launches == 0
+        assert tc.closest_launches == 0 and tc.opaque_any_launches == 0
+    img_cpu = pt.render(sc, spp=4, seed=777, device="cpu")
+    assert torch.isfinite(img_card).all() and float(img_card.mean()) > 0.01
+    agree = float(((img_card - img_cpu).abs().amax(dim=-1) <= 1e-3)
+                  .float().mean())
+    assert agree >= 0.99, agree

@@ -5,7 +5,8 @@ The five procedural golden recipes (tests/golden_scenes.py) and the
 keeps must be bit-exact (tolerance 0), and the static settings equal.
 The binary BVH, its 8-wide collapse and the packet kernel's rows are among
 those leaves. scene_from_arrays of a JAX scene must round-trip bit-exact.
-Features the port does not carry yet raise NotImplementedError.
+Features the port does not carry yet raise NotImplementedError; textured
+ones build.
 """
 import dataclasses
 
@@ -105,7 +106,7 @@ def test_scene_from_arrays_round_trip():
     assert str(ps.tri_attr.device) == "cpu"
 
 
-def _unsupported_sky_image():
+def _sky_image():
     b = PortBuilder()
     b.lambert([0.5, 0.5, 0.5])
     b.sky([1.0, 1.0, 1.0], img=np.ones((4, 8, 4), np.float32))
@@ -113,9 +114,8 @@ def _unsupported_sky_image():
 
 
 @pytest.mark.parametrize("feature,make", [
-    ("textures (sky image)", _unsupported_sky_image),
-    ("alpha", lambda: _with_material(opacity_tex=1)),
-    ("blend", lambda: _with_material(blend_node=0)),
+    ("procedural textures", lambda: _with_material(diff_proc=0)),
+    ("procedural-texture AO", lambda: _with_material(ao_type=1)),
     ("subsurface", lambda: _with_material(sss_transmission=0.5)),
     ("fog", lambda: _with_material(fog_mult=1.0)),
 ])
@@ -124,6 +124,20 @@ def test_unported_features_raise(feature, make):
     b.add_rect([0, 0, 0], [1, 0, 0], [0, 0, 1], 0)
     with pytest.raises(NotImplementedError, match=feature.split()[0]):
         b.build(cam_pos=[0, 3, 3], cam_lookat=[0, 0, 0], width=8, height=8)
+
+
+@pytest.mark.parametrize("gate,make", [
+    ("has_sky", _sky_image),
+    ("has_alpha", lambda: _with_material(opacity_tex=1)),
+    ("has_blend", lambda: _with_material(blend_node=0)),
+])
+def test_textured_features_build(gate, make):
+    """A sky image, an opacity map and a blend build (they raised before
+    the port carried textures), with their static gate set."""
+    b = make()
+    b.add_rect([0, 0, 0], [1, 0, 0], [0, 0, 1], 0)
+    sc = b.build(cam_pos=[0, 3, 3], cam_lookat=[0, 0, 0], width=8, height=8)
+    assert getattr(sc.settings, gate)
 
 
 def _with_material(**kw):
