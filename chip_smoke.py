@@ -4,9 +4,9 @@
 
 Builds the port's native code from the checkout (csrc/ -> the git-ignored
 hydracore_tpu_torch/_build/, the compilers started together), then drives
-four main paths of the MIS+NEE path tracer, and a textured fifth (phase
-14), render_passes at 1024x1024, depth 5, seed 777, each through its
-kernels:
+four main paths of the MIS+NEE path tracer, a textured fifth (phase 14)
+and a sixth through the last gates of the path tracer (phase 15),
+render_passes at 1024x1024, depth 5, seed 777, each through its kernels:
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit), a
                two-level walk over groups of clusters (the positions and
@@ -74,7 +74,20 @@ alpha triangles hitting the full pool and never the opaque one; the dense
 alpha layer timed; the main path (the opaque-pool counter > 0, B2 over the
 full pool 0) flat and chunked, a profile; 64x64 card images against the CPU
 twins on the cluster and the packet route. The 64x64 checks of phases 4,
-6, 9 and 11 run at depth CHECK_DEPTH, phase 14's at the scene's depth.
+6, 9 and 11 run at depth CHECK_DEPTH, phase 14's and 15's at the scene's
+depth.
+Phase 15 is the path tracer's last gates: a SceneDesc of bench_builder's
+geometry at full size (gates_desc) through assemble, whose large sphere is
+an SSS medium, whose glass sphere holds Beer fog, whose floor is an
+ao_dirt procedural texture fed by AO probes, back wall falloff and left
+wall hexaplanar over three texture files; B1 against its twin on the
+primary wavefront and a first bounce with rays inside the medium, B2
+against its twin on the AO-probe wavefront of the last 2^18-ray band (4 x
+2^18 rays, built by the path tracer's own ao_rays; occlusion equal), the main
+path (B1, B2 and B2 on AO probes, ao_any_launches, > 0) and a profile,
+the direct and indirect layers at 1024^2, one pass each, summing to the
+color pass within 1e-4, and 64x64 card images against the CPU twins on the
+cluster and the packet route.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -82,6 +95,7 @@ limit; before that a "kernels" JSON line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -109,6 +123,8 @@ N_INSTANCES = 24
 # Russian roulette starts at depth 3, so these images do not reach it;
 # phase 14's, on the cluster and packet routes, stay at DEPTH and do
 CHECK_DEPTH = 3
+# length of the AO probes of phase 15's floor (a quarter of the box)
+AO_LENGTH = 1.0
 # operations the traversal needs: a ray-box slab test (6 mul-sub pairs,
 # 10 min/max, 2 compares), one lane's Woop test (the w row dot products,
 # the divide and the t range test; u, v only for the rare candidates), and
@@ -265,14 +281,17 @@ def profile_pass(pt, scene, card: str, tag: str) -> None:
 def wavefronts(pt, scene, sort: bool = True, light_row: int = 0):
     """The main path's three kinds of wavefront on `scene`, 2^18 rays each:
     every 4th primary ray of the frame in Morton order (spread over the
-    whole image), cosine-sampled bounce rays off their hit points and
-    shadow rays to uniform points on the rect light (light row
-    `light_row`). With
+    whole image), cosine-sampled bounce rays off their hit points (about
+    the viewer-facing normal, or on an SSS material about its reverse, so
+    those rays start inside the medium as the path tracer's do once they
+    cross the boundary) and shadow rays to uniform points on the rect light
+    (light row `light_row`). With
     `sort` the last two come in coherence order, as the path tracer sends
     them to the cluster kernels; without, in the primaries' order with the
     dead rays in place, as it sends them to every other route. Returns
     [(name, origins, directions, t_max, active, any_hit_mode)]."""
     from hydracore_tpu_torch.ops.trace_api import closest_hit, coherence_order
+    from hydracore_tpu_torch.scene import materials as MC
     from hydracore_tpu_torch.utils.math3d import (make_orthonormal_basis,
                                                   offs_ray_pos)
 
@@ -281,11 +300,13 @@ def wavefronts(pt, scene, sort: bool = True, light_row: int = 0):
     ray_o, ray_d = ray_o[::4].contiguous(), ray_d[::4].contiguous()
     t, tri, u, v = closest_hit(scene, ray_o, ray_d)
     hit = tri >= 0
-    pos, n, ng, _, _, _, _ = pt.compute_hit(scene, tri, u, v, ray_o, ray_d, t)
+    pos, n, ng, _, mat, _, _ = pt.compute_hit(scene, tri, u, v, ray_o, ray_d, t)
+    inside = hit & (scene.mat_attr[mat.long(), MC.MA_SSS_TRANSMISSION] > 0)
     g = torch.Generator(device="cpu").manual_seed(SEED)
     rnd = torch.rand((ray_o.shape[0], 4), generator=g).to(dev)
     ns = torch.where((n * ray_d).sum(-1, keepdim=True) < 0, n, -n)
     ngs = torch.where((ng * ray_d).sum(-1, keepdim=True) < 0, ng, -ng)
+    ns = torch.where(inside[:, None], -ns, ns)  # into an SSS medium
     tb, bb = make_orthonormal_basis(ns)
     ct = rnd[:, 0].sqrt()
     st = (1 - rnd[:, 0]).sqrt()
@@ -321,7 +342,7 @@ def cluster_cases(tc, raw):
 def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
     """Hold the kernel against its twin on every wavefront of `cases`
     (equal hit masks, slots equal >= 0.999, t rel err <= 1e-5, occlusion
-    agreement >= 0.9999), optionally against the flat-pool kernel on
+    equal), optionally against the flat-pool kernel on
     `flat_scene` (the same clusters re-packed flat: equal hit masks, t and
     triangle equal >= 0.999), and time kernel and twin. Returns
     {"closest": [...], "any": [...]} of (name, ms, plain_ms, bound_ms,
@@ -342,7 +363,7 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
             err = float((hk.float() - ht.float()).abs().max())
             log(f"{tag} {name}: {n_rays} rays, occluded {int(hk.sum())}, "
                 f"occlusion agrees with the twin on {agree:.6f}")
-            if agree < 0.9999:
+            if not torch.equal(hk, ht):
                 raise AssertionError(f"{tag} {name}: occlusion agrees on {agree}")
         else:
             if not torch.equal(hk, ht):
@@ -431,15 +452,15 @@ def group_sizes(tag, tc, scene, cases, card, sizes=(8, 16, 32)) -> None:
             f"[{card}]")
 
 
-COUNTERS = ("closest_launches", "any_launches", "opaque_any_launches",
-            "inst_closest_launches", "inst_any_launches",
-            "pkt_closest_launches", "pkt_any_launches")
+TC_COUNTERS = ("closest_launches", "any_launches", "opaque_any_launches",
+               "ao_any_launches", "inst_closest_launches", "inst_any_launches")
+COUNTERS = TC_COUNTERS + ("pkt_closest_launches", "pkt_any_launches")
 
 
 def launch_counts(tc, tp) -> dict:
     """Every wrapper's launch count: B1, B2, B2 over the opaque shadow pool,
-    B3 (closest, any), B4 (closest, any)."""
-    out = {k: getattr(tc, k) for k in COUNTERS[:5]}
+    B2 on the AO probes, B3 (closest, any), B4 (closest, any)."""
+    out = {k: getattr(tc, k) for k in TC_COUNTERS}
     out.update(pkt_closest_launches=tp.closest_launches,
                pkt_any_launches=tp.any_launches)
     return out
@@ -1243,7 +1264,7 @@ def textured_phase(card, pt, tc, tp, trace_api, dev) -> list:
         pkt = launch_counts(tc, tp)
         log(f"phase 14 packet 64x64: launches {pkt}")
         if (pkt["pkt_closest_launches"] == 0 or pkt["pkt_any_launches"] != 0
-                or any(pkt[k] for k in COUNTERS[:5])):
+                or any(pkt[k] for k in TC_COUNTERS)):
             raise AssertionError("phase 14 packet: the layered walk did not run "
                                  f"through B4 closest hit alone: {pkt}")
     finally:
@@ -1263,6 +1284,221 @@ def textured_phase(card, pt, tc, tp, trace_api, dev) -> list:
             "plain_ms": rec[2], "bound_ms": rec[3], "bound_by": rec[4],
             "library_ms": None})
     return rows
+
+
+def gates_desc(lib_dir: str, width: int, height: int):
+    """A SceneDesc of bench_builder's geometry at full size whose materials
+    take the path tracer's last gates: the 25,280-triangle sphere an SSS
+    medium (<sss>: density, RGB absorption, scattering, phase 0.3,
+    transmission 0.8), the 960-triangle glass sphere Beer fog (fog_color,
+    fog_multiplier), the floor an ao_dirt procedural texture with an 'up'
+    AO hemisphere of AO_LENGTH, the back wall falloff, the left wall
+    hexaplanar over three 256^2 texture files written to lib_dir; the rect
+    light of the golden box."""
+    from hydracore_tpu_torch.scene import statefile as sf
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+    from hydracore_tpu_torch.scene.vsgf import make_rect_mesh
+
+    rng = np.random.default_rng(SEED + 15)
+    textures = {}
+    for tid in (1, 2, 3):
+        y, x = np.mgrid[0:256, 0:256].astype(np.float32) / 256.0
+        img = np.ones((256, 256, 4), np.float32)
+        img[..., :3] = 0.3 + 0.5 * np.stack(
+            [np.sin((tid + 3) * x), np.cos((tid + 5) * y),
+             rng.random((256, 256))], -1) ** 2
+        name = f"tri{tid}.image4ub"
+        size = _write_image(os.path.join(lib_dir, name), img)
+        textures[tid] = sf.TextureDesc(id=tid, name=name, loc=name, offset=0,
+                                       bytesize=size)
+    textures[4] = sf.TextureDesc(id=4, name="ao_dirt", loc=None, offset=0,
+                                 bytesize=0, proc_name="ao_dirt", ao_type=1,
+                                 ao_length=AO_LENGTH)
+    textures[5] = sf.TextureDesc(id=5, name="falloff", loc=None, offset=0,
+                                 bytesize=0, proc_name="falloff")
+    textures[6] = sf.TextureDesc(id=6, name="hexaplanar", loc=None, offset=0,
+                                 bytesize=0, proc_name="hexaplanar")
+
+    def proc(tid, args):
+        a = "".join(f'<arg type="{t}" val="{v}"/>' for t, v in args)
+        return f'<texture id="{tid}" type="texref_proc">{a}</texture>'
+
+    def diffuse(rgb, tex=""):
+        return f'<diffuse brdf_type="lambert"><color val="{rgb}"/>{tex}</diffuse>'
+
+    mats = {
+        0: diffuse("1 1 1", proc(4, [("float3", "0.05 0.04 0.03"),
+                                     ("float3", "0.8 0.78 0.75")])),
+        1: diffuse("0.65 0.65 0.65"),
+        2: diffuse("1 1 1", proc(5, [("float3", "0.9 0.3 0.15"),
+                                     ("float3", "0.15 0.3 0.9")])),
+        3: diffuse("1 1 1", proc(6, [("sampler2D", "1"), ("sampler2D", "2"),
+                                     ("sampler2D", "3"), ("sampler2D", "3"),
+                                     ("sampler2D", "2"), ("sampler2D", "1"),
+                                     ("float", "4"), ("float", "0.7")])),
+        4: diffuse("0.12 0.55 0.18"),
+        5: diffuse("0.3 0.2 0.15") + '<sss><density val="1.2"/><absorption '
+           'val="0.5 0.15 0.05"/><scattering val="3"/><phase val="0.3"/>'
+           '<transmission val="0.8"/></sss>',
+        6: '<transparency><color val="1 1 1"/><glossiness val="1"/><ior '
+           'val="1.5"/><fog_color val="0.9 0.5 0.3"/><fog_multiplier '
+           'val="1.5"/></transparency>',
+    }
+    materials = {k: ET.fromstring(f'<material id="{k}" type="hydra_material">'
+                                  f'{v}</material>') for k, v in mats.items()}
+    materials[7] = ET.fromstring(
+        '<material id="7" type="hydra_material" light_id="0"><emission>'
+        '<color val="12 12 12"/><multiplier val="1"/></emission></material>')
+    light = ET.fromstring(
+        '<light id="0" type="area" shape="rect" distribution="diffuse" '
+        'mat_id="7"><size half_length="0.5" half_width="0.5"/><intensity>'
+        '<color val="12 12 12"/><multiplier val="1"/></intensity></light>')
+    walls = SceneBuilder()
+    walls.add_box_interior(2.0, 0, 1, 2, 3, 4)
+    skin = SceneBuilder()
+    skin.add_sphere([-0.6, -1.1, -0.4], 0.9, 5, n_seg=160, n_ring=80)
+    glass = SceneBuilder()
+    glass.add_sphere([0.9, -1.5, 0.7], 0.5, 6)
+    m_light = np.eye(4, dtype=np.float32)
+    m_light[1, 3] = 1.95
+    eye = np.eye(4, dtype=np.float32)
+    instances = [sf.InstanceDesc(mesh_id=k, matrix=eye) for k in range(3)]
+    instances.append(sf.InstanceDesc(mesh_id=3, matrix=m_light, light_id=0,
+                                     linst_id=0))
+    cam = sf.CameraDesc()
+    cam.position = np.array([0, 0, 5.6], np.float32)
+    cam.look_at = np.zeros(3, np.float32)
+    return sf.SceneDesc(
+        lib_dir=lib_dir, textures=textures, materials=materials,
+        lights={0: light}, camera=cam,
+        settings=sf.RenderSettings(width=width, height=height,
+                                   trace_depth=DEPTH),
+        meshes={0: mesh_of(walls), 1: mesh_of(skin), 2: mesh_of(glass),
+                3: make_rect_mesh(0.5, 0.5, 7)},
+        mesh_light_id={}, instances=instances,
+        light_instances=[sf.LightInstanceDesc(light_id=0, matrix=m_light)])
+
+
+def ao_wavefront(pt, tc, trace_api, scene):
+    """The AO probes of the last band's primary hits (2^18 rays, the bottom
+    right quarter of the frame in Morton order, where the floor is; so
+    AO_PROBES * 2^18 probe rays), built by pt.ao_rays from the rows of the
+    hit materials and the path tracer's own DG_AO uniforms at depth 0,
+    sorted and packed as trace_api.ao_any_hit packs them. Returns (blocks,
+    active probe rays)."""
+    from hydracore_tpu_torch.scene import materials as MC
+
+    R = scene.camera.width * scene.camera.height
+    band = (max(R - pt.MEGABLOCK, 0), R)
+    ray_o, ray_d, sidx, _ = pt.primary_rays(scene, [0], SEED, band)
+    t, tri, u, v = trace_api.closest_hit(scene, ray_o, ray_d)
+    pos, n, ng, _, mat, _, _ = pt.compute_hit(scene, tri, u, v, ray_o, ray_d, t)
+    row = scene.mat_attr[mat.long()]
+    ao_t = row[:, MC.MA_AO_TYPE].to(torch.int32)
+    need = (tri >= 0) & (ao_t > 0)
+    o, d, t_max, act = pt.ao_rays(pos, n, ng, ao_t, row[:, MC.MA_AO_LENGTH],
+                                  need, pt.rng.rand4(sidx, 0, pt.DG_AO, SEED))
+    perm = trace_api.coherence_order(scene, o, d, act)
+    blocks, _ = tc._to_blocks(o[perm], d[perm], t_max[perm], act[perm],
+                              tc.R_BLK)
+    return blocks, int(act.sum())
+
+
+def gates_phase(card, pt, tc, tp, trace_api, dev) -> list:
+    """Phase 15: the scene of gates_desc through assemble (its texture
+    files written under hydracore_tpu_torch/_build/ and removed after,
+    its procedural textures registered and the registry cleared after):
+    B1 against its twin on the primary wavefront and a first bounce with
+    rays inside the SSS medium, B2 against its twin on the AO-probe
+    wavefront of the last band (occlusion equal), the main path at 1024^2
+    (B1, B2 and B2 on AO probes > 0) and a profile, the direct and indirect
+    layers at 1024^2, one pass each, summing to the color pass within
+    1e-4, and 64x64 card images against the CPU twins on the cluster and
+    the packet route at depth DEPTH. Returns the two "kernels" rows: B1 on
+    the gates scene (its bounce rays off the SSS sphere start inside it,
+    wavefronts), B2 on the AO probes."""
+    from hydracore_tpu_torch.ops import proctex
+    from hydracore_tpu_torch.scene.scene import assemble
+    from hydracore_tpu_torch.utils.build import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = tempfile.mkdtemp(prefix="gates_", dir=BUILD_DIR)
+    proctex.clear_registry()
+    try:
+        t0 = time.time()
+        desc = gates_desc(lib, WIDTH, HEIGHT)
+        host = assemble(desc)
+        st = host.settings
+        gates = ("has_sss", "has_fog", "has_proc_tex", "has_proc_ao")
+        if not all(getattr(st, g) for g in gates):
+            raise AssertionError(f"phase 15: gates {[getattr(st, g) for g in gates]}")
+        if trace_api._pick(host) is not tc:
+            raise AssertionError("phase 15: the scene does not take the cluster "
+                                 "route")
+        log(f"phase 15 gates scene: {host.num_triangles} triangles, "
+            f"{real_boxes(host).shape[1]} clusters (Cp {host.cl_tris.shape[0]}), "
+            f"{proctex.num_proc_tex()} procedural textures registered, "
+            f"assembled in {time.time() - t0:.2f} s")
+        scene = host.to(dev)
+        b1 = check_kernels("phase 15 gates", tc, scene,
+                           cluster_cases(tc, wavefronts(pt, scene))[:2], card)
+        blocks, n_ao = ao_wavefront(pt, tc, trace_api, scene)
+        log(f"phase 15 gates AO probes: {n_ao} of "
+            f"{blocks.shape[0] * blocks.shape[1]} probe rays active")
+        if n_ao < blocks.shape[0] * blocks.shape[1] // 64:
+            raise AssertionError(f"phase 15: {n_ao} active AO probe rays")
+        ao = check_kernels("phase 15 gates", tc, scene,
+                           [("AO probes", blocks, True)], card)["any"][0]
+        del blocks
+        log(f"phase 15 assembly and kernel checks: {time.time() - t0:.2f} s")
+
+        t0 = time.time()
+        counts = drive_main_path("phase 15 gates", pt, tc, tp, scene, card,
+                                 {"closest_launches", "any_launches",
+                                  "ao_any_launches"})
+        profile_pass(pt, scene, card, "phase 15 gates")
+        layers = {}
+        for layer in ("color", "direct", "indirect"):
+            s = dataclasses.replace(scene, settings=dataclasses.replace(
+                scene.settings, render_layer=layer))
+            tl = time.time()
+            layers[layer], _ = pt.render_passes(s, 0, SEED, n_pass=1,
+                                                max_depth=DEPTH, device=dev)
+            torch.cuda.synchronize()
+            log(f"phase 15 gates layer {layer}: one pass in "
+                f"{time.time() - tl:.3f} s, mean {float(layers[layer].mean()):.5f}")
+        err = float((layers["direct"] + layers["indirect"]
+                     - layers["color"]).abs().max())
+        share = float(layers["direct"].sum() / layers["color"].sum())
+        log(f"phase 15 gates layers: |direct + indirect - color| <= {err:.3e} "
+            f"at {WIDTH}x{HEIGHT} (direct {share:.4f} of the color image's "
+            "energy)")
+        if not err <= 1e-4:
+            raise AssertionError(f"phase 15: layers sum to color within {err}")
+        if not 0.01 < share < 0.99:
+            raise AssertionError(f"phase 15: a layer is empty ({share})")
+        del scene, layers
+        log(f"phase 15 main path and layers: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        card_vs_cpu("phase 15 cluster", pt, assemble(desc, 64, 64), spp=4)
+        tc.reset_launch_counts()
+        tp.reset_launch_counts()
+        card_vs_cpu("phase 15 packet", pt,
+                    assemble(desc, 64, 64, traversal="packet"), spp=4)
+        pkt = launch_counts(tc, tp)
+        log(f"phase 15 packet 64x64: launches {pkt}")
+        if (pkt["pkt_closest_launches"] == 0 or pkt["pkt_any_launches"] == 0
+                or any(pkt[k] for k in TC_COUNTERS)):
+            raise AssertionError(f"phase 15 packet: launches {pkt}")
+        log(f"phase 15 64x64 images: {time.time() - t0:.2f} s")
+    finally:
+        shutil.rmtree(lib, ignore_errors=True)
+        proctex.clear_registry()
+    return kernel_rows(
+        ("B1 cluster traversal", "B2 cluster traversal on AO probes"),
+        "gates scene", CLUSTER_CU, "hydracore_tpu/ops/traverse_cluster.py:576",
+        {"closest": b1["closest"], "any": [ao]},
+        (counts["closest_launches"], counts["ao_any_launches"]))
 
 
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
@@ -1895,6 +2131,12 @@ def main() -> int:
     t0 = time.time()
     opaque_rows = textured_phase(card, pt, tc, tp, trace_api, dev)
     log(f"phase 14 textured: {time.time() - t0:.2f} s")
+
+    # ---- phase 15: the last gates of the path tracer (SSS, fog, procedural
+    # textures with AO probes through B2, render layers)
+    t0 = time.time()
+    gates_rows = gates_phase(card, pt, tc, tp, trace_api, dev)
+    log(f"phase 15 gates: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -1917,7 +2159,7 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + opaque_rows + lab_rows + trav_rows)
+            + opaque_rows + gates_rows + lab_rows + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ A material is one packed row per ray (scene.mat_attr) with the meta rows
 of its textures baked in: the fetch reads the texture channels the
 scene's static gates allow (ops/texture.py), lerps or walks blend trees,
 and bends the shading normal by a normal map (apply_bump). Procedural
-textures, SSS and fog raise at scene build (scene.check_supported).
+textures (ops/proctex.py) modulate the diffuse colour; an SSS boundary
+folds into the diffuse and translucency lobes; SSS and Beer-fog glass hand
+their medium parameters to the path tracer.
 
 Conventions:
   wo — unit vector from surface TOWARD the viewer (= -ray_dir)
@@ -60,6 +62,18 @@ class MatParams(NamedTuple):
     refl_aniso: torch.Tensor  # (R,)
     refl_aniso_rot: torch.Tensor  # (R,)
     skip_shadow: torch.Tensor  # (R,) shadow-catcher opacity flag
+    # subsurface scattering (SSSMaterial semantics,
+    # PlainMaterialConverter.cpp:716 / CPUExp_IntegratorSSS.cpp), filled
+    # only under settings.has_sss
+    sss_density: torch.Tensor = None  # (R,)
+    sss_absorption: torch.Tensor = None  # (R,3)
+    sss_scattering: torch.Tensor = None  # (R,)
+    sss_phase: torch.Tensor = None  # (R,)
+    sss_transmission: torch.Tensor = None  # (R,)
+    # thick-glass Beer fog (attenuationStep, cmaterial.h:2787-2827), filled
+    # only under settings.has_fog
+    fog_color: torch.Tensor = None  # (R,3)
+    fog_mult: torch.Tensor = None  # (R,)
     # the baked normal-map meta row (materials.MA_META_BUMP), bitcast ints
     # inside, and the map's rgb fetched with the other channels: a blend
     # switches both, never lerps them
@@ -103,11 +117,17 @@ def _mat_rows(scene, mat_id):
     return scene.mat_attr[torch.clamp(mat_id.long(), 0, n - 1)]
 
 
-def _fetch_leaf(scene, mat_id, uv) -> MatParams:
+def _fetch_leaf(scene, mat_id, uv, pos=None, normal=None, wo=None,
+                ao=None) -> MatParams:
     """One packed material row per ray (scene.mat_attr) and the texture
     channels the scene's static gates allow (emission, diffuse,
     reflection, opacity, translucency, normal map), each fetched through
-    the meta row baked into the material row, all in one stacked fetch."""
+    the meta row baked into the material row, all in one stacked fetch.
+    With `pos` a registered procedural texture (settings.has_proc_tex)
+    modulates the diffuse colour, fed the hit's normal, wo and AO input
+    `ao`; an SSS material's boundary (settings.has_sss) becomes the lobes
+    kd (1 - T) diffuse and (1 - kd) T translucency."""
+    from hydracore_tpu_torch.ops.proctex import eval_proc_tex, num_proc_tex
     from hydracore_tpu_torch.ops.texture import tex_fetch_rows_batch
 
     st = scene.settings
@@ -145,10 +165,33 @@ def _fetch_leaf(scene, mat_id, uv) -> MatParams:
         # an untextured channel launches nothing
         return col3(c) * fetched[name][:, :3] if name in fetched else col3(c)
 
+    dc = textured(MC.MA_DIFF, "diff")
+    if pos is not None and num_proc_tex() > 0 and _gate(st, "has_proc_tex"):
+        proc = coli(MC.MA_DIFF_PROC)
+        nn = normal if normal is not None else torch.zeros_like(pos)
+        pargs = m[:, MC.MA_PROC_ARGS:MC.MA_PROC_ARGS + 8]
+        dc = dc * torch.where((proc >= 0)[:, None],
+                              eval_proc_tex(proc, uv, pos, nn, wo=wo,
+                                            args=pargs, scene=scene, ao=ao),
+                              1.0)
+    tl = textured(MC.MA_TRANSL, "transl")
+    sss_on = _gate(st, "has_sss")
+    fog_on = _gate(st, "has_fog")
+    if sss_on:
+        # the SSS boundary event as effective lobes (the reference's branch
+        # probabilities, CPUExp_IntegratorSSS.cpp:69-97: transmit with
+        # probability T and colour 1 - kd, else reflect diffusely with kd):
+        # sampling, NEE and the MIS pdfs stay consistent
+        T = col(MC.MA_SSS_TRANSMISSION)
+        is_sss = (T > 0.0)[:, None]
+        kd = dc
+        dc = torch.where(is_sss, kd * (1.0 - T)[:, None], dc)
+        tl = torch.where(is_sss, torch.clamp(1.0 - kd, 0.0, 1.0) * T[:, None],
+                         tl)
     tg = col(MC.MA_TRANSP_GLOSS)
     return MatParams(
         em_color=textured(MC.MA_EM, "em"),
-        diff_color=textured(MC.MA_DIFF, "diff"),
+        diff_color=dc,
         diff_rough=col(MC.MA_DIFF_ROUGH),
         refl_color=textured(MC.MA_REFL, "refl"),
         refl_cospow=col(MC.MA_REFL_COSPOW),
@@ -163,12 +206,19 @@ def _fetch_leaf(scene, mat_id, uv) -> MatParams:
                  else torch.ones_like(tg)),
         light_id=coli(MC.MA_LIGHT_ID),
         bump_tex=coli(MC.MA_BUMP_TEX),
-        transl_color=textured(MC.MA_TRANSL, "transl"),
+        transl_color=tl,
         transp_alpha=torch.where(tg < 0.999, torch.clamp(1.0 - tg, min=1e-3),
                                  0.0),
         refl_aniso=col(MC.MA_REFL_ANISO),
         refl_aniso_rot=col(MC.MA_REFL_ANISO_ROT),
         skip_shadow=coli(MC.MA_SKIP_SHADOW),
+        sss_density=col(MC.MA_SSS_DENSITY) if sss_on else None,
+        sss_absorption=col3(MC.MA_SSS_ABSORPTION) if sss_on else None,
+        sss_scattering=col(MC.MA_SSS_SCATTERING) if sss_on else None,
+        sss_phase=col(MC.MA_SSS_PHASE) if sss_on else None,
+        sss_transmission=col(MC.MA_SSS_TRANSMISSION) if sss_on else None,
+        fog_color=col3(MC.MA_FOG_COLOR) if fog_on else None,
+        fog_mult=col(MC.MA_FOG_MULT) if fog_on else None,
         bump_meta=(m[:, MC.MA_META_BUMP:MC.MA_META_BUMP + 12]
                    if _gate(st, "has_bump") else None),
         bump_rgb=fetched["bump"][:, :3] if "bump" in fetched else None,
@@ -231,7 +281,7 @@ def resolve_blend_leaf(scene, mat_id, uv, normal, wo, pos, u_blend):
 
 
 def fetch_material(scene, mat_id, uv, pos=None, normal=None, wo=None,
-                   u_blend=None) -> MatParams:
+                   u_blend=None, ao=None) -> MatParams:
     """Material record per ray, modulated by its textures (ref:
     materialLeafEval's fetch path, cmaterial.h / cfetch.h).
 
@@ -240,23 +290,25 @@ def fetch_material(scene, mat_id, uv, pos=None, normal=None, wo=None,
     per-ray top weight comes from the blend type (_blend_weight). One-level
     trees lerp the two leaves field by field (ints, the baked *_meta rows
     and bump_rgb switch at w = 0.5); deeper trees (settings.blend_depth >
-    1) walk to one leaf a ray on u_blend (resolve_blend_leaf)."""
+    1) walk to one leaf a ray on u_blend (resolve_blend_leaf). `pos`,
+    `normal`, `wo` and the AO input `ao` feed procedural textures
+    (_fetch_leaf)."""
     st = scene.settings
     if st is not None and not st.has_blend:
-        return _fetch_leaf(scene, mat_id, uv)
+        return _fetch_leaf(scene, mat_id, uv, pos, normal, wo, ao)
     if st is not None and getattr(st, "blend_depth", 1) > 1:
         if u_blend is None:
             u_blend = torch.full(mat_id.shape, 0.5, dtype=torch.float32,
                                  device=mat_id.device)
         leaf = resolve_blend_leaf(scene, mat_id, uv, normal, wo, pos, u_blend)
-        return _fetch_leaf(scene, leaf, uv)
-    p_top = _fetch_leaf(scene, mat_id, uv)
+        return _fetch_leaf(scene, leaf, uv, pos, normal, wo, ao)
+    p_top = _fetch_leaf(scene, mat_id, uv, pos, normal, wo, ao)
     mrow = _mat_rows(scene, mat_id)
     bn = mrow[:, MC.MA_BLEND_NODE].to(torch.int32)
     has = bn >= 0
     bot_id = torch.where(has, torch.clamp(bn, 0, scene.mat_attr.shape[0] - 1),
                          mat_id.to(torch.int32))
-    p_bot = _fetch_leaf(scene, bot_id, uv)
+    p_bot = _fetch_leaf(scene, bot_id, uv, pos, normal, wo, ao)
     w = torch.where(has, _blend_weight(scene, mrow, uv, normal, wo, pos), 1.0)
     top = w >= 0.5
 

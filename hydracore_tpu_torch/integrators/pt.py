@@ -8,9 +8,15 @@ route, or a plain path). Scenes with opacity maps (settings.has_alpha) let
 a ray pass through a surface with probability 1 - opacity, and walk their
 shadow rays through up to MAX_ALPHA_SHADOW_STEPS such layers
 (shadow_trace); the sky's back plate replaces the env for camera-visible
-rays (settings.has_env_back). Every such gate is static on the settings,
-so an opaque, untextured scene runs none of that code. Two
-wavefront modes, as there: with a traversal that wants sorted rays (the
+rays (settings.has_env_back). Rays inside an SSS medium take a free-flight
+step, scatter by Henyey-Greenstein and are absorbed by Beer-Lambert
+(settings.has_sss); a ray through Beer-fog glass is attenuated over each
+segment inside it (settings.has_fog); procedural textures that read an AO
+input get it from AO_PROBES short any-hit rays a hit (ao_probe,
+settings.has_proc_ao); the 'direct' and 'indirect' render layers keep
+complementary parts of the radiance (settings.render_layer). Every such
+gate is static on the settings, so a plain scene runs none of that code.
+Two wavefront modes, as there: with a traversal that wants sorted rays (the
 cluster kernels) the whole live state is permuted into (octant,
 origin-Morton) order once per bounce and both traversals run on the sorted
 wavefront; with any other the rays stay in caller order. The sample set is
@@ -48,15 +54,17 @@ from hydracore_tpu_torch.lights.sampling import (env_back_radiance,
                                                  select_light)
 from hydracore_tpu_torch.ops import rng
 from hydracore_tpu_torch.ops.trace_api import (alpha_layer_hit, any_hit,
-                                               any_hit_opaque, closest_hit,
-                                               coherence_order,
+                                               any_hit_opaque, ao_any_hit,
+                                               closest_hit, coherence_order,
                                                has_shadow_split,
                                                wants_sorted_rays)
+from hydracore_tpu_torch.scene import materials as MC
 from hydracore_tpu_torch.scene.lights import LIGHT_SKY
 from hydracore_tpu_torch.scene.scene import check_supported
 from hydracore_tpu_torch.utils.device import resolve_device
-from hydracore_tpu_torch.utils.math3d import (cross3, dot3, normalize3,
-                                              offs_ray_pos, sqrt)
+from hydracore_tpu_torch.utils.math3d import (cross3, dot3,
+                                              make_orthonormal_basis,
+                                              normalize3, offs_ray_pos, sqrt)
 
 # rng dimension groups per bounce (role analogue of QMC_VAR_* slots)
 DG_LENS = 0
@@ -64,12 +72,70 @@ DG_BSDF = 1
 DG_LIGHT = 2
 DG_RR = 3
 DG_ALPHA = 4  # col 0: stochastic alpha; col 1: blend-tree walk
+DG_SSS = 5  # subsurface medium events
+DG_AO = 6  # proc-tex AO probe directions
 
 MAX_ALPHA_SHADOW_STEPS = 2  # transparent layers a shadow ray may cross
+
+AO_PROBES = 4  # hemisphere probes per hit (MakeAORaysPacked4 analogue)
 
 # max rays per wavefront: decouples image size from device footprint
 # (CalcMegaBlockSize, GPUOCLLayer.cpp:841-876)
 MEGABLOCK = 1 << 18
+
+
+def hg_sample(d, g, e1, e2):
+    """Henyey-Greenstein phase direction about d (SampleHenyeyGreenstein,
+    CPUExp_IntegratorSSS.cpp:110)."""
+    s = 1.0 - 2.0 * e1
+    denom = torch.clamp((1.0 + g * s) * (1.0 + g * s), min=1e-6)
+    cost = (s + 2.0 * g * g * g * (e1 - 1.0) * e1 + g * g * s
+            + 2.0 * g * (1.0 - e1 + e1 * e1)) / denom
+    cost = torch.clamp(cost, -1.0, 1.0)
+    sint = sqrt(torch.clamp(1.0 - cost * cost, min=1e-6))
+    t, b = make_orthonormal_basis(d)
+    phi = 2.0 * math.pi * e2
+    return (torch.cos(phi) * sint)[:, None] * t \
+        + (torch.sin(phi) * sint)[:, None] * b + cost[:, None] * d
+
+
+def ao_rays(pos, n, ng, ao_type, ao_len, need, r_ao):
+    """The AO probe wavefront of ao_probe: AO_PROBES cosine-weighted rays
+    of length ao_len about +n (ao_type 1, 'up') or -n (2, 'down'; 3,
+    'both', alternates the sides probe by probe), probe-major. Returns
+    (origins, directions, t_max, active), each AO_PROBES * R long."""
+    o_list, d_list = [], []
+    for k in range(AO_PROBES):
+        down = ((ao_type == 2) | ((ao_type == 3) & bool(k & 1)))[:, None]
+        nh = torch.where(down, -n, n)
+        ngh = torch.where(down, -ng, ng)
+        t_, b_ = make_orthonormal_basis(nh)
+        # golden-ratio rotations stretch 2 uniforms over the probes
+        u1 = (r_ao[:, 0] + k * 0.618034) % 1.0
+        u2 = (r_ao[:, 1] + k * 0.381966) % 1.0
+        ct = sqrt(torch.clamp(u1, 0.0, 1.0))
+        st = sqrt(torch.clamp(1.0 - u1, 0.0, 1.0))
+        ph = 2.0 * math.pi * u2
+        d = (st * torch.cos(ph))[:, None] * t_ \
+            + (st * torch.sin(ph))[:, None] * b_ + ct[:, None] * nh
+        o_list.append(offs_ray_pos(pos, ngh, d))
+        d_list.append(d)
+    return (torch.cat(o_list), torch.cat(d_list),
+            torch.clamp(ao_len, min=1e-5).repeat(AO_PROBES),
+            need.repeat(AO_PROBES))
+
+
+def ao_probe(scene, pos, n, ng, ao_type, ao_len, need, r_ao):
+    """Hemisphere-occlusion input of AO procedural textures (MakeAORays'
+    packed probes -> surfHit.ao, light.cl:274-457 + texproc.cl:152): the
+    unoccluded fraction of the ao_rays probes, averaged; 1 where `need` is
+    False. One any-hit trace over the AO_PROBES * R rays
+    (trace_api.ao_any_hit: B2 over the full pool on the cluster route,
+    counted in traverse_cluster.ao_any_launches)."""
+    R = pos.shape[0]
+    occ = ao_any_hit(scene, *ao_rays(pos, n, ng, ao_type, ao_len, need, r_ao))
+    ao = 1.0 - occ.reshape(AO_PROBES, R).to(torch.float32).mean(dim=0)
+    return torch.where(need, ao, 1.0)
 
 
 def mis_weight(a, b):
@@ -241,10 +307,13 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     """Trace a batch of primary rays (already in coherence order, as
     Morton-ordered primaries are) to completion. sample_idx (R,) u32 stream
     ids (int64) key every random number. The live state is re-sorted every
-    bounce only for a traversal that wants sorted rays. settings.has_alpha
-    turns on alpha pass-through and the layered shadow walk. Returns (radiance (R,3) in caller order, rays_traced
-    (int64 scalar tensor)): the ray counter feeds the Mrays/s metric
-    (MRaysStat analogue)."""
+    bounce only for a traversal that wants sorted rays. The static gates of
+    the settings turn on alpha pass-through and the layered shadow walk
+    (has_alpha), the SSS medium walk (has_sss), Beer fog (has_fog), the AO
+    probes (has_proc_ao) and the layer split (render_layer). Returns
+    (radiance (R,3) in caller order, rays_traced (int64 scalar tensor)):
+    the ray counter feeds the Mrays/s metric (MRaysStat analogue) and
+    counts the AO probes too."""
     st = scene.settings
     dev = ray_o.device
     R = ray_o.shape[0]
@@ -277,6 +346,32 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     has_back = getattr(st, "has_env_back", False)
     if has_back:
         pure_t = torch.ones((R,), dtype=torch.bool, device=dev)
+    # render-layer gate (the HRT_DIRECT_LIGHT_MODE / HRT_INDIRECT_LIGHT_MODE
+    # kills, material.cl:953-955, :544): 'direct' keeps emission on short or
+    # specular-only paths and NEE at the first non-specular vertex,
+    # 'indirect' the rest. As in the JAX package, specular-only chains leave
+    # the indirect layer too (the reference kills its NEE at bounce 0 only),
+    # so that direct + indirect == color.
+    layer = st.render_layer
+    split = layer != "color"
+    if split:
+        spec_only = torch.ones((R,), dtype=torch.bool, device=dev)
+    # SSS gate: the medium a ray is inside (SSSMaterial,
+    # CPUExp_IntegratorSSS.cpp), its scattering and absorption coefficients
+    # and phase g
+    has_sss = bool(st.has_sss)
+    scat = None  # scatter lanes of this step: no surface interaction
+    if has_sss:
+        in_med = torch.zeros((R,), dtype=torch.bool, device=dev)
+        med_sig_s = torch.zeros((R,), dtype=torch.float32, device=dev)
+        med_sig_a = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+        med_g = torch.zeros_like(med_sig_s)
+    # thick-glass fog gate (attenuationStep, cmaterial.h:2787-2827): rgb the
+    # armed fog colour, w its multiplier (0 = the ray is in no fog)
+    has_fog = bool(st.has_fog)
+    if has_fog:
+        fog_state = torch.zeros((R, 4), dtype=torch.float32, device=dev)
+    has_proc_ao = bool(st.has_proc_ao)
     # the alpha / blend-walk uniforms are drawn only where a gate reads them
     want_r_a = has_alpha or (st.has_blend and getattr(st, "blend_depth", 1) > 1)
     if has_sky_s:
@@ -300,12 +395,50 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
                 diff_bounce = diff_bounce[perm]
             if has_back:
                 pure_t = pure_t[perm]
+            if split:
+                spec_only = spec_only[perm]
+            if has_sss:
+                in_med, med_sig_s = in_med[perm], med_sig_s[perm]
+                med_sig_a, med_g = med_sig_a[perm], med_g[perm]
+            if has_fog:
+                fog_state = fog_state[perm]
 
         rays_traced = rays_traced + alive.sum()
         t, tri, u, v = closest_hit(scene, ray_o, ray_d, active=alive,
                                    kind="primary" if depth == 0 else "bounce")
         hit = alive & (tri >= 0)
         miss = alive & ~hit
+
+        # ---- Beer fog over the segment just traced (attenuationStep:
+        # T = exp(-max(1 - fogColor, 0) * fogMult * dist)); misses stay
+        # unattenuated, as in the reference
+        if has_fog:
+            fog_on = hit & (fog_state[:, 3] > 0.0)
+            seg = torch.where(torch.isfinite(t), t, 0.0)
+            att = torch.exp(-torch.clamp(1.0 - fog_state[:, 0:3], min=0.0)
+                            * (fog_state[:, 3] * seg)[:, None])
+            throughput = torch.where(fog_on[:, None], throughput * att,
+                                     throughput)
+
+        # ---- subsurface medium walk (PathTraceVol,
+        # CPUExp_IntegratorSSS.cpp:143): a ray inside a medium draws a
+        # scatter distance ~ exp(sigma_s); a scatter before the surface
+        # takes this step (a new HG direction, Beer-Lambert absorption) and
+        # skips every surface gate below (~scat)
+        if has_sss:
+            r_m = rand(sidx, depth, DG_SSS)
+            t_srf = torch.where(torch.isfinite(t), t, 3e38)
+            d_scat = -torch.log(torch.clamp(r_m[:, 0], min=1e-12)) \
+                / torch.clamp(med_sig_s, min=1e-12)
+            scat = alive & in_med & (med_sig_s > 0.0) & (d_scat < t_srf) & hit
+            d_abs = torch.where(scat, d_scat, torch.clamp(t_srf, max=3e38))
+            att = torch.exp(-med_sig_a * d_abs[:, None])
+            throughput = torch.where(((alive & in_med & hit) | scat)[:, None],
+                                     throughput * att, throughput)
+            pos_scat = ray_o + d_scat[:, None] * ray_d
+            hg_dir = normalize3(hg_sample(ray_d, med_g, r_m[:, 1], r_m[:, 2]))
+            alive = alive & ~(in_med & miss)  # lost inside the medium
+            miss = miss & ~in_med
 
         # ---- environment (HitEnvOrLightKernel env path, material.cl:344)
         if has_sky_s:
@@ -318,6 +451,11 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             if has_back:  # the back plate replaces the env, unweighted
                 env_c = torch.where(pure_t[:, None],
                                     env_back_radiance(scene, ray_d), env_c)
+            if split:  # sky emission splits like light emission
+                keep_em = spec_only | (depth <= 1)
+                if layer == "indirect":
+                    keep_em = ~keep_em
+                env_c = torch.where(keep_em[:, None], env_c, 0.0)
             acc = acc + torch.where(miss[:, None], throughput * env_c, 0.0)
         alive = alive & hit
 
@@ -325,8 +463,18 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             scene, tri, u, v, ray_o, ray_d, t)
         wo = -ray_d  # toward the viewer
         r_a = rand(sidx, depth, DG_ALPHA) if want_r_a else None
+        ao_val = None
+        if has_proc_ao:  # AO probes only where a procedural texture asks
+            arow = scene.mat_attr[torch.clamp(mat_id.long(), 0,
+                                              scene.mat_attr.shape[0] - 1)]
+            ao_t = arow[:, MC.MA_AO_TYPE].to(torch.int32)
+            need_ao = alive & (ao_t > 0)
+            rays_traced = rays_traced + need_ao.sum() * AO_PROBES
+            ao_val = ao_probe(scene, pos, n, ng, ao_t, arow[:, MC.MA_AO_LENGTH],
+                              need_ao, rand(sidx, depth, DG_AO))
         p = fetch_material(scene, mat_id, uv, pos, n, wo=wo,
-                           u_blend=None if r_a is None else r_a[:, 1])
+                           u_blend=None if r_a is None else r_a[:, 1],
+                           ao=ao_val)
         n = apply_bump(scene, p, n, tang, uv)
         # stochastic alpha (ref: alpha-tested traversal + NextTransparentBounce,
         # material.cl:1080): with probability 1 - opacity the ray passes the
@@ -334,6 +482,8 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         passthru = None
         if has_alpha:
             passthru = alive & (p.opacity < 0.999) & (r_a[:, 0] >= p.opacity)
+            if has_sss:
+                passthru = passthru & ~scat
 
         # one light-row fetch serves the implicit-hit MIS eval (by the hit
         # triangle's light id) and the NEE sample (by the CDF pick)
@@ -353,6 +503,8 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         is_emitter = alive & (em_lum > 1e-6)
         if has_alpha:
             is_emitter = is_emitter & ~passthru
+        if has_sss:
+            is_emitter = is_emitter & ~scat
         front = dot3(n, wo) > 0.0
         l_pdf_w, l_pick = light_eval_pdf_from_hit(scene, lrow, ray_o, ray_d,
                                                   pos, n, return_pick=True,
@@ -364,6 +516,13 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         if not pt_caustics:
             emit = torch.where(((diff_bounce > 0) & prev_spec)[:, None],
                                0.0, emit)
+        if split:
+            # emission belongs to the direct layer on short (<= 1 bounce)
+            # or specular-only paths (material.cl:543-544, inverted)
+            keep_em = spec_only | (depth <= 1)
+            if layer == "indirect":
+                keep_em = ~keep_em
+            emit = torch.where(keep_em[:, None], emit, 0.0)
         acc = acc + emit
         alive = alive & ~is_emitter  # the path ends on emitters
 
@@ -387,6 +546,15 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         ok = alive & (cos_s > 0.0)
         if has_alpha:
             ok = ok & ~passthru
+        if has_sss:
+            ok = ok & ~scat
+        if split:
+            # NEE at the first vertex, or through a pure specular chain, is
+            # direct light (killDueToDirectLight/IndirectLight, inverted)
+            keep_nee = spec_only | (depth == 0)
+            if layer == "indirect":
+                keep_nee = ~keep_nee
+            ok = ok & keep_nee
         # zero-contribution lanes need no occlusion query
         need_sh = ok & (contrib.amax(dim=-1) > 0.0)
         rays_traced = rays_traced + need_sh.sum()  # shadow rays
@@ -408,9 +576,61 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             through = through | passthru
         if has_back:  # transmission-only paths stay camera-visible
             pure_t = pure_t & through
+            if has_sss:
+                pure_t = pure_t & ~scat
+
+        # ---- fog state machine: transmission INTO a Beer glass arms the
+        # fog, transmission OUT (a hit on the far side) clears it, internal
+        # reflection keeps it armed. As in the JAX package it arms on entry
+        # only (the reference's attenuationStep also arms on front-face
+        # reflections, fogging the next outside segment).
+        if has_fog:
+            beer = alive & (p.fog_mult > 0.0)
+            if has_alpha:
+                beer = beer & ~passthru
+            enter = beer & bs.is_transmission & front
+            leave = beer & bs.is_transmission & ~front
+            armed = torch.cat([p.fog_color, p.fog_mult[:, None]], 1)
+            fog_state = torch.where(enter[:, None], armed,
+                                    torch.where(leave[:, None], 0.0, fog_state))
+
+        # ---- SSS boundary (sampleAndEvalBxDF's SSS branch,
+        # CPUExp_IntegratorSSS.cpp:36): direction, weight and pdf come from
+        # the lobes sampled above, into which fetch_material folded the
+        # boundary (kd (1 - T) diffuse, (1 - kd) T translucency); picking
+        # the translucency lobe crosses it, entering on a front hit and
+        # leaving on a back hit
+        if has_sss:
+            is_sss = alive & ~scat & (p.sss_transmission > 0.0)
+            if has_alpha:
+                is_sss = is_sss & ~passthru
+            cross = is_sss & bs.is_diff_trans
+            enter = cross & front
+            exit_ = cross & ~front
+            in_med = (in_med & ~exit_) | enter
+            med_sig_s = torch.where(enter, p.sss_density * p.sss_scattering,
+                                    torch.where(exit_, 0.0, med_sig_s))
+            med_sig_a = torch.where(enter[:, None],
+                                    p.sss_density[:, None] * p.sss_absorption,
+                                    torch.where(exit_[:, None], 0.0, med_sig_a))
+            med_g = torch.where(enter, p.sss_phase, med_g)
+            weight = torch.where(scat[:, None], 1.0, weight)
         throughput = throughput * weight
         if not pt_caustics:  # count diffuse bounces (unpackBounceNumDiff)
-            diff_bounce = diff_bounce + (alive & ~prev_spec).to(torch.int32)
+            diffused = alive & ~prev_spec
+            if has_sss:
+                diffused = diffused & ~scat
+            diff_bounce = diff_bounce + diffused.to(torch.int32)
+        if split:
+            spec_only = spec_only & prev_spec
+            if has_sss:
+                spec_only = spec_only & ~scat
+            if layer == "direct" and depth > 0:
+                # RAY_WILL_DIE_NEXT_BOUNCE (material.cl:973-980): past the
+                # first vertex a path that is not specular-only adds nothing
+                # more to the direct layer (at depth 0 it lives one more
+                # segment, for the implicit hit)
+                alive = alive & spec_only
 
         # russian roulette on throughput from min_rr_depth
         if depth >= min_rr_depth:
@@ -422,6 +642,11 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         alive = alive & (throughput.amax(dim=-1) > 1e-7)
         n_off = torch.where(through[:, None], -ngs, ngs)
         ray_o = offs_ray_pos(pos, n_off, wi)
+        if has_sss:  # scattered lanes go on from inside the medium
+            ray_o = torch.where(scat[:, None], pos_scat, ray_o)
+            wi = torch.where(scat[:, None], hg_dir, wi)
+            prev_spec = prev_spec | scat
+            prev_pdf = torch.where(scat, 0.0, prev_pdf)
         ray_d = wi
 
     if not sorted_mode:

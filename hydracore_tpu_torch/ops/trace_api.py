@@ -22,7 +22,9 @@ Alpha scenes with the split shadow sets (scene._build_shadow_split) trace
 NEE shadow rays in two parts: any_hit_opaque, kernel B2 over the opaque
 pool cl_tris_shadow, and alpha_layer_hit, a dense test of the small alpha
 triangle set in plain PyTorch (an XLA computation in the JAX package, not
-a Pallas kernel).
+a Pallas kernel). The path tracer's AO probes take ao_any_hit: any_hit
+sorted into coherence order, B2 over the full pool on the cluster route,
+counted apart from the shadow rays.
 
 Secondary wavefronts of the cluster path are sorted by (direction octant,
 origin Morton) before traversal so that a ray block shares an octant and a
@@ -30,6 +32,8 @@ small box, the coherence its block kernels prune with. The other paths take
 the rays as they come (wants_sorted_rays).
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -128,6 +132,17 @@ def any_hit_sorted(scene, ray_o, ray_d, t_max, active=None):
     if not wants_sorted_rays(scene):
         return any_hit(scene, ray_o, ray_d, t_max, active)
     occ, inv = _sorted_call(any_hit, scene, ray_o, ray_d, t_max, active)
+    return occ[inv]
+
+
+def ao_any_hit(scene, ray_o, ray_d, t_max, active=None):
+    """any_hit_sorted for the AO probes of integrators/pt.py:ao_probe, over
+    the full pool as in the JAX package; on the cluster route B2's launches
+    count in traverse_cluster.ao_any_launches."""
+    if not wants_sorted_rays(scene):
+        return any_hit(scene, ray_o, ray_d, t_max, active)
+    occ, inv = _sorted_call(partial(traverse_cluster.any_hit, ao_probes=True),
+                            scene, ray_o, ray_d, t_max, active)
     return occ[inv]
 
 

@@ -18,7 +18,8 @@ cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs cluster_traverse_plain, the twin with
 the same contract. It counts kernel launches in closest_launches /
 any_launches (B1/B2), opaque_any_launches (B2 over the opaque shadow pool
-of an alpha scene) and inst_closest_launches / inst_any_launches (B3).
+of an alpha scene), ao_any_launches (B2 on the path tracer's AO probes)
+and inst_closest_launches / inst_any_launches (B3).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ any_launches = 0
 inst_closest_launches = 0
 inst_any_launches = 0
 opaque_any_launches = 0
+ao_any_launches = 0
 
 _lib = None
 
@@ -54,6 +56,7 @@ def reset_launch_counts() -> None:
     this.inst_closest_launches = 0
     this.inst_any_launches = 0
     this.opaque_any_launches = 0
+    this.ao_any_launches = 0
 
 
 # the upper level of the two-level walk, in the order the kernel takes it:
@@ -153,7 +156,7 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
                      any_hit_mode: bool = False, cl_map=None, inst_woop=None,
                      lvl_bounds=None, lvl_oct_perm=None, lvl_members=None,
                      lvl_member_bounds=None, lvl_start=None,
-                     opaque_pool: bool = False):
+                     opaque_pool: bool = False, ao_probes: bool = False):
     """rays (G, r_blk, 8) f32 [o d t_lim active] -> (t (G, r_blk) f32,
     slot (G, r_blk) i32). The pool is flat (tris (Cp, 4, 384)), partitioned
     (a leading chunk axis P on tris, cbl_oct and perm; slots come back as
@@ -167,7 +170,9 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
     (cl_tris_shadow: the alpha lanes zeroed, so that t = -0/0 = NaN fails
     every test; scene_pool(scene, opaque_only=True) sets it with that
     pool); it changes no arithmetic, only the counter: B2 over that pool
-    counts in opaque_any_launches."""
+    counts in opaque_any_launches. Likewise `ao_probes` says that the rays
+    are the path tracer's AO probes (integrators/pt.py:ao_probe): B2 on
+    them counts in ao_any_launches (B3 in inst_any_launches still)."""
     if tris is None:
         raise ValueError("tris is required")
     level = dict(lvl_bounds=lvl_bounds, lvl_oct_perm=lvl_oct_perm,
@@ -199,7 +204,8 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
            t.data_ptr(), slot.data_ptr(), G * r_blk, r_blk,
            lvl_members.shape[1], lvl_bounds.shape[1], int(any_hit_mode))
     this = sys.modules[__name__]
-    name = ("inst_" if inst else "opaque_" if opaque_pool else "") \
+    name = ("inst_" if inst else "opaque_" if opaque_pool
+            else "ao_" if ao_probes else "") \
         + ("any" if any_hit_mode else "closest") + "_launches"
     setattr(this, name, getattr(this, name) + 1)
     return t, slot
@@ -456,11 +462,13 @@ def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
     return t, tri, torch.where(hit, u, 0.0), torch.where(hit, v, 0.0)
 
 
-def any_hit(scene, ray_o, ray_d, t_max, active=None, opaque_only=False):
+def any_hit(scene, ray_o, ray_d, t_max, active=None, opaque_only=False,
+            ao_probes=False):
     """Shadow query: True where some triangle lies in (1e-5, t_max). With
     opaque_only the walk runs over the opaque shadow pool (scene_pool), so
-    alpha surfaces never occlude here."""
+    alpha surfaces never occlude here. ao_probes only picks the counter
+    (cluster_traverse)."""
     rays, R = _to_blocks(ray_o, ray_d, t_max, active, R_BLK)
-    _, slot = cluster_traverse(rays, any_hit_mode=True,
+    _, slot = cluster_traverse(rays, any_hit_mode=True, ao_probes=ao_probes,
                                **scene_pool(scene, opaque_only))
     return slot.reshape(-1)[:R] >= 0

@@ -8,6 +8,7 @@ floats) and bake_tex_meta joins each texture channel's meta row.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -443,12 +444,15 @@ def build_material_table(desc: SceneDesc, tex_remap: np.ndarray,
     max_id = max(desc.materials.keys(), default=-1)
     n = max_id + 1
 
-    # statefile proc textures: a declared `type="proc"` texture that a
-    # material actually binds (texref_proc) needs the procedural-texture
-    # evaluator, which is not ported. Unreferenced declarations cost
-    # nothing (the bundled teapot_cylinder/test_aniso* scenes declare
-    # falloff/hexaplanar without binding them, matching the reference's
-    # lazy table fill).
+    # statefile proc textures: register a stdlib instance for every
+    # declared `type="proc"` texture that a material actually binds
+    # (texref_proc). Unreferenced declarations cost nothing (the bundled
+    # teapot_cylinder/test_aniso* scenes declare falloff/hexaplanar without
+    # binding them, matching the reference's lazy table fill). A texture
+    # whose .c source lies in the library raises (ops/proctex.py: the
+    # source translator is not ported, and a stdlib match would differ).
+    from hydracore_tpu_torch.ops.proctex import register_stdlib_instance
+
     proc_map: dict[int, tuple] = {}  # tid -> (proc id, ao_type, ao_length)
     referenced = set()
     for node in desc.materials.values():
@@ -457,7 +461,20 @@ def build_material_table(desc: SceneDesc, tex_remap: np.ndarray,
                 referenced.add(int(t.get("id", -1)))
     for tid, td in desc.textures.items():
         if td.proc_name and tid in referenced:
-            raise NotImplementedError("procedural textures")
+            source = None
+            loc = td.loc or ""
+            if loc and desc.lib_dir:
+                path = os.path.join(desc.lib_dir, loc)
+                if os.path.exists(path) and path.endswith(".c"):
+                    try:
+                        with open(path, "r", errors="replace") as f:
+                            source = f.read()
+                    except OSError:
+                        source = None
+            proc_map[tid] = (register_stdlib_instance(
+                                 td.proc_name, loc, main=td.proc_main,
+                                 source=source, gen_args=td.gen_args),
+                             td.ao_type, td.ao_length)
 
     recs = []
     for mid in range(max(n, 1)):

@@ -16,9 +16,11 @@ turns the numpy leaves of a JAX-built scene into a port scene.
 
 Which traversal reads the scene is one static choice on it, `traversal`
 (ops/trace_api.py): "auto", or "dense", "cluster", "packet", "wide" by
-name. Textures (image, normal map, blend mask, opacity), sky images, back
-plates and IES profiles are carried; features not ported yet raise
-NotImplementedError naming the feature (check_supported).
+name. Textures (image, normal map, blend mask, opacity), procedural
+textures with their AO input, SSS, glass fog, sky images, back plates, IES
+profiles and the render layers are carried; a procedural texture that
+ships its C source raises NotImplementedError (ops/proctex.py), and
+check_supported refuses scenes the port cannot take.
 """
 from __future__ import annotations
 
@@ -753,25 +755,25 @@ def build_mesh_light_tables(lights, tri_light, tri_v0, tri_e1, tri_e2):
                                pick_cdf=cdf), ml_cdf, ml_tri
 
 
+RENDER_LAYERS = ("color", "direct", "indirect")
+
+
 def check_supported(sc: SceneData) -> None:
-    """Raise NotImplementedError naming the first feature the scene needs
-    that the port does not carry yet: procedural textures, SSS, glass fog,
-    procedural-texture AO and render layers other than color."""
+    """Raise for a scene the port cannot take: one without RenderSettings
+    (NotImplementedError), settings.has_inst without the instanced tables
+    or the other way round, or an unknown render layer (ValueError).
+    Procedural textures, their AO input, SSS, glass fog and the direct and
+    indirect layers all render; only a procedural texture's C source still
+    raises, where the material table is built (ops/proctex.py)."""
     st = sc.settings
     if st is None:
         raise NotImplementedError("a scene without RenderSettings")
     if bool(st.has_inst) != (sc.cl_map is not None):
         raise ValueError("settings.has_inst and the instanced tables "
                          "(cl_map, ...) must come together")
-    for flag, name in (
-            ("has_proc_tex", "procedural textures"),
-            ("has_sss", "subsurface scattering (SSS)"),
-            ("has_fog", "glass fog"),
-            ("has_proc_ao", "procedural-texture AO")):
-        if getattr(st, flag, False):
-            raise NotImplementedError(name)
-    if st.render_layer != "color":
-        raise NotImplementedError(f"render_layer={st.render_layer!r}")
+    if st.render_layer not in RENDER_LAYERS:
+        raise ValueError(f"render_layer={st.render_layer!r}, not one of "
+                         f"{RENDER_LAYERS}")
 
 
 def scene_leaves(sc: SceneData) -> dict:

@@ -317,18 +317,33 @@ def _desc_with(materials_xml: str, textures: dict):
 
 
 def test_unported_bindings_raise(tmp_path):
-    """A bound procedural texture is refused by name, never rendered
-    silently untextured; a bound image texture (refused before the port
-    carried textures) assembles with its texels in the heap and its gate
-    set, as the JAX package assembles it."""
-    proc = psf.TextureDesc(id=1, name="noise", loc=None, offset=0, bytesize=0,
-                           proc_name="noise")
-    desc = _desc_with(
-        '<material id="0" type="hydra_material"><diffuse brdf_type="lambert">'
-        '<color val="1 1 1"><texture id="1" type="texref_proc"/></color>'
-        '</diffuse></material>', {1: proc})
-    with pytest.raises(NotImplementedError, match="procedural textures"):
-        pscene.assemble(desc)
+    """A bound procedural texture whose C source lies in the library is
+    refused by name (its translator, ops/proctex_c, is not ported), never
+    bound to a stdlib function in its place; one that no stdlib function
+    matches warns and renders untextured, as in the JAX package; a bound
+    image texture (refused before the port carried textures) assembles
+    with its texels in the heap and its gate set, as the JAX package
+    assembles it."""
+    from hydracore_tpu_torch.ops import proctex as pproc
+
+    xml = ('<material id="0" type="hydra_material"><diffuse brdf_type="lambert">'
+           '<color val="1 1 1"><texture id="1" type="texref_proc"/></color>'
+           '</diffuse></material>')
+    (tmp_path / "noise.c").write_text("float4 prtex1_main() { }\n")
+    try:
+        proc = psf.TextureDesc(id=1, name="falloff", loc="noise.c", offset=0,
+                               bytesize=0, proc_name="falloff")
+        desc = _desc_with(xml, {1: proc})
+        desc.lib_dir = str(tmp_path)
+        with pytest.raises(NotImplementedError, match="proctex_c"):
+            pscene.assemble(desc)
+        proc = psf.TextureDesc(id=1, name="noise", loc=None, offset=0,
+                               bytesize=0, proc_name="noise")
+        with pytest.warns(UserWarning, match="noise"):
+            sc = pscene.assemble(_desc_with(xml, {1: proc}))
+        assert not sc.settings.has_proc_tex and pproc.num_proc_tex() == 0
+    finally:
+        pproc.clear_registry()
 
     img = np.full((2, 2, 4), 128, np.uint8)
     (tmp_path / "t.image4ub").write_bytes(struct.pack("<ii", 2, 2) + img.tobytes())

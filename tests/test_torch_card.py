@@ -2,8 +2,10 @@
 partitioned pools, a two-level walk over groups of clusters; B2 also over
 the opaque shadow pool of an alpha scene), B3
 (instanced pools) and B4 (warp packets over the
-8-wide BVH) against their plain twins, the path tracer on the card
-against the CPU twins, by the cluster and by the packet route, and the
+8-wide BVH; B2 also on the path tracer's AO probes) against their plain
+twins, the path tracer on the card against the CPU twins, by the cluster
+and by the packet route (SSS, fog and AO-dirt materials too), the render
+layers' sum, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
 plain versions on the card.
 
@@ -773,3 +775,121 @@ def test_alpha_render_on_card_matches_cpu_twins(cuda, traversal):
     agree = float(((img_card - img_cpu).abs().amax(dim=-1) <= 1e-3)
                   .float().mean())
     assert agree >= 0.99, agree
+
+
+@pytest.fixture
+def dirt():
+    """ao_dirt registered in the port's registry (id 0), cleared after."""
+    from hydracore_tpu_torch.ops import proctex
+
+    proctex.clear_registry()
+    try:
+        yield proctex.register_proc_tex(proctex.ao_dirt)
+    finally:
+        proctex.clear_registry()
+
+
+def _gates_scene(pid, traversal: str = "cluster", size: int = 32):
+    """A lit box holding an SSS sphere and a Beer-fog glass sphere over an
+    AO-dirt floor (procedural texture `pid`, an 'up' hemisphere of 0.8)."""
+    b = SceneBuilder()
+    args = np.zeros(8, np.float32)
+    args[0:3], args[3:6] = 0.05, 0.8
+    floor = b.add_material(diff_color=np.ones(3, np.float32), diff_proc=pid,
+                           proc_args=args, ao_type=1, ao_length=0.8)
+    wall = b.lambert([0.6, 0.6, 0.6])
+    b.add_box_interior(2.0, floor, wall, wall, b.lambert([0.7, 0.12, 0.1]),
+                       b.lambert([0.12, 0.55, 0.18]))
+    skin = b.add_material(diff_color=np.array([0.3, 0.2, 0.15], np.float32),
+                          sss_density=1.2, sss_scattering=3.0,
+                          sss_absorption=np.array([0.5, 0.15, 0.05],
+                                                  np.float32),
+                          sss_phase=0.3, sss_transmission=0.8)
+    b.add_sphere([-0.7, -1.2, -0.3], 0.8, skin, n_seg=48, n_ring=24)
+    glass = b.add_material(transp_color=np.ones(3, np.float32), transp_ior=1.5,
+                           fog_color=np.array([0.9, 0.5, 0.3], np.float32),
+                           fog_mult=1.5)
+    b.add_sphere([0.9, -1.5, 0.6], 0.5, glass, n_seg=32, n_ring=16)
+    b.rect_light([0, 1.95, 0], 0.5, 0.5, [12.0] * 3)
+    sc = b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, -0.5, 0], width=size,
+                 height=size, trace_depth=6, traversal=traversal)
+    st = sc.settings
+    assert st.has_sss and st.has_fog and st.has_proc_tex and st.has_proc_ao
+    return sc
+
+
+def test_ao_probe_b2_matches_twin(cuda, dirt):
+    """B2 on the AO-probe wavefront (integrators/pt.py:ao_rays from the
+    first hits, sorted as trace_api.ao_any_hit sorts it): occlusion equal
+    to the twin's; ao_probe on the card equal to the CPU's on >= 99.9% of
+    rays, its launches counted in ao_any_launches alone."""
+    from hydracore_tpu_torch.ops import trace_api
+    from hydracore_tpu_torch.scene import materials as MC
+
+    host = _gates_scene(dirt)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        sc = host.to(dev)
+        ray_o, ray_d, sidx, _ = pt.primary_rays(sc, [0], 777)
+        t, tri, u, v = pt.closest_hit(sc, ray_o, ray_d)
+        pos, n, ng, _, mat, _, _ = pt.compute_hit(sc, tri, u, v, ray_o, ray_d, t)
+        row = sc.mat_attr[mat.long()]
+        need = (tri >= 0) & (row[:, MC.MA_AO_TYPE] > 0)
+        args = (pos, n, ng, row[:, MC.MA_AO_TYPE].to(torch.int32),
+                row[:, MC.MA_AO_LENGTH], need,
+                pt.rng.rand4(sidx, 0, pt.DG_AO, 777))
+        tc.reset_launch_counts()
+        out[dev.type] = pt.ao_probe(sc, *args).cpu()
+        if dev.type == "cuda":
+            assert tc.ao_any_launches == 1 and tc.any_launches == 0
+            o, d, t_max, act = pt.ao_rays(*args)
+            perm = trace_api.coherence_order(sc, o, d, act)
+            blocks, _ = tc._to_blocks(o[perm], d[perm], t_max[perm],
+                                      act[perm], tc.R_BLK)
+            pool = tc.scene_pool(sc)
+            twin = {k: w for k, w in pool.items() if k not in tc.LEVEL_TABLES}
+            s_k = tc.cluster_traverse(blocks, any_hit_mode=True, **pool)[1]
+            s_t = tc.cluster_traverse_plain(blocks, any_hit_mode=True,
+                                            **twin)[1]
+            assert torch.equal(s_k >= 0, s_t >= 0)
+            assert (s_k >= 0).any() and int(act.sum()) > 100
+    # the probe directions go through sin and cos, whose last ulp may
+    # differ between the card and the CPU: a grazing probe may flip
+    assert float((out["cuda"] == out["cpu"]).float().mean()) >= 0.999
+    assert (out["cpu"] < 1.0).any()
+
+
+@pytest.mark.parametrize("traversal", ["cluster", "packet"])
+def test_gates_render_on_card_matches_cpu_twins(cuda, dirt, traversal):
+    """SSS, fog and the AO-dirt floor on the card against the CPU twins at
+    depth 6; on the cluster route the AO probes run through B2
+    (ao_any_launches), on the packet route through B4."""
+    sc = _gates_scene(dirt, traversal)
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    img_card = pt.render(sc, spp=4, seed=777, device=cuda).cpu()
+    if traversal == "cluster":
+        assert tc.closest_launches > 0 and tc.any_launches > 0
+        assert tc.ao_any_launches > 0
+    else:
+        assert tp.closest_launches > 0 and tp.any_launches > 0
+        assert tc.ao_any_launches == 0
+    img_cpu = pt.render(sc, spp=4, seed=777, device="cpu")
+    assert torch.isfinite(img_card).all() and float(img_card.mean()) > 0.01
+    agree = float(((img_card - img_cpu).abs().amax(dim=-1) <= 1e-3)
+                  .float().mean())
+    assert agree >= 0.99, agree
+
+
+def test_layers_sum_on_card(cuda, dirt):
+    """direct + indirect == color within 1e-4 on the card."""
+    sc = _gates_scene(dirt)
+    imgs = {}
+    for layer in ("color", "direct", "indirect"):
+        s = dataclasses.replace(sc, settings=dataclasses.replace(
+            sc.settings, render_layer=layer))
+        imgs[layer] = pt.render(s, spp=2, seed=777, device=cuda).cpu()
+    assert torch.allclose(imgs["direct"] + imgs["indirect"], imgs["color"],
+                          atol=1e-4)
+    assert float(imgs["direct"].sum()) > 0.05 * float(imgs["color"].sum())
+    assert float(imgs["indirect"].sum()) > 0.05 * float(imgs["color"].sum())

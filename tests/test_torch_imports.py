@@ -25,13 +25,15 @@ def test_sources_import_no_jax():
     files = _sources()
     assert len(files) > 19
     names = {str(f.relative_to(ROOT / "hydracore_tpu_torch")) for f in files[:-1]}
-    # the host compiler and the instanced layout are scanned too (the JAX
-    # materials compiler imports its procedural-texture evaluator)
+    # the host compiler and the instanced layout are scanned too, and the
+    # port's own procedural-texture evaluator (the JAX materials compiler
+    # imports the JAX one)
     assert {"scene/vsgf.py", "scene/statefile.py", "scene/textures.py",
             "scene/materials.py", "scene/lights.py", "lights/ies.py",
             "bvh/instanced.py", "bvh/clusters.py", "bvh/wide.py",
             "ops/trace_api.py", "ops/traverse_dense.py", "ops/traverse_wide.py",
-            "ops/traverse_packet.py", "tools/bench_pallas_gather.py",
+            "ops/traverse_packet.py", "ops/proctex.py",
+            "tools/bench_pallas_gather.py",
             "tools/proto_prims.py", "tools/proto_subvisit.py",
             "tools/exp_kernel_cost.py", "tools/proto_cluster.py",
             "tools/proto_packet.py", "tools/proto_packet2.py",

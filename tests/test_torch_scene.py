@@ -5,8 +5,7 @@ The five procedural golden recipes (tests/golden_scenes.py) and the
 keeps must be bit-exact (tolerance 0), and the static settings equal.
 The binary BVH, its 8-wide collapse and the packet kernel's rows are among
 those leaves. scene_from_arrays of a JAX scene must round-trip bit-exact.
-Features the port does not carry yet raise NotImplementedError; textured
-ones build.
+Textured, procedural, SSS and fog materials build with their gates set.
 """
 import dataclasses
 
@@ -113,27 +112,19 @@ def _sky_image():
     return b
 
 
-@pytest.mark.parametrize("feature,make", [
-    ("procedural textures", lambda: _with_material(diff_proc=0)),
-    ("procedural-texture AO", lambda: _with_material(ao_type=1)),
-    ("subsurface", lambda: _with_material(sss_transmission=0.5)),
-    ("fog", lambda: _with_material(fog_mult=1.0)),
-])
-def test_unported_features_raise(feature, make):
-    b = make()
-    b.add_rect([0, 0, 0], [1, 0, 0], [0, 0, 1], 0)
-    with pytest.raises(NotImplementedError, match=feature.split()[0]):
-        b.build(cam_pos=[0, 3, 3], cam_lookat=[0, 0, 0], width=8, height=8)
-
-
 @pytest.mark.parametrize("gate,make", [
     ("has_sky", _sky_image),
     ("has_alpha", lambda: _with_material(opacity_tex=1)),
     ("has_blend", lambda: _with_material(blend_node=0)),
+    ("has_proc_tex", lambda: _with_material(diff_proc=0)),
+    ("has_proc_ao", lambda: _with_material(ao_type=1)),
+    ("has_sss", lambda: _with_material(sss_transmission=0.5)),
+    ("has_fog", lambda: _with_material(fog_mult=1.0)),
 ])
 def test_textured_features_build(gate, make):
-    """A sky image, an opacity map and a blend build (they raised before
-    the port carried textures), with their static gate set."""
+    """A sky image, an opacity map, a blend, a procedural texture and its AO
+    input, SSS and glass fog build (each raised before the port carried
+    it), with their static gate set."""
     b = make()
     b.add_rect([0, 0, 0], [1, 0, 0], [0, 0, 1], 0)
     sc = b.build(cam_pos=[0, 3, 3], cam_lookat=[0, 0, 0], width=8, height=8)

@@ -1,5 +1,5 @@
-"""Textured renders of the port against the JAX package's, and the
-features that still raise.
+"""Textured renders of the port against the JAX package's, and the gates
+check_supported takes.
 
 Scenes: tests/textured_scenes.py's 'surfaces' (wrap and clamp diffuse
 textures, reflection, emission and translucency textures, a normal map, a
@@ -90,22 +90,42 @@ def test_desc_render_matches_jax(desc_scenes, traversal):
     _check(ps, ref)
 
 
-@pytest.mark.parametrize("flag,value,name", [
-    ("has_proc_tex", True, "procedural textures"),
-    ("has_sss", True, "subsurface"),
-    ("has_fog", True, "glass fog"),
-    ("has_proc_ao", True, "procedural-texture AO"),
-    ("render_layer", "direct", "render_layer"),
+@pytest.mark.parametrize("flag,value", [
+    ("has_proc_tex", True),
+    ("has_sss", True),
+    ("has_fog", True),
+    ("has_proc_ao", True),
+    ("render_layer", "direct"),
+    ("render_layer", "indirect"),
 ])
-def test_unported_features_still_raise(flag, value, name):
-    """check_supported refuses the features of a later slice by name, at
-    scene_from_arrays and at render_passes."""
+def test_gated_features_accepted(flag, value):
+    """check_supported takes the gates of the last slice (they raised
+    before the port carried them): scene_from_arrays builds the scene and
+    render_passes renders a finite, non-zero image at depth 3 (the
+    indirect layer starts at the second vertex's NEE)."""
     js = ts.alpha()
     settings = {**jax_settings(js), flag: value}
-    with pytest.raises(NotImplementedError, match=name):
-        pscene.scene_from_arrays(jax_leaves(js), settings, "cpu")
-    ps = to_port(js)
-    ps = dataclasses.replace(
-        ps, settings=dataclasses.replace(ps.settings, **{flag: value}))
-    with pytest.raises(NotImplementedError, match=name):
-        tpt.render_passes(ps, 0, SEED, n_pass=1, device="cpu")
+    ps = pscene.scene_from_arrays(jax_leaves(js), settings, "cpu")
+    pscene.check_supported(ps)
+    img, _ = tpt.render_passes(ps, 0, SEED, n_pass=1, max_depth=3,
+                               device="cpu")
+    assert torch.isfinite(img).all() and float(img.sum()) > 0.0
+
+
+def test_unknown_layer_and_source_raise(tmp_path):
+    """An unknown render layer is refused by name (ValueError); a
+    procedural texture that ships its C source raises NotImplementedError
+    naming ops/proctex_c, the translator not ported."""
+    from hydracore_tpu_torch.ops import proctex as pproc
+    from tests.test_torch_proctex import proc_desc
+
+    js = ts.alpha()
+    with pytest.raises(ValueError, match="render_layer"):
+        pscene.scene_from_arrays(
+            jax_leaves(js), {**jax_settings(js), "render_layer": "albedo"},
+            "cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="proctex_c"):
+            pscene.assemble(proc_desc(PORT, tmp_path, source=True))
+    finally:
+        pproc.clear_registry()
