@@ -6,7 +6,8 @@ Builds the port's native code from the checkout (csrc/ -> the git-ignored
 hydracore_tpu_torch/_build/, the compilers started together), then drives
 four main paths of the MIS+NEE path tracer, a textured fifth (phase 14)
 and a sixth through the last gates of the path tracer (phase 15),
-render_passes at 1024x1024, depth 5, seed 777, each through its kernels:
+render_passes at 1024x1024, depth 5, seed 777, each through its kernels,
+then the other schedules of the path tracer (phase 16):
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit), a
                two-level walk over groups of clusters (the positions and
@@ -88,6 +89,24 @@ path (B1, B2 and B2 on AO probes, ao_any_launches, > 0) and a profile,
 the direct and indirect layers at 1024^2, one pass each, summing to the
 color pass within 1e-4, and 64x64 card images against the CPU twins on the
 cluster and the packet route.
+Phase 16 is the path tracer's other schedules: the regenerating wavefront
+(render_passes(regen=True), integrators/pt_regen.py) against the pass loop
+on the flat scene and an open sky-lit scene (N_PASS passes) and on phase
+15's gates scene (1 pass), each timed with its launch counters, profiled,
+and run once more to read the live share of every traced segment (regen
+also its iterations and host syncs); images equal by the image rule, rays
+within 2%; B1 and B2 against their twins on a regen segment and its shadow
+rays; render_pass at 1024^2 against render_passes(n_pass=1); production
+sampling at spp 16 against render at spp 16, and one tile at K = 64 (a
+2^20-ray wavefront: its time, launches and peak memory, B1 and B2 against
+their twins on its primary, bounce and shadow wavefronts), the same tile of
+the gates scene (AO probes) and of the textured scene (the alpha layer)
+against four K = 16 tiles of the same samples; the gates scene
+with its back wall's falloff given as C source (FALLOFF_C, compiled by
+ops/proctex_c): one 1024^2 pass, its launches against the stdlib's, 64x64
+card against the CPU and against the stdlib texture; 64x64 card images of
+regen, production and render_pass against the CPU. Its four "kernels"
+rows follow phase 15's.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -245,19 +264,25 @@ def cluster_bound_ms(scene, rays, t_end, lanes=None) -> tuple[float, str]:
     return lab.bound_ms(bytes_, ops)
 
 
-def profile_pass(pt, scene, card: str, tag: str) -> None:
-    """torch.profiler over one 1024x1024 pass: wall time, device busy time
-    and the kernels that take it, largest first. The profiler records the
-    device's activity alone, and its raw kineto events are summed here by
-    name: recording the host's events and reading key_averages() give the
-    same device times and take many times the pass's own wall time."""
+def profile_pass(pt, scene, card: str, tag: str, run=None,
+                 what: str = "one pass") -> dict | None:
+    """torch.profiler over one 1024x1024 pass (or the call `run`): wall
+    time, device busy time and the kernels that take it, largest first. The
+    profiler records the device's activity alone, and its raw kineto events
+    are summed here by name: recording the host's events and reading
+    key_averages() give the same device times and take many times the
+    pass's own wall time. Returns {"wall_ms", "busy_ms", "launches"}, None
+    when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    if run is None:
+        def run():
+            pt.render_passes(scene, 200, SEED, n_pass=1, max_depth=DEPTH,
+                             device=scene.tri_attr.device)
     t_all = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        pt.render_passes(scene, 200, SEED, n_pass=1, max_depth=DEPTH,
-                         device=scene.tri_attr.device)
+        run()
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
     by_name = {}
@@ -269,19 +294,23 @@ def profile_pass(pt, scene, card: str, tag: str) -> None:
     busy = sum(ms for ms, _ in by_name.values())
     if busy <= 0.0:
         log(f"{tag} profile: device time not measured (no CUDA events)")
-        return
-    log(f"{tag} profile, one pass: wall {wall:.2f} ms, device busy "
+        return None
+    launches = sum(n for _, n in by_name.values())
+    log(f"{tag} profile, {what}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
-        f"{sum(n for _, n in by_name.values())} kernel launches [{card}] "
+        f"{launches} kernel launches [{card}] "
         f"(the profiler's own time {time.time() - t_all - wall / 1e3:.2f} s)")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"{tag}   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:5d} {name[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy, "launches": launches}
 
 
-def wavefronts(pt, scene, sort: bool = True, light_row: int = 0):
+def wavefronts(pt, scene, sort: bool = True, light_row: int = 0,
+               rays=None):
     """The main path's three kinds of wavefront on `scene`, 2^18 rays each:
     every 4th primary ray of the frame in Morton order (spread over the
-    whole image), cosine-sampled bounce rays off their hit points (about
+    whole image), or the primary rays `rays` = (origins, directions) as
+    given, cosine-sampled bounce rays off their hit points (about
     the viewer-facing normal, or on an SSS material about its reverse, so
     those rays start inside the medium as the path tracer's do once they
     cross the boundary) and shadow rays to uniform points on the rect light
@@ -296,8 +325,11 @@ def wavefronts(pt, scene, sort: bool = True, light_row: int = 0):
                                                   offs_ray_pos)
 
     dev = scene.tri_attr.device
-    ray_o, ray_d, _, _ = pt.primary_rays(scene, [0], SEED)
-    ray_o, ray_d = ray_o[::4].contiguous(), ray_d[::4].contiguous()
+    if rays is None:
+        ray_o, ray_d, _, _ = pt.primary_rays(scene, [0], SEED)
+        ray_o, ray_d = ray_o[::4].contiguous(), ray_d[::4].contiguous()
+    else:
+        ray_o, ray_d = rays
     t, tri, u, v = closest_hit(scene, ray_o, ray_d)
     hit = tri >= 0
     pos, n, ng, _, mat, _, _ = pt.compute_hit(scene, tri, u, v, ray_o, ray_d, t)
@@ -1501,6 +1533,472 @@ def gates_phase(card, pt, tc, tp, trace_api, dev) -> list:
         (counts["closest_launches"], counts["ao_any_launches"]))
 
 
+# the stdlib falloff's arithmetic (ops/proctex.py:falloff) as the C source
+# of phase 16's back wall, in the translator's subset
+FALLOFF_C = """
+float4 prtex1_main(const SurfaceInfo* sHit, float3 color1, float3 color2,
+                   _PROCTEXTAILTAG_)
+{
+  const float3 n = readAttr_ShadeNorm(sHit);
+  const float cos_a = fabs(dot(n, hr_viewVectorHack));
+  const float3 c = color1 * (1.0f - cos_a) + color2 * cos_a;
+  return make_float4(c.x, c.y, c.z, 1.0f);
+}
+"""
+# the raster-order production tile timed alone at K = 64: tile TILE of
+# TILE_PIXELS pixels, render_production's default (at 1024^2 rows 512-527,
+# across both spheres)
+TILE, TILE_PIXELS = 32, 16384
+
+
+class SegmentProbe:
+    """For an untimed run: wraps closest_hit of integrators/pt.py and
+    pt_regen.py and pt.py's any_hit (the NEE shadow rays) to record the
+    share of live lanes of every closest-hit wavefront, and keeps the rays
+    of the `keep`-th closest-hit call and of the shadow call after it."""
+
+    def __init__(self, pt, regen, keep: int = 2):
+        self.pt, self.regen, self.keep = pt, regen, keep
+        self.shares, self.kept = [], {}
+
+    def __enter__(self):
+        pt, regen = self.pt, self.regen
+        self.saved = (pt.closest_hit, regen.closest_hit, pt.any_hit)
+        closest_hit, any_hit = pt.closest_hit, pt.any_hit
+
+        def closest(scene, ray_o, ray_d, t_max=1e30, active=None,
+                    kind="primary"):
+            if len(self.shares) == self.keep:
+                self.kept["closest"] = (ray_o.clone(), ray_d.clone(), t_max,
+                                        active.clone(), kind)
+            self.shares.append(float(active.float().mean()))
+            return closest_hit(scene, ray_o, ray_d, t_max, active, kind)
+
+        def shadow(scene, ray_o, ray_d, t_max, active=None):
+            if "closest" in self.kept and "any" not in self.kept:
+                self.kept["any"] = (ray_o.clone(), ray_d.clone(),
+                                    t_max.clone(), active.clone())
+            return any_hit(scene, ray_o, ray_d, t_max, active)
+
+        pt.closest_hit = regen.closest_hit = closest
+        pt.any_hit = shadow
+        return self
+
+    def __exit__(self, *exc):
+        self.pt.closest_hit, self.regen.closest_hit, self.pt.any_hit = self.saved
+
+    def cases(self, tc, tag: str):
+        """The kept closest-hit and shadow wavefronts packed as the path
+        packs them: [(name, ray blocks, any_hit_mode)]."""
+        o, d, t_max, act, kind = self.kept["closest"]
+        so, sd, st, sa = self.kept["any"]
+        r_blk = tc.R_BLK_BOUNCE if kind == "bounce" else tc.R_BLK
+        return [(f"{tag} segment", tc._to_blocks(o, d, t_max, act, r_blk)[0],
+                 False),
+                (f"{tag} shadow", tc._to_blocks(so, sd, st, sa, tc.R_BLK)[0],
+                 True)]
+
+
+def compare_schedules(tag, pt, regen, tc, tp, scene, card, expect: set,
+                      n_pass: int) -> dict:
+    """The pass loop (render_passes) and the regenerating wavefront
+    (render_passes(regen=True), timed through render_passes_regen for its
+    iterations and host syncs) on `scene` at 1024^2: each one warm-up
+    call, one timed call with the launch counters set to 0 just before and
+    read just after (`expect` > 0, the rest 0), one call under the
+    profiler, one untimed call through SegmentProbe (the mean live share of
+    a traced segment; for regen also the rays of its third segment). The
+    images (per-sample means) agree by the image rule, the ray counters
+    within 2%. Returns {schedule: record}."""
+    dev = scene.tri_attr.device
+    W, H = scene.camera.width, scene.camera.height
+    out = {}
+    for name, use_regen in (("pass loop", False), ("regen", True)):
+        def run(base=100):
+            return pt.render_passes(scene, base, SEED, n_pass=n_pass,
+                                    max_depth=DEPTH, device=dev,
+                                    regen=use_regen)
+        run()
+        torch.cuda.synchronize()
+        tc.reset_launch_counts()
+        tp.reset_launch_counts()
+        stats = {}
+        t0 = time.time()
+        if use_regen:
+            img, rays = regen.render_passes_regen(scene, 0, SEED, n_pass=n_pass,
+                                                  max_depth=DEPTH, device=dev,
+                                                  stats=stats)
+        else:
+            img, rays = run(0)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = launch_counts(tc, tp)
+        for k, v in counts.items():
+            if (v > 0) != (k in expect):
+                raise AssertionError(f"{tag} {name}: launch counts {counts}")
+        if not bool(torch.isfinite(img).all()) or float(img.sum()) <= 0.0:
+            raise AssertionError(f"{tag} {name}: image not finite and non-zero")
+        rays = int(rays)
+        prof = profile_pass(pt, scene, card, f"{tag} {name}", run=run,
+                            what=f"one call of {n_pass} passes")
+        with SegmentProbe(pt, regen) as probe:
+            run()
+            torch.cuda.synchronize()
+        share = sum(probe.shares) / len(probe.shares)
+        samples = n_pass * W * H
+        log(f"{tag} {name}: {W}x{H} depth {DEPTH} {n_pass} passes in "
+            f"{dt:.3f} s: {samples / dt / 1e6:.4f} Msamples/s, "
+            f"{rays / dt / 1e6:.4f} Mrays/s ({rays} rays); launches {counts}; "
+            f"{len(probe.shares)} traced segments, live share {share:.4f}"
+            + (f"; {stats['iterations']} iterations, {stats['host_syncs']} "
+               "host syncs" if use_regen else "") + f" [{card}]")
+        out[name] = {"img": img / n_pass, "rays": rays, "s": dt,
+                     "counts": counts, "profile": prof, "share": share,
+                     "stats": stats, "probe": probe}
+    close = pixels_close(out["regen"]["img"], out["pass loop"]["img"])
+    r_loop, r_regen = out["pass loop"]["rays"], out["regen"]["rays"]
+    log(f"{tag}: regen against the pass loop: pixels within 1e-3 {close:.6f}, "
+        f"rays {r_regen} / {r_loop} ({r_regen / r_loop - 1:+.4%})")
+    if close < 0.99:
+        raise AssertionError(f"{tag}: regen vs pass loop image: {close}")
+    if abs(r_regen - r_loop) > 0.02 * r_loop:
+        raise AssertionError(f"{tag}: regen vs pass loop rays {r_regen} / {r_loop}")
+    return out
+
+
+def twin_image(tag, fn) -> None:
+    """fn(device) -> image on the card and on the CPU: >= 99% of pixels
+    within 1e-3."""
+    img_gpu = fn("cuda").cpu()
+    t0 = time.time()
+    img_cpu = fn("cpu")
+    close = pixels_close(img_gpu, img_cpu)
+    log(f"{tag} 64x64: pixels within 1e-3 of the CPU's image: {close:.4f} "
+        f"(the CPU's render {time.time() - t0:.2f} s)")
+    if close < 0.99:
+        raise AssertionError(f"{tag}: card vs CPU image: {close} of pixels agree")
+
+
+def production_tile(pt, tc, tp, scene, card) -> tuple:
+    """Production on the flat scene: render_production at spp 16 (one
+    round of K = 16, 64 tiles of 2^18 rays) against render at spp 16 by
+    the image rule, both timed; one tile of K = 16 profiled; then tile
+    TILE alone at the default K = 64, one 2^20-ray wavefront: timed, its
+    launches and the card's peak memory for it, B1 and B2 against their
+    twins on its primary, bounce and shadow wavefronts. Returns (the
+    "kernels" records of B1 and B2, their launches in that tile)."""
+    dev = scene.tri_attr.device
+    W, H = scene.camera.width, scene.camera.height
+    spp = 16
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    stats = {}
+    t0 = time.time()
+    prod = pt.render_production(scene, spp, seed=SEED, max_depth=DEPTH,
+                                device=dev, stats=stats)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = launch_counts(tc, tp)
+    t0 = time.time()
+    ref = pt.render(scene, spp, seed=SEED, max_depth=DEPTH, device=dev)
+    torch.cuda.synchronize()
+    dt_ref = time.time() - t0
+    close = pixels_close(prod, ref)
+    rays = int(stats["rays"])
+    log(f"phase 16 production: {W}x{H} spp {spp} ({stats['tiles']} tiles x "
+        f"{stats['rounds']} round of K = {spp}) in {dt:.3f} s: "
+        f"{spp * W * H / dt / 1e6:.4f} Msamples/s, {rays / dt / 1e6:.4f} "
+        f"Mrays/s ({rays} rays), launches {counts}; render at spp {spp} in "
+        f"{dt_ref:.3f} s ({spp * W * H / dt_ref / 1e6:.4f} Msamples/s); "
+        f"pixels within 1e-3 of render's: {close:.6f} [{card}]")
+    if close < 0.99:
+        raise AssertionError(f"phase 16 production vs render: {close}")
+    if not (counts["closest_launches"] > 0 and counts["any_launches"] > 0):
+        raise AssertionError(f"phase 16 production: launches {counts}")
+    n = TILE_PIXELS
+    ids = torch.arange(TILE * n, (TILE + 1) * n, device=dev)
+    profile_pass(pt, scene, card, "phase 16 production", what=f"one tile of "
+                 f"{n} pixels x {spp} samples", run=lambda:
+                 pt.render_tile_production(scene, ids, 0, SEED, spp, DEPTH))
+
+    pt.render_tile_production(scene, ids, 0, SEED, 64, DEPTH)  # warm-up
+    torch.cuda.synchronize()
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    tile = pt.render_tile_production(scene, ids, 0, SEED, 64, DEPTH)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    tile_counts = launch_counts(tc, tp)
+    if not bool(torch.isfinite(tile).all()) or tuple(tile.shape) != (n, 3):
+        raise AssertionError("phase 16 production: K = 64 tile")
+    log(f"phase 16 production tile {TILE}, {n} pixels x K = 64 "
+        f"({n * 64} rays a wavefront, {n * 64 // tc.R_BLK} blocks of "
+        f"{tc.R_BLK}): {ms:.2f} ms, launches {tile_counts}, peak device "
+        f"memory {peak / 2**20:.1f} MiB above the scene's [{card}]")
+    profile_pass(pt, scene, card, "phase 16 production", what="one tile of "
+                 f"{n} pixels x 64 samples", run=lambda:
+                 pt.render_tile_production(scene, ids, 0, SEED, 64, DEPTH))
+    # the same tile through B4, whose packet queue then takes 2^15 packets
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+    pkt_scene = bench_scene(W, H, DEPTH, traversal="packet").to(dev)
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    t0 = time.time()
+    tile_pkt = pt.render_tile_production(pkt_scene, ids, 0, SEED, 64, DEPTH)
+    torch.cuda.synchronize()
+    pkt_ms = (time.time() - t0) * 1e3
+    pkt_counts = launch_counts(tc, tp)
+    close = pixels_close(tile_pkt, tile)
+    log(f"phase 16 production tile {TILE} on the packet route: {pkt_ms:.2f} ms "
+        f"(first call), launches {pkt_counts}; pixels within 1e-3 of the "
+        f"cluster route's tile: {close:.6f} [{card}]")
+    if (close < 0.99 or pkt_counts["pkt_closest_launches"] == 0
+            or any(pkt_counts[k] for k in TC_COUNTERS)):
+        raise AssertionError(f"phase 16 packet tile: {close}, {pkt_counts}")
+    del pkt_scene
+    o, d, _ = pt._production_rays(scene, ids, 0, SEED, 64)
+    raw = wavefronts(pt, scene, rays=(o, d))
+    recs = check_kernels("phase 16 production 2^20", tc, scene,
+                         cluster_cases(tc, raw), card)
+    return recs, (tile_counts["closest_launches"], tile_counts["any_launches"])
+
+
+def wide_tile(tag, pt, tc, tp, scene, card, expect: set) -> None:
+    """Tile TILE of `scene` at the default K = 64, one 2^20-ray wavefront
+    (on the gates scene up to 2^22 AO probes a bounce, on the textured
+    scene the alpha layer at that width): one call, timed, with the launch
+    counters set to 0 just before and read just after (`expect` > 0, the
+    rest 0) and the card's peak memory above the scene's; against the same
+    samples as four K = 16 tiles (pass_base 0, 16, 32, 48) by the image
+    rule."""
+    dev = scene.tri_attr.device
+    n = TILE_PIXELS
+    ids = torch.arange(TILE * n, (TILE + 1) * n, device=dev)
+    torch.cuda.synchronize()
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    tile = pt.render_tile_production(scene, ids, 0, SEED, 64, DEPTH,
+                                     device=dev)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    counts = launch_counts(tc, tp)
+    for k, v in counts.items():
+        if (v > 0) != (k in expect):
+            raise AssertionError(f"{tag} K = 64 tile: launches {counts}")
+    if not bool(torch.isfinite(tile).all()) or tuple(tile.shape) != (n, 3):
+        raise AssertionError(f"{tag} K = 64 tile: not finite or shape")
+    t0 = time.time()
+    parts = [pt.render_tile_production(scene, ids, 16 * r, SEED, 16, DEPTH,
+                                       device=dev) for r in range(4)]
+    torch.cuda.synchronize()
+    ms16 = (time.time() - t0) * 1e3
+    close = pixels_close(tile, sum(parts) / 4)
+    log(f"{tag} production tile {TILE}, {n} pixels x K = 64 ({n * 64} rays "
+        f"a wavefront): {ms:.2f} ms (first call), launches {counts}, peak "
+        f"device memory {peak / 2**20:.1f} MiB above the scene's; four K = 16 "
+        f"tiles {ms16:.2f} ms; pixels within 1e-3 of their mean: {close:.6f} "
+        f"[{card}]")
+    if close < 0.99:
+        raise AssertionError(f"{tag} K = 64 tile vs four K = 16: {close}")
+
+
+def sky_scene(width: int, height: int):
+    """An open, sky-lit scene with short mean paths: bench_builder's GGX and
+    glass spheres on a 12 x 12 diffuse ground under a uniform sky, no walls
+    and no other light, behind bench_scene's camera: the upper half of the
+    frame sees the sky at once and most bounces off the ground escape."""
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder, bench_scene
+
+    b = SceneBuilder()
+    ground = b.lambert([0.6, 0.6, 0.6])
+    b.add_rect([0, -2.0, 0], [6, 0, 0], [0, 0, 6], ground, flip=True)
+    ggx = b.add_material(refl_color=np.array([0.8, 0.7, 0.5], np.float32),
+                         refl_dist=2, refl_alpha=0.25, refl_gloss=0.75)
+    b.add_sphere([-0.6, -1.1, -0.4], 0.9, ggx, n_seg=160, n_ring=80)
+    glass = b.add_material(transp_color=np.array([0.95] * 3, np.float32),
+                           transp_gloss=1.0, transp_ior=1.5)
+    b.add_sphere([0.9, -1.5, 0.7], 0.5, glass)
+    b.sky([0.6, 0.7, 0.9])
+    return bench_scene(width, height, DEPTH, builder=b)
+
+
+def source_phase(card, pt, tc, tp, dev, gates_prof) -> None:
+    """Phase 16's procedural-texture source: gates_desc with the back wall's
+    falloff given as FALLOFF_C, a .c file written into the library.
+    assemble compiles it (ops/proctex_c): one compiled entry in the
+    registry, the stdlib falloff not bound. One 1024^2 pass on the card
+    (launches against the stdlib scene's pass, `gates_prof`), its
+    profile, 64x64 card against the CPU and against the stdlib scene's
+    card image."""
+    from hydracore_tpu_torch.ops import proctex
+    from hydracore_tpu_torch.scene import statefile as sf
+    from hydracore_tpu_torch.scene.scene import assemble
+    from hydracore_tpu_torch.utils.build import BUILD_DIR
+
+    lib = tempfile.mkdtemp(prefix="source_", dir=BUILD_DIR)
+    proctex.clear_registry()
+    try:
+        with open(os.path.join(lib, "falloff.c"), "w") as f:
+            f.write(FALLOFF_C)
+
+        def desc_of(width, height, source: bool):
+            desc = gates_desc(lib, width, height)
+            if source:
+                desc.textures[5] = sf.TextureDesc(
+                    id=5, name="falloff", loc="falloff.c", offset=0,
+                    bytesize=0, proc_name="falloff")
+            return desc
+
+        t0 = time.time()
+        host = assemble(desc_of(WIDTH, HEIGHT, True))
+        fns = [f for f, _ in proctex._REGISTRY]
+        compiled = [f.__name__ for f in fns if f.__name__.startswith("proctex_")]
+        log(f"phase 16 proc-tex source: registry {[f.__name__ for f in fns]}, "
+            f"assembled in {time.time() - t0:.2f} s")
+        if compiled != ["proctex_prtex1_main"] or proctex.falloff in fns:
+            raise AssertionError(f"phase 16 source: registry {fns}")
+        scene = host.to(dev)
+        drive_main_path("phase 16 proc-tex source", pt, tc, tp, scene, card,
+                        {"closest_launches", "any_launches",
+                         "ao_any_launches"}, n_pass=1)
+        prof = profile_pass(pt, scene, card, "phase 16 proc-tex source")
+        if prof and gates_prof:
+            log(f"phase 16 proc-tex source: {prof['launches']} launches a "
+                f"pass against {gates_prof['launches']} with the stdlib "
+                f"falloff ({prof['launches'] - gates_prof['launches']:+d})")
+        del scene
+        small = assemble(desc_of(64, 64, True))
+        img_src = card_vs_cpu("phase 16 proc-tex source", pt, small, spp=4)
+        proctex.clear_registry()
+        img_std = pt.render(assemble(desc_of(64, 64, False)), spp=4,
+                            seed=SEED, device="cuda").cpu()
+        close = pixels_close(img_src, img_std)
+        log(f"phase 16 proc-tex source 64x64: pixels within 1e-3 of the "
+            f"stdlib falloff's card image: {close:.4f}")
+        if close < 0.99:
+            raise AssertionError(f"phase 16 source vs stdlib: {close}")
+    finally:
+        shutil.rmtree(lib, ignore_errors=True)
+        proctex.clear_registry()
+
+
+def schedules_phase(card, pt, tc, tp, dev) -> list:
+    """Phase 16: the path tracer's other schedules at 1024^2, depth DEPTH.
+    The regenerating wavefront against the pass loop on the flat scene and
+    the open sky-lit scene of sky_scene (N_PASS passes) and on phase 15's
+    gates scene (1 pass: fog, SSS and the AO probes ride the regen state),
+    B1 and B2 against their twins on a regen segment and its shadow rays;
+    render_pass at 1024^2 against render_passes(n_pass=1); production
+    sampling (production_tile) and a K = 64 tile of the gates and the
+    textured scene (wide_tile); a procedural texture given as C source
+    (source_phase); 64x64 card images of regen, production and render_pass
+    against the CPU. Returns the "kernels" rows of the new path rows: B1/B2
+    inside the regen loop and on a production tile's 2^20-ray wavefront."""
+    from hydracore_tpu_torch.integrators import pt_regen as regen
+    from hydracore_tpu_torch.ops import proctex
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+    from hydracore_tpu_torch.scene.scene import assemble
+    from hydracore_tpu_torch.utils.build import BUILD_DIR
+
+    t0 = time.time()
+    scene = bench_scene(WIDTH, HEIGHT, DEPTH).to(dev)
+    flat = compare_schedules("phase 16 flat", pt, regen, tc, tp, scene, card,
+                             {"closest_launches", "any_launches"}, N_PASS)
+    regen_recs = check_kernels("phase 16 regen", tc, scene,
+                               flat["regen"]["probe"].cases(tc, "regen"),
+                               card)
+    regen_counts = flat["regen"]["counts"]
+    log(f"phase 16 flat schedules: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    one, rays_one = pt.render_passes(scene, 5, SEED, n_pass=1,
+                                     max_depth=DEPTH, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    img, rays = pt.render_pass(scene, 5, SEED, max_depth=DEPTH, device=dev)
+    torch.cuda.synchronize()
+    close = pixels_close(img, one)
+    log(f"phase 16 render_pass: {WIDTH}x{HEIGHT} in {time.time() - t1:.3f} s "
+        f"({int(rays)} rays) against render_passes(n_pass=1) in "
+        f"{t1 - t0:.3f} s ({int(rays_one)} rays); pixels within 1e-3: "
+        f"{close:.6f} [{card}]")
+    if close < 0.99 or abs(int(rays) - int(rays_one)) > 0.02 * int(rays_one):
+        raise AssertionError(f"phase 16 render_pass: {close}, rays {int(rays)}"
+                             f" / {int(rays_one)}")
+
+    t0 = time.time()
+    sky = sky_scene(WIDTH, HEIGHT).to(dev)
+    compare_schedules("phase 16 sky", pt, regen, tc, tp, sky, card,
+                      {"closest_launches", "any_launches"}, N_PASS)
+    del sky
+    log(f"phase 16 sky schedules: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    lib = tempfile.mkdtemp(prefix="gates_", dir=BUILD_DIR)
+    proctex.clear_registry()
+    try:
+        gscene = assemble(gates_desc(lib, WIDTH, HEIGHT)).to(dev)
+        gates = compare_schedules(
+            "phase 16 gates", pt, regen, tc, tp, gscene, card,
+            {"closest_launches", "any_launches", "ao_any_launches"}, 1)
+        wide_tile("phase 16 gates", pt, tc, tp, gscene, card,
+                  {"closest_launches", "any_launches", "ao_any_launches"})
+        del gscene
+    finally:
+        shutil.rmtree(lib, ignore_errors=True)
+        proctex.clear_registry()
+    log(f"phase 16 gates schedules and tile: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    lib = tempfile.mkdtemp(prefix="textured_", dir=BUILD_DIR)
+    try:
+        tscene = assemble(textured_desc(lib, WIDTH, HEIGHT)).to(dev)
+        wide_tile("phase 16 textured", pt, tc, tp, tscene, card,
+                  {"closest_launches", "opaque_any_launches"})
+        del tscene
+    finally:
+        shutil.rmtree(lib, ignore_errors=True)
+    log(f"phase 16 textured tile: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    tile_recs, tile_counts = production_tile(pt, tc, tp, scene, card)
+    del scene
+    log(f"phase 16 production: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    source_phase(card, pt, tc, tp, dev, gates["pass loop"]["profile"])
+    log(f"phase 16 proc-tex source: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    small = bench_scene(64, 64, DEPTH)
+    twin_image("phase 16 regen (4,096 lanes, 8 passes)", lambda dv:
+               pt.render_passes(small, 0, SEED, n_pass=8, max_depth=DEPTH,
+                                device=dv, regen=True, lanes=4096)[0] / 8)
+    twin_image("phase 16 production (spp 8, tiles of 1,024)", lambda dv:
+               pt.render_production(small, 8, seed=SEED, max_depth=DEPTH,
+                                    tile_pixels=1024, device=dv))
+    twin_image("phase 16 render_pass", lambda dv:
+               pt.render_pass(small, 3, SEED, max_depth=DEPTH, device=dv)[0])
+    log(f"phase 16 64x64 images: {time.time() - t0:.2f} s")
+
+    at = "hydracore_tpu/ops/traverse_cluster.py:576"
+    b12 = ("B1 cluster traversal", "B2 cluster traversal")
+    return (kernel_rows(b12, "flat pool Cp 384, inside the regen loop",
+                        CLUSTER_CU, at, regen_recs,
+                        (regen_counts["closest_launches"],
+                         regen_counts["any_launches"]))
+            + kernel_rows(b12, "flat pool Cp 384, a production tile's 2^20-ray "
+                          "wavefront", CLUSTER_CU, at, tile_recs, tile_counts))
+
+
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
 LAB_SRCS = ["lab_gather.cu", "lab_prims.cu", "lab_subvisit.cu",
@@ -2137,6 +2635,13 @@ def main() -> int:
     t0 = time.time()
     gates_rows = gates_phase(card, pt, tc, tp, trace_api, dev)
     log(f"phase 15 gates: {time.time() - t0:.2f} s")
+
+    # ---- phase 16: the other schedules of the path tracer (the
+    # regenerating wavefront, production sampling, render_pass) and a
+    # procedural texture compiled from its C source
+    t0 = time.time()
+    schedule_rows = schedules_phase(card, pt, tc, tp, dev)
+    log(f"phase 16 schedules: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -2159,7 +2664,7 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + opaque_rows + gates_rows + lab_rows + trav_rows)
+            + opaque_rows + gates_rows + schedule_rows + lab_rows + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,10 @@ Semantics (ref IntegratorMISPT::PathTrace / trace1D_Rev):
 
 The counter-based RNG (ops/rng.py) makes the sample set identical to the
 JAX package's, ray for ray. Python loops replace jit and fori_loop; the
-entry points (render_passes, render) run on `device` ("cuda" by default).
+entry points (render_pass, render_passes, render, render_production,
+render_tile_production, and through render_passes(regen=True) the
+regenerating wavefront of integrators/pt_regen.py) run on `device`
+("cuda" by default).
 """
 from __future__ import annotations
 
@@ -683,6 +686,20 @@ def _morton_pixel_inverse(W: int, H: int):
     return inv
 
 
+def eye_rays(cam, pix, samp, seed: int):
+    """Eye rays of the flat pixel ids pix at the QMC sample indices samp
+    (int64, 32-bit): the streams keyed by pix * PHI ^ samp, the screen
+    jitter screen_sample(samp, pix), the lens from the stream. Every
+    schedule (pass loop, production, regen) draws its rays here, so all
+    share one sample set. Returns (ray_o, ray_d, sample_idx)."""
+    W = cam.width
+    sample_idx = rng.mul32(pix, 0x9E3779B9) ^ samp
+    jitter = rng.screen_sample(samp, pix)
+    lens = rng.rand2(sample_idx, 0, DG_LENS, seed)
+    ray_o, ray_d = make_eye_rays(cam, pix % W, pix // W, jitter, lens)
+    return ray_o, ray_d, sample_idx
+
+
 def primary_rays(scene, passes, seed: int, band: tuple[int, int] | None = None):
     """Eye rays of the Morton-ordered pixel band [start, end) for each pass
     in `passes`, pass-major. Returns (ray_o, ray_d, sample_idx, pix) with
@@ -694,13 +711,10 @@ def primary_rays(scene, passes, seed: int, band: tuple[int, int] | None = None):
     # consecutive ray blocks become compact screen tiles (Morton order)
     pix = torch.as_tensor(_morton_pixel_order(W, H)[start:end].astype(np.int64),
                           device=dev)
-    pix_all = pix.repeat(len(passes))
     pass_all = torch.as_tensor([p & rng.M32 for p in passes], dtype=torch.int64,
                                device=dev).repeat_interleave(pix.shape[0])
-    sample_idx = rng.mul32(pix_all, 0x9E3779B9) ^ pass_all
-    jitter = rng.screen_sample(pass_all, pix_all)
-    lens = rng.rand2(sample_idx, 0, DG_LENS, seed)
-    ray_o, ray_d = make_eye_rays(cam, pix_all % W, pix_all // W, jitter, lens)
+    ray_o, ray_d, sample_idx = eye_rays(cam, pix.repeat(len(passes)),
+                                        pass_all, seed)
     return ray_o, ray_d, sample_idx, pix
 
 
@@ -741,11 +755,34 @@ def render_passes_band(scene, pass_base: int, seed: int, n_pass: int = 8,
     return acc, pix, rays
 
 
+def render_pass(scene, pass_idx: int, seed: int, max_depth: int = 5,
+                device=None):
+    """One sample for every pixel: render_passes with n_pass = 1, in
+    megablock bands (the JAX package traces the frame in one wavefront;
+    the image and ray count are the same, since every ray's numbers depend
+    only on its pixel and pass). Returns ((H, W, 3) radiance f32, rays
+    traced (int64 scalar tensor)) on `device` ("cuda" unless asked)."""
+    return render_passes(scene, pass_idx, seed, n_pass=1, max_depth=max_depth,
+                         device=device)
+
+
 def render_passes(scene, pass_base: int, seed: int, n_pass: int = 8,
-                  max_depth: int = 5, device=None):
+                  max_depth: int = 5, device=None, regen: bool = False,
+                  lanes: int | None = None):
     """N full-frame passes, megablock-banded when the frame exceeds
     MEGABLOCK rays. Returns (sum of N pass images (H,W,3) f32, total rays
-    traced (int64 scalar tensor)) on `device` ("cuda" unless asked)."""
+    traced (int64 scalar tensor)) on `device` ("cuda" unless asked).
+    With regen a scene that pt_regen.regen_supported accepts goes through
+    the regenerating wavefront of `lanes` lanes (the same sample set); any
+    other scene through the pass loop."""
+    if regen:  # pt_regen imports this module
+        from hydracore_tpu_torch.integrators.pt_regen import (
+            regen_supported, render_passes_regen)
+
+        if regen_supported(scene):
+            return render_passes_regen(scene, pass_base, seed, n_pass=n_pass,
+                                       max_depth=max_depth, lanes=lanes,
+                                       device=device)
     dev = resolve_device(device)
     check_supported(scene)
     scene = scene.to(dev)
@@ -766,10 +803,82 @@ def render_passes(scene, pass_base: int, seed: int, n_pass: int = 8,
     return morton_full[inv].reshape(H, W, 3), rays
 
 
-def render(scene, spp: int, seed: int = 777, max_depth: int | None = None,
-           progress=None, device=None):
-    """Accumulate `spp` passes; returns (H, W, 3) float32 mean radiance on
+def _production_rays(scene, pix_ids, pass_base: int, seed: int,
+                     k_samples: int):
+    """Eye rays of K samples of each pixel of pix_ids (P,), pixel-major:
+    sample k of pixel p is sample pass_base + k of the pass loop. Returns
+    (ray_o, ray_d, sample_idx), P * K each."""
+    P = pix_ids.shape[0]
+    pix = pix_ids.to(torch.int64).repeat_interleave(k_samples)
+    samp = (torch.arange(k_samples, dtype=torch.int64, device=pix.device)
+            .repeat(P) + pass_base) & rng.M32
+    return eye_rays(scene.camera, pix, samp, seed)
+
+
+def _tile_production(scene, pix_ids, pass_base: int, seed: int,
+                     k_samples: int, max_depth: int):
+    """render_tile_production on a scene already on its device, with the
+    rays traced (int64 scalar tensor)."""
+    ray_o, ray_d, sample_idx = _production_rays(scene, pix_ids, pass_base,
+                                                seed, k_samples)
+    color, rays = pt_trace(scene, ray_o, ray_d, sample_idx, seed,
+                           max_depth=max_depth)
+    color = torch.clamp(color, 0.0, scene.settings.clamp)
+    return color.reshape(pix_ids.shape[0], k_samples, 3).mean(dim=1), rays
+
+
+def render_tile_production(scene, pix_ids, pass_base: int, seed: int,
+                           k_samples: int = 64, max_depth: int = 5,
+                           device=None):
+    """Production sampling: K samples of each pixel of pix_ids (P,) flat
+    pixel ids in one wavefront of P * K rays, pixel-major, the QMC index of
+    sample k being pass_base + k (ref RunProductionSamplingMode); each
+    sample clamped, then the per-pixel mean. Returns (P, 3) f32 on
     `device` ("cuda" unless asked)."""
+    dev = resolve_device(device)
+    check_supported(scene)
+    pix_ids = torch.as_tensor(pix_ids, device=dev)
+    return _tile_production(scene.to(dev), pix_ids, pass_base, seed,
+                            k_samples, max_depth)[0]
+
+
+def render_production(scene, spp: int, seed: int = 777,
+                      max_depth: int | None = None, tile_pixels: int = 16384,
+                      device=None, stats: dict | None = None):
+    """Offline 'production' render: tiles of tile_pixels pixels in raster
+    order, each in rounds of K = min(spp, 64) samples a pixel (round r at
+    pass_base r * K), the tile the mean of its ceil(spp / K) rounds, so spp
+    is rounded up to whole rounds, as in the JAX package. Returns (H, W, 3)
+    f32 on `device` ("cuda" unless asked); a `stats` dict receives the
+    tiles, the rounds a tile and the rays traced."""
+    dev = resolve_device(device)
+    check_supported(scene)
+    md = max_depth or scene.settings.trace_depth
+    scene = scene.to(dev)
+    H, W = scene.camera.height, scene.camera.width
+    k = min(max(spp, 1), 64)
+    n_rounds = -(-spp // k)  # ceil: never silently under-sample
+    out = torch.zeros((H * W, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for start in range(0, H * W, tile_pixels):
+        ids = torch.arange(start, min(start + tile_pixels, H * W),
+                           dtype=torch.int64, device=dev)
+        acc = torch.zeros((ids.shape[0], 3), dtype=torch.float32, device=dev)
+        for r in range(n_rounds):
+            c, rr = _tile_production(scene, ids, r * k, seed, k, md)
+            acc = acc + c
+            rays = rays + rr
+        out[start:start + ids.shape[0]] = acc / n_rounds
+    if stats is not None:
+        stats.update(tiles=-(-H * W // tile_pixels), rounds=n_rounds,
+                     rays=rays)
+    return out.reshape(H, W, 3)
+
+
+def render(scene, spp: int, seed: int = 777, max_depth: int | None = None,
+           progress=None, device=None, regen: bool = False):
+    """Accumulate `spp` passes; returns (H, W, 3) float32 mean radiance on
+    `device` ("cuda" unless asked). regen as in render_passes."""
     dev = resolve_device(device)
     md = max_depth or scene.settings.trace_depth
     scene = scene.to(dev)  # keep the scene heap device-resident
@@ -780,7 +889,7 @@ def render(scene, spp: int, seed: int = 777, max_depth: int | None = None,
     while i < spp:
         k = min(chunk, spp - i)
         color, _ = render_passes(scene, i, seed, n_pass=k, max_depth=md,
-                                 device=dev)
+                                 device=dev, regen=regen)
         fb = fb + color
         i += k
         if progress is not None:

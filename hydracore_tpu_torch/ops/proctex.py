@@ -10,10 +10,10 @@ their `name` or their `prtexN_<name>` main symbol to the stdlib below
 (scene/materials.py:build_material_table); their per-material `<arg>`
 stacks ride the material row (MA_PROC_ARGS).
 
-A texture that ships its C source is compiled by the JAX package
-(ops/proctex_c); that translator is not ported, so such a texture raises
-NotImplementedError here and never falls back to a stdlib match, which
-would silently give another result.
+A texture that ships its C source is compiled by ops/proctex_c (the C
+subset the reference's shaders use, evaluated over the ray batch) and
+registered with the 7-argument protocol; a source outside that subset
+warns and falls back to the stdlib match, as in the JAX package.
 
 Callable protocol, chosen by the count of required parameters:
 
@@ -34,6 +34,9 @@ import inspect
 import warnings
 
 import torch
+
+from hydracore_tpu_torch.ops.proctex_c import (ProcTexCompileError,
+                                               compile_proc_tex)
 
 _REGISTRY: list = []  # entries: (fn, n_params)
 
@@ -154,29 +157,52 @@ STDLIB = {
 }
 
 
-_STDLIB_IDS: dict = {}  # fn -> registered id (repeated scene loads must
-# not grow the registry: every registered function runs on every batch)
+_STDLIB_IDS: dict = {}  # fn -> registered id (repeated loads must not
+# grow the registry: every registered function runs on every batch)
+_SOURCE_IDS: dict = {}  # (loc, main, source) -> (registered id, shader)
 
 
 def register_source_instance(source: str, main: str | None = None,
                              gen_args: list | None = None,
                              cache_key: str | None = None) -> int:
-    """Compile a procedural texture's C source and register it: the JAX
-    package's ops/proctex_c translator, not ported. Raises."""
-    raise NotImplementedError("procedural texture source (ops/proctex_c)")
+    """Compile a procedural texture's C source (the statefile's .c payload)
+    with ops/proctex_c and register it with arity 7 (the translated shader
+    takes the ao input too), once per (`cache_key` (the library location),
+    main, source): the analogue of the reference's run-time OpenCL splice
+    and recompile (RenderDriverRTE_ProcTex.cpp:467-563). A cached id is
+    reused only while the registry still holds its shader there. Raises
+    ProcTexCompileError outside the supported subset."""
+    key = (cache_key, main, source)
+    if key in _SOURCE_IDS:
+        i, fn = _SOURCE_IDS[key]
+        if i < len(_REGISTRY) and _REGISTRY[i][0] is fn:
+            return i
+    fn = compile_proc_tex(source, main=main, gen_args=gen_args)
+    _REGISTRY.append((fn, 7))
+    _SOURCE_IDS[key] = (len(_REGISTRY) - 1, fn)
+    return len(_REGISTRY) - 1
 
 
 def register_stdlib_instance(name: str, loc: str = "",
                              main: str | None = None,
                              source: str | None = None,
                              gen_args: list | None = None) -> int:
-    """Bind a declared statefile procedural texture: its SOURCE when it has
-    one (register_source_instance: raises, see the module note), else the
-    stdlib entry of its texture name or main symbol, else -1 with a
-    warning (the material renders without it, but never silently)."""
+    """Bind a declared statefile procedural texture: 1) its SOURCE when it
+    has one (register_source_instance); a source outside the translator's
+    subset warns and goes on to 2) the stdlib entry of its texture name or
+    main symbol; else 3) -1 with a warning (the material renders without
+    it, but never silently). Any error but ProcTexCompileError
+    propagates."""
     if source:
-        return register_source_instance(source, main=main, gen_args=gen_args,
-                                        cache_key=loc or None)
+        try:
+            return register_source_instance(source, main=main,
+                                            gen_args=gen_args,
+                                            cache_key=loc or None)
+        except ProcTexCompileError as e:
+            warnings.warn(
+                f"procedural texture '{name}' ({loc}): source translation "
+                f"failed ({e}); falling back to the stdlib match",
+                stacklevel=2)
     fn = STDLIB.get(name.lower().strip())
     if fn is None and main:
         key = main.lower().strip()

@@ -72,13 +72,19 @@ def _to_unit_float(bits):
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def rand4(sample_index, bounce: int, dim_group: int, seed=0):
-    """Four uniform floats (..., 4) for (sample, bounce, dimension-group)."""
+def rand4(sample_index, bounce, dim_group: int, seed=0):
+    """Four uniform floats (..., 4) for (sample, bounce, dimension-group).
+    bounce is an int, or an integer tensor of one bounce per sample (the
+    regenerating wavefront keys each lane by its own depth)."""
     s = sample_index & M32
-    mix = ((bounce * 0x9E3779B9) & M32) ^ ((dim_group * 0x85EBCA6B) & M32)
+    group_mix = (dim_group * 0x85EBCA6B) & M32
+    if isinstance(bounce, torch.Tensor):
+        mix = mul32(bounce.to(torch.int64) & M32, 0x9E3779B9) ^ group_mix
+        mix = torch.broadcast_to(mix, s.shape)
+    else:
+        mix = torch.full_like(s, ((bounce * 0x9E3779B9) & M32) ^ group_mix)
     seed_t = u32(seed, s.device)
-    key = torch.stack([s, torch.full_like(s, mix),
-                       torch.broadcast_to(seed_t, s.shape)], dim=-1)
+    key = torch.stack([s, mix, torch.broadcast_to(seed_t, s.shape)], dim=-1)
     h = pcg3d(key)
     w = hash_u32(h[..., 0] ^ h[..., 1] ^ h[..., 2] ^ 0x27220A95)
     bits = torch.stack([h[..., 0], h[..., 1], h[..., 2], w], dim=-1)

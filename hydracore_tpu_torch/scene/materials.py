@@ -449,8 +449,9 @@ def build_material_table(desc: SceneDesc, tex_remap: np.ndarray,
     # (texref_proc). Unreferenced declarations cost nothing (the bundled
     # teapot_cylinder/test_aniso* scenes declare falloff/hexaplanar without
     # binding them, matching the reference's lazy table fill). A texture
-    # whose .c source lies in the library raises (ops/proctex.py: the
-    # source translator is not ported, and a stdlib match would differ).
+    # whose .c source lies in the library is compiled from it
+    # (ops/proctex_c), falling back to the stdlib match only when the source
+    # is outside the translator's subset.
     from hydracore_tpu_torch.ops.proctex import register_stdlib_instance
 
     proc_map: dict[int, tuple] = {}  # tid -> (proc id, ao_type, ao_length)

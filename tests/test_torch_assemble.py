@@ -309,8 +309,8 @@ def test_statefile_library_parity(tmp_path, instancing):
     assert ps.settings.has_inst == (instancing == "force")
 
 
-def _desc_with(materials_xml: str, textures: dict):
-    desc = make_desc(PORT, False)
+def _desc_with(materials_xml: str, textures: dict, pkg=PORT):
+    desc = make_desc(pkg, False)
     desc.materials[0] = ET.fromstring(materials_xml)
     desc.textures.update(textures)
     return desc
@@ -318,31 +318,43 @@ def _desc_with(materials_xml: str, textures: dict):
 
 def test_unported_bindings_raise(tmp_path):
     """A bound procedural texture whose C source lies in the library is
-    refused by name (its translator, ops/proctex_c, is not ported), never
-    bound to a stdlib function in its place; one that no stdlib function
-    matches warns and renders untextured, as in the JAX package; a bound
-    image texture (refused before the port carried textures) assembles
-    with its texels in the heap and its gate set, as the JAX package
-    assembles it."""
+    compiled from it (ops/proctex_c) and registered before any stdlib
+    match, as in the JAX package: "float4 prtex1_main() { }" compiles (it
+    raises only when evaluated), both packages give it id 0 and assemble
+    the same leaves; one that no stdlib function matches warns and renders
+    untextured, as in the JAX package; a bound image texture (refused
+    before the port carried textures) assembles with its texels in the
+    heap and its gate set, as the JAX package assembles it."""
+    from hydracore_tpu.ops import proctex as jproc
     from hydracore_tpu_torch.ops import proctex as pproc
 
     xml = ('<material id="0" type="hydra_material"><diffuse brdf_type="lambert">'
            '<color val="1 1 1"><texture id="1" type="texref_proc"/></color>'
            '</diffuse></material>')
     (tmp_path / "noise.c").write_text("float4 prtex1_main() { }\n")
+    jproc.clear_registry()
+    pproc.clear_registry()
     try:
-        proc = psf.TextureDesc(id=1, name="falloff", loc="noise.c", offset=0,
-                               bytesize=0, proc_name="falloff")
-        desc = _desc_with(xml, {1: proc})
-        desc.lib_dir = str(tmp_path)
-        with pytest.raises(NotImplementedError, match="proctex_c"):
-            pscene.assemble(desc)
+        scenes = []
+        for pkg, mod, proc_mod in ((JAX, jscene, jproc), (PORT, pscene, pproc)):
+            proc = pkg[0].TextureDesc(id=1, name="falloff", loc="noise.c",
+                                      offset=0, bytesize=0,
+                                      proc_name="falloff")
+            desc = _desc_with(xml, {1: proc}, pkg)
+            desc.lib_dir = str(tmp_path)
+            scenes.append(mod.assemble(desc))
+            assert proc_mod.num_proc_tex() == 1
+            assert proc_mod._REGISTRY[0][0].__name__ == "proctex_prtex1_main"
+        js, sc = scenes
+        _assert_same_leaves(jax_leaves(js), pscene.scene_leaves(sc))
+        pproc.clear_registry()
         proc = psf.TextureDesc(id=1, name="noise", loc=None, offset=0,
                                bytesize=0, proc_name="noise")
         with pytest.warns(UserWarning, match="noise"):
             sc = pscene.assemble(_desc_with(xml, {1: proc}))
         assert not sc.settings.has_proc_tex and pproc.num_proc_tex() == 0
     finally:
+        jproc.clear_registry()
         pproc.clear_registry()
 
     img = np.full((2, 2, 4), 128, np.uint8)

@@ -32,7 +32,8 @@ def test_sources_import_no_jax():
             "scene/materials.py", "scene/lights.py", "lights/ies.py",
             "bvh/instanced.py", "bvh/clusters.py", "bvh/wide.py",
             "ops/trace_api.py", "ops/traverse_dense.py", "ops/traverse_wide.py",
-            "ops/traverse_packet.py", "ops/proctex.py",
+            "ops/traverse_packet.py", "ops/proctex.py", "ops/proctex_c.py",
+            "integrators/pt_regen.py",
             "tools/bench_pallas_gather.py",
             "tools/proto_prims.py", "tools/proto_subvisit.py",
             "tools/exp_kernel_cost.py", "tools/proto_cluster.py",

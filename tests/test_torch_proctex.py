@@ -7,9 +7,10 @@ perlin_marble within 1e-4 on >= 99% of points with its hash replaced by a
 well-conditioned one in both packages (test_examples_match_jax says why
 the hash itself agrees only where the arithmetic does). The registries
 are per package: each test registers the same functions in the same order
-in both and clears both after. A texture that ships its C source raises
-NotImplementedError in the port (its translator, ops/proctex_c, is not
-ported), never falling back to a stdlib match.
+in both and clears both after. A texture that ships its C source is
+compiled by ops/proctex_c in both packages (tests/test_torch_proctex_c.py
+holds the two translators together), falling back to the stdlib match, with
+a warning, only when the source is outside the translator's subset.
 """
 import dataclasses
 import os
@@ -295,14 +296,40 @@ def test_statefile_proc_textures(registries, tmp_path):
 
 
 def test_source_raises(registries, tmp_path):
-    """A texture whose .c source lies in the library raises by name in the
-    port (register_stdlib_instance and build_material_table), never
-    binding the stdlib falloff in its place."""
-    with pytest.raises(NotImplementedError, match="proctex_c"):
-        pproc.register_stdlib_instance("falloff", "falloff.c",
-                                       source="float4 prtex1_main() {}")
-    with pytest.raises(NotImplementedError, match="proctex_c"):
-        pproc.register_source_instance("float4 prtex1_main() {}")
-    with pytest.raises(NotImplementedError, match="proctex_c"):
-        pscene.assemble(proc_desc(PORT, tmp_path, source=True))
-    assert pproc.num_proc_tex() == 0
+    """A texture whose .c source lies in the library is compiled
+    (ops/proctex_c) and registered with arity 7 ahead of any stdlib match,
+    in both packages alike; a source outside the translator's subset
+    raises ProcTexCompileError, on which register_stdlib_instance warns and
+    binds the stdlib match; "float4 prtex1_main() { }" registers (it raises
+    only when evaluated). build_material_table binds the library's source
+    for the falloff texture: the same ids and leaves in both packages."""
+    from hydracore_tpu.ops import proctex_c as jpc
+    from hydracore_tpu_torch.ops import proctex_c as ppc
+
+    good = ("float4 prtex1_main(const SurfaceInfo* sHit) "
+            "{ return make_float4(0.5f, 1, 1, 1); }")
+    bad = "float4 prtex1_main(const SurfaceInfo* sHit) { while (1) {} }"
+    for proc, pc in ((jproc, jpc), (pproc, ppc)):
+        i = proc.register_stdlib_instance("falloff", "good.c", source=good)
+        assert i == 0 and proc._REGISTRY[0][1] == 7
+        assert proc._REGISTRY[0][0] is not proc.falloff
+        with pytest.raises(pc.ProcTexCompileError):
+            proc.register_source_instance(bad)
+        with pytest.warns(UserWarning, match="falling back to the stdlib"):
+            k = proc.register_stdlib_instance("falloff", "bad.c", source=bad)
+        assert k == 1 and proc._REGISTRY[k][0] is proc.falloff
+        e = proc.register_source_instance("float4 prtex1_main() { }")
+        assert e == proc.num_proc_tex() - 1 == 2
+        assert proc.register_stdlib_instance("falloff", "good.c",
+                                             source=good) == 0
+        proc.clear_registry()
+
+    with pytest.warns(UserWarning, match="noise"):
+        js = jscene.assemble(proc_desc(JAX, tmp_path, source=True))
+    with pytest.warns(UserWarning, match="noise"):
+        ps = pscene.assemble(proc_desc(PORT, tmp_path, source=True))
+    _assert_same_leaves(jax_leaves(js), pscene.scene_leaves(ps))
+    assert [f.__name__ for f, _ in jproc._REGISTRY] \
+        == [f.__name__ for f, _ in pproc._REGISTRY] \
+        == ["proctex_prtex1_main", "hexaplanar", "ao_dirt"]
+    assert ps.materials.diff_proc.tolist()[:4] == [2, 0, 1, -1]

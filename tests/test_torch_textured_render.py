@@ -114,8 +114,10 @@ def test_gated_features_accepted(flag, value):
 
 def test_unknown_layer_and_source_raise(tmp_path):
     """An unknown render layer is refused by name (ValueError); a
-    procedural texture that ships its C source raises NotImplementedError
-    naming ops/proctex_c, the translator not ported."""
+    procedural texture that ships its C source no longer raises: the port
+    compiles it (ops/proctex_c) and registers it first, with the proc-tex
+    gate set, as the JAX package does with the same desc."""
+    from hydracore_tpu.ops import proctex as jproc
     from hydracore_tpu_torch.ops import proctex as pproc
     from tests.test_torch_proctex import proc_desc
 
@@ -124,8 +126,18 @@ def test_unknown_layer_and_source_raise(tmp_path):
         pscene.scene_from_arrays(
             jax_leaves(js), {**jax_settings(js), "render_layer": "albedo"},
             "cpu")
+    jproc.clear_registry()
+    pproc.clear_registry()
     try:
-        with pytest.raises(NotImplementedError, match="proctex_c"):
-            pscene.assemble(proc_desc(PORT, tmp_path, source=True))
+        with pytest.warns(UserWarning, match="noise"):
+            jsc = jscene.assemble(proc_desc(JAX, tmp_path, source=True))
+        with pytest.warns(UserWarning, match="noise"):
+            psc = pscene.assemble(proc_desc(PORT, tmp_path, source=True))
+        assert psc.settings.has_proc_tex and jsc.settings.has_proc_tex
+        assert pproc._REGISTRY[0][0].__name__ == "proctex_prtex1_main" \
+            == jproc._REGISTRY[0][0].__name__
+        assert psc.materials.diff_proc.tolist()[1] == 0
+        assert pproc.num_proc_tex() == jproc.num_proc_tex() == 3
     finally:
+        jproc.clear_registry()
         pproc.clear_registry()
