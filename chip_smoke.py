@@ -107,6 +107,26 @@ ops/proctex_c): one 1024^2 pass, its launches against the stdlib's, 64x64
 card against the CPU and against the stdlib texture; 64x64 card images of
 regen, production and render_pass against the CPU. Its four "kernels"
 rows follow phase 15's.
+Phase 17 is light tracing, the G-buffer and adaptive sampling
+(lt_gbuffer_phase): render_lt on the flat scene (2^20 light paths a pass,
+N_PASS passes: DEPTH - 1 unsorted 2^20-ray wavefronts of light rays through
+B1 and as many camera connections through B2 a pass) and on phase 8's packet
+scene (B4 in both modes, no packet at MAX_VISITS), each timed with its
+launch counters (Mpaths/s, Mrays/s from the live rays counted in the
+timed run, peak memory) and profiled; B1 and B2 against their twins on LT's
+first light and camera-connection wavefronts, B4 likewise on the whole
+2^20-ray wavefronts; eval_gbuffer (4 subsamples, each a 2^20-ray wavefront
+of eye rays and one of shadow rays, the shadow rays put into coherence
+order) on the flat scene (B1, B2) and on phase 6's instanced scene
+(B3 in both modes), each against its twins on the first subsample's
+wavefronts, the instanced inst_id equal to the flattened assembly's on
+>= 99.9% of pixels; render_adaptive on the flat scene at spp 8 -> 16 in tiles
+of 131,072 pixels (2^20 rays a wavefront; one base round, so no pixel is
+noisy), again in the default tiles of 16,384, and at 256^2, spp 33 -> 40
+(two base rounds, some pixels topped up); off the path, B1 on LT's light
+wavefront sorted into coherence order against the rays as they come;
+64x64 card against CPU for LT, every G-buffer layer and render_adaptive.
+Its "kernels" rows follow phase 16's.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -498,49 +518,73 @@ def launch_counts(tc, tp) -> dict:
     return out
 
 
-def drive_main_path(tag, pt, tc, tp, scene, card, expect: set,
-                    width: int = WIDTH, height: int = HEIGHT,
-                    n_pass: int = N_PASS) -> dict:
-    """One warm-up pass, then n_pass passes with the launch counters set to
-    0 just before and read just after. `expect` names the counters that must
-    be > 0; every other counter must stay 0. No packet of B4 may reach
-    MAX_VISITS."""
-    dev = scene.tri_attr.device
-    pt.render_passes(scene, 100, SEED, n_pass=1, max_depth=DEPTH, device=dev)
+def timed_call(tag, tc, tp, run, card, expect: dict, warm=None) -> tuple:
+    """warm() (else run()) once as a warm-up, then run() once timed with the
+    launch counters set to 0 just before and read just after, and the
+    card's peak memory above what was allocated before. `expect` gives
+    each counter that must be > 0 its exact count, or None for any count
+    > 0; every other counter must stay 0. Returns (result, seconds,
+    counts, peak bytes)."""
+    dev = torch.device("cuda")
+    (warm or run)()
     torch.cuda.synchronize()
     tc.reset_launch_counts()
     tp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     t0 = time.time()
-    img, rays_traced = pt.render_passes(scene, 0, SEED, n_pass=n_pass,
-                                        max_depth=DEPTH, device=dev)
+    out = run()
     torch.cuda.synchronize()
     dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
     counts = launch_counts(tc, tp)
+    for k, v in counts.items():
+        want = expect.get(k, 0)
+        if (v > 0) != (k in expect) or (want and v != want):
+            raise AssertionError(f"{tag}: launch counts {counts}, expected "
+                                 f"{expect}")
+    return out, dt, counts, peak
+
+
+def packet_peak(tag, tp, run) -> None:
+    """run() once more, untimed, with every B4 launch's visit counts read
+    through the wrapper's hook: no packet may reach MAX_VISITS."""
+    peaks = []
+    tp.visits_hook = lambda n: peaks.append(n.max())
+    try:
+        run()
+    finally:
+        tp.visits_hook = None
+    peak = max(int(p) for p in peaks)
+    log(f"{tag}: the busiest packet of {len(peaks)} launches popped {peak} "
+        f"entries (MAX_VISITS {tp.MAX_VISITS})")
+    if not 0 < peak < tp.MAX_VISITS:
+        raise AssertionError(f"{tag}: a packet reached MAX_VISITS ({peak})")
+
+
+def drive_main_path(tag, pt, tc, tp, scene, card, expect: set,
+                    width: int = WIDTH, height: int = HEIGHT,
+                    n_pass: int = N_PASS) -> dict:
+    """One warm-up pass, then n_pass passes through timed_call: `expect`
+    names the counters that must be > 0; every other counter must stay 0.
+    No packet of B4 may reach MAX_VISITS."""
+    dev = scene.tri_attr.device
+
+    def passes(base=0, n=n_pass):
+        return pt.render_passes(scene, base, SEED, n_pass=n, max_depth=DEPTH,
+                                device=dev)
+
+    (img, rays_traced), dt, counts, _ = timed_call(
+        tag, tc, tp, passes, card, dict.fromkeys(expect),
+        warm=lambda: passes(100, 1))
     rays_traced = int(rays_traced)
     log(f"{tag} main path: launches {counts}")
     if not bool(torch.isfinite(img).all()) or float(img.sum()) <= 0.0:
         raise AssertionError(f"{tag}: image is not finite and non-zero")
     if tuple(img.shape) != (height, width, 3):
         raise AssertionError(f"{tag}: image shape {tuple(img.shape)}")
-    for k, v in counts.items():
-        if (v > 0) != (k in expect):
-            raise AssertionError(f"{tag}: launch counts {counts}, expected "
-                                 f"exactly {sorted(expect)} to be non-zero")
     if counts["pkt_closest_launches"] > 0:
-        # the same passes once more, untimed, with every launch's visit
-        # counts read through the wrapper's hook
-        peaks = []
-        tp.visits_hook = lambda n: peaks.append(n.max())
-        try:
-            pt.render_passes(scene, 0, SEED, n_pass=n_pass, max_depth=DEPTH,
-                             device=dev)
-        finally:
-            tp.visits_hook = None
-        peak = max(int(p) for p in peaks)
-        log(f"{tag} main path: the busiest packet of {len(peaks)} launches "
-            f"popped {peak} entries (MAX_VISITS {tp.MAX_VISITS})")
-        if not 0 < peak < tp.MAX_VISITS:
-            raise AssertionError(f"{tag}: a packet reached MAX_VISITS ({peak})")
+        packet_peak(f"{tag} main path", tp, passes)
     samples = n_pass * width * height
     log(f"{tag} main path: {width}x{height} depth {DEPTH} {n_pass} passes in "
         f"{dt:.3f} s: {samples / dt / 1e6:.4f} Msamples/s, "
@@ -1999,6 +2043,363 @@ def schedules_phase(card, pt, tc, tp, dev) -> list:
                           "wavefront", CLUSTER_CU, at, tile_recs, tile_counts))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: light tracing, the G-buffer and adaptive sampling
+# ---------------------------------------------------------------------------
+
+LT_PATHS = 1 << 20  # light paths a pass: one 2^20-ray wavefront a bounce
+
+
+class TraceProbe:
+    """Wraps closest-hit and any-hit functions as a module imported them
+    (`targets`: (module, attribute, "closest" or "any")) to count the calls
+    and the live rays of every call, summed on the device (no host read
+    inside the run), and with `keep` to keep the rays of the first call of
+    each kind as the kernel gets them."""
+
+    def __init__(self, targets, keep: bool = True):
+        self.targets = targets
+        self.keep = keep
+        self.live = {"closest": 0, "any": 0}
+        self.calls = {"closest": 0, "any": 0}
+        self.kept = {}
+
+    def __enter__(self):
+        self.saved = [getattr(m, a) for m, a, _ in self.targets]
+        for (mod, attr, kind), fn in zip(self.targets, self.saved):
+            setattr(mod, attr, self._wrap(fn, kind))
+        return self
+
+    def _wrap(self, fn, kind):
+        def call(scene, ray_o, ray_d, t_max=1e30, active=None, *args, **kw):
+            if self.keep and kind not in self.kept:
+                tm = t_max.clone() if isinstance(t_max, torch.Tensor) else t_max
+                self.kept[kind] = (ray_o.clone(), ray_d.clone(), tm,
+                                   None if active is None else active.clone())
+            self.calls[kind] += 1
+            self.live[kind] = self.live[kind] + (
+                ray_o.shape[0] if active is None else active.sum())
+            return fn(scene, ray_o, ray_d, t_max, active, *args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), fn in zip(self.targets, self.saved):
+            setattr(mod, attr, fn)
+
+    def rays(self, kind) -> int:
+        return int(self.live[kind])
+
+    def raw(self, names):
+        """The kept wavefronts as wavefronts() gives them:
+        [(name, o, d, t_max, active, any_hit_mode)]."""
+        return [(name, *self.kept[kind], kind == "any")
+                for kind, name in zip(("closest", "any"), names)]
+
+
+def probed(targets, fn, runs: list):
+    """fn wrapped so that each call runs under a counting TraceProbe (no
+    rays kept), appended to `runs`."""
+    def run():
+        with TraceProbe(targets, keep=False) as probe:
+            out = fn()
+        runs.append(probe)
+        return out
+    return run
+
+
+def lt_path(tag, pt, tc, tp, scene, card, prefix: str) -> tuple:
+    """render_lt on `scene` at WIDTH x HEIGHT, LT_PATHS paths a pass, depth
+    DEPTH, N_PASS passes: DEPTH - 1 closest-hit and DEPTH - 1 any-hit
+    launches a pass through the counters named by `prefix` ("" or "pkt_"),
+    Mpaths/s and Mrays/s (the live rays of the timed run, counted in it by
+    a TraceProbe), peak memory, a profiled pass. Returns (the probe of an
+    untimed pass, which keeps its first wavefront of each kind, the
+    counts)."""
+    from hydracore_tpu_torch.integrators import lt
+
+    dev = scene.tri_attr.device
+    n = DEPTH - 1
+    targets = [(lt, "closest_hit", "closest"), (lt, "any_hit", "any")]
+    runs = []
+    img, dt, counts, peak = timed_call(
+        tag, tc, tp, probed(targets, lambda: lt.render_lt(
+            scene, N_PASS, LT_PATHS, SEED, DEPTH, device=dev), runs), card,
+        {prefix + "closest_launches": n * N_PASS,
+         prefix + "any_launches": n * N_PASS})
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()) or float(img.sum()) <= 0.0:
+        raise AssertionError(f"{tag}: image not finite and non-zero")
+    live = runs[-1]
+    light, cam = live.rays("closest"), live.rays("any")
+    paths = N_PASS * LT_PATHS
+    log(f"{tag}: {WIDTH}x{HEIGHT} depth {DEPTH} {N_PASS} passes of "
+        f"{LT_PATHS} paths in {dt:.3f} s: {paths / dt / 1e6:.4f} Mpaths/s, "
+        f"{(light + cam) / dt / 1e6:.4f} Mrays/s ({light + cam} live rays "
+        f"counted in the timed run: {light} light, {cam} camera "
+        f"connections, in {live.calls['closest']} + {live.calls['any']} "
+        f"wavefronts of {LT_PATHS}); launches {counts}; peak device memory "
+        f"{peak / 2**20:.1f} MiB above the scene's [{card}]")
+    with TraceProbe(targets) as probe:
+        lt.render_lt(scene, 1, LT_PATHS, SEED, DEPTH, device=dev)
+        torch.cuda.synchronize()
+    profile_pass(pt, scene, card, tag, what=f"one pass of {LT_PATHS} paths",
+                 run=lambda: lt.render_lt(scene, 1, LT_PATHS, SEED, DEPTH,
+                                          device=dev))
+    return probe, counts
+
+
+def gbuffer_path(tag, pt, tc, tp, scene, card, prefix: str) -> tuple:
+    """eval_gbuffer on `scene` at WIDTH x HEIGHT with 4 subsamples (each a
+    2^20-ray wavefront of eye rays and one of shadow rays, the latter put
+    into coherence order as the JAX package does): 4 + 4 launches through
+    the counters named by `prefix` ("" or "inst_"), the layers' time, the
+    live shadow rays of the timed run, a profile. Returns (the layers, the
+    probe of an untimed call, which keeps the first eye wavefront and the
+    first shadow wavefront as B2/B3 get it, the counts)."""
+    from hydracore_tpu_torch.integrators import gbuffer
+    from hydracore_tpu_torch.ops import trace_api
+
+    dev = scene.tri_attr.device
+    targets = [(gbuffer, "closest_hit", "closest"),
+               (trace_api, "any_hit", "any")]
+    runs = []
+    g, dt, counts, peak = timed_call(
+        tag, tc, tp, probed(targets, lambda: gbuffer.eval_gbuffer(
+            scene, SEED, 4, device=dev), runs), card,
+        {prefix + "closest_launches": 4, prefix + "any_launches": 4})
+    for k, v in g.items():
+        if tuple(v.shape[:2]) != (HEIGHT, WIDTH):
+            raise AssertionError(f"{tag}: layer {k} shape {tuple(v.shape)}")
+    cover = float(g["coverage"].mean())
+    if not (cover > 0.5 and bool(torch.isfinite(g["depth"]).all())
+            and 0.0 < float(g["shadow"].mean()) <= 1.0):
+        raise AssertionError(f"{tag}: layers out of range")
+    if runs[-1].calls["any"] != 4:
+        raise AssertionError(f"{tag}: the shadow rays did not go through "
+                             f"any_hit_sorted ({runs[-1].calls})")
+    with TraceProbe(targets) as probe:
+        gbuffer.eval_gbuffer(scene, SEED, 4, device=dev)
+        torch.cuda.synchronize()
+    log(f"{tag}: {WIDTH}x{HEIGHT}, 4 subsamples, every layer in "
+        f"{dt * 1e3:.2f} ms ({4 * WIDTH * HEIGHT / dt / 1e6:.4f} Meye-rays/s; "
+        f"{runs[-1].rays('any')} live shadow rays, sorted); coverage "
+        f"{cover:.4f}, shadow {float(g['shadow'].mean()):.4f}, ids "
+        f"{int(g['mat_id'].max()) + 1} materials, {int(g['inst_id'].max()) + 1}"
+        f" instances; launches {counts}; peak device memory "
+        f"{peak / 2**20:.1f} MiB above the scene's [{card}]")
+    profile_pass(pt, scene, card, tag, what="the G-buffer, 4 subsamples",
+                 run=lambda: gbuffer.eval_gbuffer(scene, SEED, 4, device=dev))
+    return g, probe, counts
+
+
+ADAPT_NOISE = 0.15  # render_adaptive's default noise threshold
+
+
+def adaptive_path(tag, tc, tp, scene, card, spp_base, spp_max, tile) -> int:
+    """render_adaptive on `scene`, timed with its launch counters: the noisy
+    pixels (read from the noise map it computes, kept by wrapping
+    gbuffer.noise_map), the rounds and the rays a tile's wavefront. Returns
+    the noisy pixels."""
+    from hydracore_tpu_torch.integrators import gbuffer
+
+    dev = scene.tri_attr.device
+    W, H = scene.camera.width, scene.camera.height
+    maps = []
+    noise_map = gbuffer.noise_map
+
+    def run():
+        maps.clear()
+        gbuffer.noise_map = lambda *a: maps.append(noise_map(*a)) or maps[-1]
+        try:
+            return gbuffer.render_adaptive(
+                scene, spp_base, spp_max, SEED, DEPTH, ADAPT_NOISE,
+                tile_pixels=tile, device=dev)
+        finally:
+            gbuffer.noise_map = noise_map
+
+    img, dt, counts, _ = timed_call(
+        tag, tc, tp, run, card,
+        {"closest_launches": None, "any_launches": None})
+    if img.shape != (H, W, 3) or not np.isfinite(img).all() or img.sum() <= 0:
+        raise AssertionError(f"{tag}: image not finite and non-zero")
+    k = min(max(spp_base, 1), 32)
+    rounds = -(-spp_base // k)
+    extra = max(-(-(spp_max - spp_base) // k), 0)
+    noisy = int((maps[0] > ADAPT_NOISE).sum())
+    samples = W * H * rounds * k + noisy * extra * k
+    log(f"{tag}: {W}x{H} spp {spp_base} -> {spp_max}, tiles of {tile} pixels "
+        f"x K = {k} ({tile * k} rays a wavefront), {rounds} base rounds, "
+        f"{noisy} noisy pixels topped up by {extra} rounds, in {dt:.3f} s "
+        f"({samples / dt / 1e6:.4f} Msamples/s); launches {counts} [{card}]")
+    return noisy
+
+
+def sorted_light_rays(tag, tc, scene, probe, card) -> None:
+    """An open question, off the path (the JAX package traces LT's light
+    rays as they come): B1 on LT's first light wavefront in coherence order
+    (trace_api.coherence_order) against the same rays unsorted, and the
+    sort's own time."""
+    from hydracore_tpu_torch.ops.trace_api import coherence_order
+
+    _, o, d, t_max, act, _ = probe.raw(("light", "camera"))[0]
+    sort_ms = lab.time_ms(lambda: coherence_order(scene, o, d, act), 5,
+                          o.device)
+    idx = coherence_order(scene, o, d, act)
+    pool = tc.scene_pool(scene)
+    cases = cluster_cases(tc, [("light", o, d, t_max, act, False),
+                               ("sorted", o[idx], d[idx], t_max, act[idx],
+                                False)])
+    (tu, su), (ts, ss) = [tc.cluster_traverse(b, any_hit_mode=False, **pool)
+                          for _, b, _ in cases]
+    if int((su >= 0).sum()) != int((ss >= 0).sum()):
+        raise AssertionError(f"{tag}: sorting changed the hits")
+    ms = [lab.time_ms(lambda b=b: tc.cluster_traverse(
+        b, any_hit_mode=False, **pool), 20, o.device) for _, b, _ in cases]
+    log(f"{tag} light, off the path: B1 on the rays as they come "
+        f"{ms[0]:.4f} ms, in coherence order {ms[1]:.4f} ms, the sort "
+        f"{sort_ms:.4f} ms [{card}]")
+
+
+def gbuffer_twins(tag, small) -> None:
+    """Every G-buffer layer on the card against the CPU twins: float layers
+    by the image rule (+inf on the same pixels), ids equal on >= 99%."""
+    from hydracore_tpu_torch.integrators import gbuffer
+
+    g_card = gbuffer.eval_gbuffer(small, SEED, 4, device="cuda")
+    t0 = time.time()
+    g_cpu = gbuffer.eval_gbuffer(small, SEED, 4, device="cpu")
+    shares = {}
+    for k, v in g_cpu.items():
+        a = g_card[k].cpu()
+        if k in ("mat_id", "inst_id"):
+            shares[k] = float((a == v).float().mean())
+            ok = shares[k] >= 0.99
+        else:
+            a, b = (a[..., None], v[..., None]) if v.dim() == 2 else (a, v)
+            inf = torch.isinf(a) & torch.isinf(b)
+            d = torch.where(inf, 0.0, a - b).abs().amax(dim=-1)
+            shares[k] = float((d <= 1e-3).float().mean())
+            ok = shares[k] >= 0.99
+        if not ok:
+            raise AssertionError(f"{tag} G-buffer {k}: card vs CPU {shares[k]}")
+    log(f"{tag} G-buffer 64x64: pixels within 1e-3 (ids: equal) of the CPU's "
+        f"layers: " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+        + f" (the CPU's layers {time.time() - t0:.2f} s)")
+
+
+def lt_gbuffer_phase(card, pt, tc, tp, dev, host_inst, inst_desc,
+                     host_pkt) -> list:
+    """Phase 17: light tracing, the G-buffer and adaptive sampling at
+    WIDTH x HEIGHT, depth DEPTH, seed SEED. LT on the flat scene (B1 on its
+    unsorted light wavefronts, B2 on its camera connections, both against
+    their twins on the first of each) and on the packet scene of phase 8 (B4
+    in both modes against its twin on the first whole wavefront of each, no
+    packet at MAX_VISITS); the G-buffer on the flat scene (B1, B2) and on the
+    instanced scene of phase 6 (B3 in both modes), whose inst_id must equal
+    the flattened assembly's on >= 99.9% of pixels; render_adaptive on the
+    flat scene at spp 8 -> 16 in tiles of 131,072 pixels (2^20 rays a
+    wavefront) and of 16,384 (the default), and at 256^2, spp 33 -> 40,
+    where two base rounds can mark pixels noisy; off the path, B1 on LT's
+    light wavefront sorted (sorted_light_rays); 64x64 card against CPU for
+    LT, every G-buffer layer and render_adaptive. Returns the "kernels" rows
+    of the new paths."""
+    from hydracore_tpu_torch.integrators import gbuffer, lt
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+    from hydracore_tpu_torch.scene.scene import assemble
+
+    t0 = time.time()
+    scene = bench_scene(WIDTH, HEIGHT, DEPTH).to(dev)
+    probe, lt_counts = lt_path("phase 17 LT flat", pt, tc, tp, scene, card, "")
+    lt_recs = check_kernels("phase 17 LT flat", tc, scene, cluster_cases(
+        tc, probe.raw(("light", "camera"))), card)
+    sorted_light_rays("phase 17 LT flat", tc, scene, probe, card)
+    del probe
+    log(f"phase 17 LT flat: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    g, probe, gb_counts = gbuffer_path("phase 17 G-buffer flat", pt, tc, tp,
+                                       scene, card, "")
+    gb_recs = check_kernels("phase 17 G-buffer flat", tc, scene, cluster_cases(
+        tc, probe.raw(("eye", "shadow"))), card)
+    del probe, g
+    adaptive_path("phase 17 adaptive flat", tc, tp, scene, card, 8, 16, 131072)
+    # the default tile width (131,072 rays a wavefront at K = 8), for the
+    # open question of adaptive's tile width
+    adaptive_path("phase 17 adaptive flat, default tiles", tc, tp, scene, card,
+                  8, 16, 16384)
+    small = bench_scene(256, 256, DEPTH).to(dev)
+    noisy = adaptive_path("phase 17 adaptive flat 256^2", tc, tp, small, card,
+                          33, 40, 32768)
+    if noisy <= 0:
+        raise AssertionError("phase 17 adaptive 256^2: no pixel topped up")
+    del scene, small
+    log(f"phase 17 G-buffer and adaptive flat: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    inst_scene = host_inst.to(dev)
+    gi, probe, inst_counts = gbuffer_path("phase 17 G-buffer instanced", pt,
+                                          tc, tp, inst_scene, card, "inst_")
+    inst_recs = check_kernels("phase 17 G-buffer instanced", tc, inst_scene,
+                              cluster_cases(tc, probe.raw(("eye", "shadow"))),
+                              card)
+    del probe, inst_scene
+    t1 = time.time()
+    flat = assemble(inst_desc, instancing="off").to(dev)
+    gf = gbuffer.eval_gbuffer(flat, SEED, 4, device=dev)
+    same = float((gi["inst_id"] == gf["inst_id"]).float().mean())
+    log(f"phase 17 G-buffer instanced: inst_id equal to the flattened "
+        f"assembly's ({flat.num_triangles} triangles, assembled and its "
+        f"G-buffer in {time.time() - t1:.2f} s) on {same:.6f} of pixels, "
+        f"{len(torch.unique(gi['inst_id']))} ids")
+    if same < 0.999:
+        raise AssertionError(f"phase 17 instanced inst_id: {same}")
+    del flat, gi, gf
+    log(f"phase 17 G-buffer instanced: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    pkt_scene = host_pkt.to(dev)
+    probe, pkt_counts = lt_path("phase 17 LT packet", pt, tc, tp, pkt_scene,
+                                card, "pkt_")
+    packet_peak("phase 17 LT packet", tp, lambda: lt.render_lt(
+        pkt_scene, N_PASS, LT_PATHS, SEED, DEPTH, device=dev))
+    pkt_recs = check_packet("phase 17 LT packet", tp, pkt_scene,
+                            probe.raw(("light", "camera")), card)
+    del probe, pkt_scene
+    log(f"phase 17 LT packet: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    small = bench_scene(64, 64, DEPTH)
+    twin_image("phase 17 LT (2 passes of 16,384 paths)", lambda dv:
+               lt.render_lt(small, 2, 16384, SEED, DEPTH, device=dv))
+    gbuffer_twins("phase 17", small)
+    twin_image("phase 17 adaptive (spp 8 -> 16, tiles of 1,024)", lambda dv:
+               torch.as_tensor(gbuffer.render_adaptive(
+                   small, 8, 16, SEED, DEPTH, tile_pixels=1024, device=dv)))
+    log(f"phase 17 64x64 images: {time.time() - t0:.2f} s")
+
+    at = "hydracore_tpu/ops/traverse_cluster.py"
+    b12 = ("B1 cluster traversal", "B2 cluster traversal")
+    b3 = ("B3 cluster traversal", "B3 cluster traversal")
+    b4 = ("B4 packet traversal", "B4 packet traversal")
+    return (kernel_rows(b12, "flat pool Cp 384, LT's unsorted 2^20-ray "
+                        "wavefronts", CLUSTER_CU, f"{at}:576", lt_recs,
+                        (lt_counts["closest_launches"],
+                         lt_counts["any_launches"]))
+            + kernel_rows(b12, "flat pool Cp 384, G-buffer 2^20-ray "
+                          "wavefronts", CLUSTER_CU, f"{at}:576", gb_recs,
+                          (gb_counts["closest_launches"],
+                           gb_counts["any_launches"]))
+            + kernel_rows(b3, f"instanced Ci {host_inst.cl_map.shape[1]}, "
+                          "G-buffer 2^20-ray wavefronts", CLUSTER_CU,
+                          f"{at}:394", inst_recs,
+                          (inst_counts["inst_closest_launches"],
+                           inst_counts["inst_any_launches"]))
+            + kernel_rows(b4, f"{host_pkt.wbvh_nodes.shape[0]} wide nodes, "
+                          "LT's unsorted 2^20-ray wavefronts", PACKET_CU,
+                          "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
+                          (pkt_counts["pkt_closest_launches"],
+                           pkt_counts["pkt_any_launches"])))
+
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
 LAB_SRCS = ["lab_gather.cu", "lab_prims.cu", "lab_subvisit.cu",
@@ -2642,6 +3043,12 @@ def main() -> int:
     t0 = time.time()
     schedule_rows = schedules_phase(card, pt, tc, tp, dev)
     log(f"phase 16 schedules: {time.time() - t0:.2f} s")
+
+    # ---- phase 17: light tracing, the G-buffer and adaptive sampling
+    t0 = time.time()
+    lt_rows = lt_gbuffer_phase(card, pt, tc, tp, dev, host_inst, desc,
+                               host_pkt)
+    log(f"phase 17 LT, G-buffer, adaptive: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -2664,7 +3071,8 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + opaque_rows + gates_rows + schedule_rows + lab_rows + trav_rows)
+            + opaque_rows + gates_rows + schedule_rows + lt_rows + lab_rows
+            + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ hydracore_tpu and mirrors the JAX package's layout:
                 partition into chunks, the two-level instanced layout
   ops/          RNG, intersection, cluster traversal kernels B1/B2/B3, dispatch
   bsdf/         BSDF sample/eval
-  lights/       light sampling, env pdf tables
-  integrators/  wavefront MIS+NEE path tracer (render, render_passes)
+  lights/       light sampling (NEE and emission), env pdf tables
+  integrators/  wavefront MIS+NEE path tracer (render, render_passes) and
+                its other schedules, light tracing (lt), the G-buffer and
+                adaptive sampling (gbuffer), the numpy oracle
   utils/        math, device choice, native builds
   csrc/         CUDA and C++ sources, built at first use into _build/
 """

@@ -144,3 +144,65 @@ def _split_children(node, start, mid, end, new_node, lefts, rights, stack):
     stack.append((l, start, mid))
     stack.append((r, mid, end))
 
+
+
+# ----------------------------------------------------------------------------
+# Reference brute-force intersector (oracle for traversal tests)
+# ----------------------------------------------------------------------------
+
+def brute_force_closest_hit(ray_o, ray_d, v0, e1, e2, t_max=1e30):
+    """Numpy Möller–Trumbore over all triangles; returns (t, tri_id, u, v).
+    Oracle analogue of IBVHBuilder2::RayTrace (IBVHBuilderAPI.h:65)."""
+    ray_o = np.asarray(ray_o, np.float32)[:, None, :]  # (R,1,3)
+    ray_d = np.asarray(ray_d, np.float32)[:, None, :]
+    v0 = v0[None]
+    e1 = e1[None]
+    e2 = e2[None]
+    p = np.cross(ray_d, e2)
+    det = (e1 * p).sum(-1)
+    inv = np.where(np.abs(det) > 1e-12, 1.0 / np.where(det == 0, 1, det), 0.0)
+    s = ray_o - v0
+    u = (s * p).sum(-1) * inv
+    q = np.cross(s, e1)
+    v = (ray_d * q).sum(-1) * inv
+    t = (e2 * q).sum(-1) * inv
+    hit = (np.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-5) & (t < t_max)
+    t = np.where(hit, t, np.inf)
+    tri = np.argmin(t, axis=1)
+    rr = np.arange(t.shape[0])
+    tbest = t[rr, tri]
+    return (
+        np.where(np.isfinite(tbest), tbest, np.inf),
+        np.where(np.isfinite(tbest), tri, -1),
+        u[rr, tri],
+        v[rr, tri],
+    )
+
+
+def bvh_stats(bvh: FlatBVH) -> dict:
+    """Structural statistics — the PrintBVHStat analogue
+    (RenderDriverRTE_DebugBVH.cpp)."""
+    leaf = bvh.count > 0
+    n_leaf = int(leaf.sum())
+    # compute depths by DFS from the root (parents are not stored)
+    depth = {0: 0}
+    stack = [0]
+    max_depth = 0
+    while stack:
+        n = stack.pop()
+        if bvh.count[n] == 0:
+            for c in (int(bvh.left[n]), int(bvh.right[n])):
+                depth[c] = depth[n] + 1
+                max_depth = max(max_depth, depth[c])
+                stack.append(c)
+    d = np.maximum(bvh.bmax - bvh.bmin, 0.0)
+    sa = d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+    return {
+        "nodes": bvh.num_nodes,
+        "leaves": n_leaf,
+        "tris": int(bvh.count[leaf].sum()),
+        "max_leaf": int(bvh.count.max()) if bvh.num_nodes else 0,
+        "avg_leaf": float(bvh.count[leaf].mean()) if n_leaf else 0.0,
+        "max_depth": max_depth,
+        "sah_cost": float((sa[leaf] * bvh.count[leaf]).sum() / max(sa[0], 1e-9)),
+    }

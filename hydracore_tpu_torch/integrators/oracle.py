@@ -1,0 +1,714 @@
+"""Eager numpy reference integrator — the executable spec / oracle.
+
+The port's own copy of the JAX package's integrators/oracle.py (ref CPU
+core role, CPUExpLayer + IntegratorMISPT, SURVEY.md §4.4: "the CPU
+reference core as oracle"): a deliberately boring, per-ray-recursive,
+pure-numpy MIS path tracer (OracleRenderer) and forward light tracer
+(OracleLT) sharing NOTHING with the torch wavefront except the scene tables
+and the counter-based RNG, independent implementations the wavefront
+integrators are tested against. The scene's tables are read once into host
+numpy arrays (`.cpu().numpy()`), so a scene on the card works too.
+
+Slow by construction (python loop over pixels); use tiny resolutions.
+"""
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+
+def _np(x, dtype=None) -> np.ndarray:
+    """A host numpy array of a tensor (on any device) or an array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+def _host_table(table) -> SimpleNamespace:
+    """A material or light table with every field as a host numpy array."""
+    return SimpleNamespace(**{f.name: _np(getattr(table, f.name))
+                              for f in dataclasses.fields(table)})
+
+
+def _rand4(sample_index: int, bounce: int, group: int, seed: int) -> np.ndarray:
+    """Mirror of ops/rng.rand4 for scalar indices (uint32 semantics)."""
+    # pure-numpy PCG3D identical to ops/rng.py
+    def u32(x):
+        return np.uint32(x & 0xFFFFFFFF)
+
+    v = np.array([
+        u32(sample_index),
+        u32(np.uint32(bounce) * np.uint32(0x9E3779B9) ^ np.uint32(group) * np.uint32(0x85EBCA6B)),
+        u32(seed),
+    ], np.uint32)
+    with np.errstate(over="ignore"):
+        v = v * np.uint32(1664525) + np.uint32(1013904223)
+        x, y, z = v
+        x = u32(x + y * z)
+        y = u32(y + z * x)
+        z = u32(z + x * y)
+        x ^= x >> np.uint32(16)
+        y ^= y >> np.uint32(16)
+        z ^= z >> np.uint32(16)
+        x = u32(x + y * z)
+        y = u32(y + z * x)
+        z = u32(z + x * y)
+        w = x ^ y ^ z ^ np.uint32(0x27220A95)
+        w ^= w >> np.uint32(16)
+        w = u32(w * np.uint32(0x7FEB352D))
+        w ^= w >> np.uint32(15)
+        w = u32(w * np.uint32(0x846CA68B))
+        w ^= w >> np.uint32(16)
+    bits = np.array([x, y, z, w], np.uint32)
+    return (bits >> np.uint32(8)).astype(np.float64) / 16777216.0
+
+
+class OracleRenderer:
+    """Per-pixel recursive path tracer over a SceneData (host numpy copies
+    of its tables). Three estimator modes — the reference's CPU integrator family
+    (CPUExp_Integrators.h):
+
+      * "mispt"    — NEE + BSDF sampling combined by the power heuristic
+                     (IntegratorMISPT:381)
+      * "ptstupid" — BSDF sampling only, emitter hits weight 1
+                     (IntegratorStupidPT:317)
+      * "shadowpt" — NEE only; emitter light reaches the camera solely
+                     through delta/specular chains (IntegratorShadowPT:369)
+
+    All three estimate the same integral: they cross-check each other AND
+    the production wavefront (tests/test_torch_oracle.py)."""
+
+    def __init__(self, scene, mode: str = "mispt"):
+        assert mode in ("mispt", "ptstupid", "shadowpt")
+        self.mode = mode
+        self.v0 = _np(scene.tri_v0)
+        self.e1 = _np(scene.tri_e1)
+        self.e2 = _np(scene.tri_e2)
+        self.n0 = _np(scene.n0)
+        self.n1 = _np(scene.n1)
+        self.n2 = _np(scene.n2)
+        self.uv0 = _np(scene.uv0)
+        self.uv1 = _np(scene.uv1)
+        self.uv2 = _np(scene.uv2)
+        self.tri_mat = _np(scene.tri_mat)
+        self.tri_light = _np(scene.tri_light)
+        self.mt = _host_table(scene.materials)
+        self.lt = _host_table(scene.lights)
+        self.cam = scene.camera.to("cpu")
+        self.env = _np(scene.env_color)
+        self.texels = _np(scene.texels)
+        self.tex_table = _np(scene.tex_table)
+        self.ml_cdf = _np(scene.ml_cdf)
+        self.ml_tri = _np(scene.ml_tri)
+        self.has_alpha = bool((np.asarray(self.mt.opacity_tex) != 0).any()
+                              | (np.asarray(self.mt.skip_shadow) != 0).any())
+        # first sky light row (textured env)
+        self.sky_row = -1
+        lts = np.asarray(self.lt.ltype)
+        for i in range(len(lts)):
+            if int(lts[i]) == 3:
+                self.sky_row = i
+                break
+
+    # ---- textures (independent numpy mirror of ops/texture.sample_bilinear
+    # bilinear/wrap semantics, identity sampler)
+    def _tex(self, slot: int, uv) -> np.ndarray:
+        off, w, h, flags = (int(x) for x in self.tex_table[slot])
+        u = float(uv[0]) % 1.0 if not (flags & 1) else min(max(float(uv[0]), 0.0), 1.0)
+        v = float(uv[1]) % 1.0 if not (flags & 2) else min(max(float(uv[1]), 0.0), 1.0)
+        x = u * w - 0.5
+        y = v * h - 0.5
+        x0, y0 = int(np.floor(x)), int(np.floor(y))
+        fx, fy = x - x0, y - y0
+
+        def texel(xi, yi):
+            xi = min(max(xi, 0), w - 1) if (flags & 1) else xi % max(w, 1)
+            yi = min(max(yi, 0), h - 1) if (flags & 2) else yi % max(h, 1)
+            return self.texels[off + yi * w + xi].astype(np.float64)
+
+        top = texel(x0, y0) * (1 - fx) + texel(x0 + 1, y0) * fx
+        bot = texel(x0, y0 + 1) * (1 - fx) + texel(x0 + 1, y0 + 1) * fx
+        return top * (1 - fy) + bot * fy
+
+    def _env_radiance(self, d) -> np.ndarray:
+        """Sky radiance along d — textured lat-long like
+        lights/sampling.env_radiance (same mapping so integrands match)."""
+        if self.sky_row < 0:
+            return self.env.astype(np.float64)
+        inten = np.asarray(self.lt.intensity)[self.sky_row].astype(np.float64)
+        slot = int(np.asarray(self.lt.tex)[self.sky_row])
+        if slot <= 0:
+            return inten
+        u = 0.5 + np.arctan2(d[0], -d[2]) * (0.5 / np.pi)
+        v = np.arccos(np.clip(d[1], -1.0, 1.0)) / np.pi
+        return inten * self._tex(slot, (u, v))[:3]
+
+    def _opacity(self, mat: int, uv) -> float:
+        slot = int(np.asarray(self.mt.opacity_tex)[mat])
+        if slot == 0:
+            return 1.0
+        return float(self._tex(slot, uv)[0])
+
+    # ---- geometry
+    def trace(self, o, d, t_max=1e30):
+        from hydracore_tpu_torch.bvh.builder import brute_force_closest_hit
+
+        t, tri, u, v = brute_force_closest_hit(o[None], d[None], self.v0, self.e1, self.e2, t_max)
+        return t[0], int(tri[0]), float(u[0]), float(v[0])
+
+    def occluded(self, o, d, dist, u_alpha: float = 0.5):
+        if not self.has_alpha:
+            t, tri, _, _ = self.trace(o, d, dist * 0.995)
+            return np.isfinite(t)
+        # stochastic transparent-layer walk (pt.shadow_trace semantics:
+        # up to 2 alpha layers pass w.p. 1-opacity / skip_shadow, 3rd
+        # surface counts opaque)
+        oo, d_left = o.copy(), dist * 0.995
+        for step in range(3):
+            t, tri, u, v = self.trace(oo, d, d_left)
+            if not np.isfinite(t):
+                return False
+            if step == 2:
+                return True
+            mat = int(self.tri_mat[tri])
+            w = 1.0 - u - v
+            uvh = w * self.uv0[tri] + u * self.uv1[tri] + v * self.uv2[tri]
+            op = self._opacity(mat, uvh)
+            skip = int(np.asarray(self.mt.skip_shadow)[mat]) != 0
+            ustep = (u_alpha + step * 0.618034) % 1.0
+            if not (((op < 0.999) and (ustep >= op)) or skip):
+                return True
+            oo = oo + (t + 1e-4) * d
+            d_left = max(d_left - t - 1e-4, 0.0)
+        return False
+
+    # ---- shading
+    def _nee_w(self, pdf_light, pdf_bsdf):
+        """NEE estimator weight per mode: 0 kills the NEE branch (stupid
+        PT), 1 takes it whole (shadow PT), else power-heuristic MIS."""
+        if self.mode == "ptstupid":
+            return 0.0
+        if self.mode == "shadowpt":
+            return 1.0
+        return pdf_light**2 / max(pdf_light**2 + pdf_bsdf**2, 1e-20)
+
+    @staticmethod
+    def _hg(d, g, e1, e2):
+        """Henyey-Greenstein direction about d — scalar mirror of
+        pt.hg_sample (SampleHenyeyGreenstein, CPUExp_IntegratorSSS.cpp:110)."""
+        s = 1.0 - 2.0 * e1
+        denom = max((1.0 + g * s) ** 2, 1e-6)
+        cost = (s + 2.0 * g**3 * (e1 - 1.0) * e1 + g * g * s
+                + 2.0 * g * (1.0 - e1 + e1 * e1)) / denom
+        cost = min(max(cost, -1.0), 1.0)
+        sint = np.sqrt(max(1.0 - cost * cost, 1e-6))
+        sign = 1.0 if d[2] >= 0 else -1.0
+        a = -1.0 / (sign + d[2])
+        b = d[0] * d[1] * a
+        tb = np.array([1.0 + sign * d[0] ** 2 * a, sign * b, -sign * d[0]])
+        bb = np.array([b, sign + d[1] ** 2 * a, -d[1]])
+        phi = 2.0 * np.pi * e2
+        wi = np.cos(phi) * sint * tb + np.sin(phi) * sint * bb + cost * d
+        return wi / max(np.linalg.norm(wi), 1e-12)
+
+    def radiance(self, o, d, sample_index, seed, depth, max_depth, prev_pdf,
+                 prev_spec, fog=None, med=None):
+        """fog: None or (color (3,), mult) — the armed thick-glass Beer fog
+        of the medium this segment travels through (attenuationStep,
+        cmaterial.h:2787). Attenuates everything arriving along it.
+
+        med: None or (sigma_s, sigma_a (3,), g) — the SSS scattering medium
+        this ray currently travels inside (ref PathTraceVol,
+        CPUExp_IntegratorSSS.cpp:143): sample a free-flight distance
+        ~ exp(sigma_s); scattering consumes a depth step (HG direction,
+        Beer absorption, specular-for-MIS like the wavefront's scat lanes);
+        otherwise attenuate to the boundary surface."""
+        if med is not None:
+            sig_s, sig_a, g = med
+            if depth >= max_depth - 1:
+                return np.zeros(3)
+            pre = self.trace(o, d)
+            if not np.isfinite(pre[0]):
+                return np.zeros(3)  # lost inside the medium (pt.py in_med&miss)
+            r_m = _rand4(sample_index, depth, 5, seed)
+            d_scat = -np.log(max(r_m[0], 1e-12)) / max(sig_s, 1e-12)
+            if sig_s > 0.0 and d_scat < pre[0]:
+                att = np.exp(-sig_a * d_scat)
+                wi = self._hg(d, g, r_m[1], r_m[2])
+                return att * self.radiance(o + d_scat * d, wi, sample_index,
+                                           seed, depth + 1, max_depth, 0.0,
+                                           True, fog=fog, med=med)
+            att = np.exp(-sig_a * pre[0])
+            return att * self._radiance_inner(o, d, sample_index, seed, depth,
+                                              max_depth, prev_pdf, prev_spec,
+                                              fog, pre=pre, med=med)
+        if fog is not None:
+            pre = self.trace(o, d)
+            inner = self._radiance_inner(o, d, sample_index, seed, depth,
+                                         max_depth, prev_pdf, prev_spec, fog,
+                                         pre=pre)
+            t_f = pre[0]
+            if np.isfinite(t_f):
+                att = np.exp(-np.maximum(1.0 - np.asarray(fog[0], np.float64),
+                                         0.0) * fog[1] * t_f)
+                return att * inner
+            return inner
+        return self._radiance_inner(o, d, sample_index, seed, depth,
+                                    max_depth, prev_pdf, prev_spec, None)
+
+    def _radiance_inner(self, o, d, sample_index, seed, depth, max_depth,
+                        prev_pdf, prev_spec, fog=None, pre=None, med=None):
+        t, tri, u, v = pre if pre is not None else self.trace(o, d)
+        if not np.isfinite(t):
+            # BSDF-only env estimator (no env NEE): unbiased on its own,
+            # textured to match the production integrand
+            return self._env_radiance(d)
+        w = 1.0 - u - v
+        pos = o + t * d
+        n = w * self.n0[tri] + u * self.n1[tri] + v * self.n2[tri]
+        n = n / max(np.linalg.norm(n), 1e-12)
+        mat = int(self.tri_mat[tri])
+        uv = w * self.uv0[tri] + u * self.uv1[tri] + v * self.uv2[tri]
+
+        # ---- stochastic alpha pass-through (one step consumed, specular
+        # for MIS — mirrors pt.py passthru semantics)
+        if self.has_alpha:
+            op = self._opacity(mat, uv)
+            ua = _rand4(sample_index, depth, 4, seed)[0]
+            if op < 0.999 and ua >= op:
+                if depth >= max_depth - 1:
+                    return np.zeros(3)
+                eps_a = 2e-4 * max(1.0, np.abs(pos).max())
+                return self.radiance(pos + d * eps_a, d, sample_index, seed,
+                                     depth + 1, max_depth, 0.0, True, fog=fog)
+
+        em = np.asarray(self.mt.em_color)[mat].astype(np.float64)
+        if em.max() > 1e-6:
+            if float(np.dot(n, -d)) <= 0.0:
+                return np.zeros(3)
+            lrow = int(self.tri_light[tri])
+            if self.mode == "ptstupid" or prev_spec or lrow < 0:
+                return em  # BSDF-only estimator: implicit hits weight 1
+            if self.mode == "shadowpt":
+                return np.zeros(3)  # NEE-only: implicit hits dropped
+            # MIS vs the light pdf
+            lp = self._light_pdf_hit(lrow, o, d, pos, n)
+            pick = float(np.asarray(self.lt.pick_cdf)[lrow + 1] - np.asarray(self.lt.pick_cdf)[lrow])
+            wmis = prev_pdf**2 / max(prev_pdf**2 + (lp * pick) ** 2, 1e-20)
+            return em * wmis
+        if depth >= max_depth - 1:
+            return np.zeros(3)
+
+        facing = np.dot(n, -d) >= 0
+        ns = n if facing else -n
+        albedo = np.asarray(self.mt.diff_color)[mat].astype(np.float64)
+        refl = np.asarray(self.mt.refl_color)[mat].astype(np.float64)
+        transp = np.asarray(self.mt.transp_color)[mat].astype(np.float64)
+        transl = np.asarray(self.mt.transl_color)[mat].astype(np.float64)
+        # ---- SSS boundary lobes (bsdf/core.py:164-176 mapping of the
+        # reference's branch probabilities, CPUExp_IntegratorSSS.cpp:69-97):
+        # transmit w.p. T with color 1-kd, else diffuse-reflect with color
+        # kd => effective diffuse = kd(1-T), effective translucency = (1-kd)T
+        T_sss = float(np.asarray(self.mt.sss_transmission)[mat])
+        if T_sss > 0.0:
+            kd_vec = albedo.copy()
+            albedo = kd_vec * (1.0 - T_sss)
+            transl = np.clip(1.0 - kd_vec, 0.0, 1.0) * T_sss
+        ior = float(np.asarray(self.mt.transp_ior)[mat])
+        rdist = int(np.asarray(self.mt.refl_dist)[mat])
+        ralpha = float(np.asarray(self.mt.refl_alpha)[mat])
+
+        def lum(c):
+            return 0.2126 * c[0] + 0.7152 * c[1] + 0.0722 * c[2]
+
+        kd_, ks_ = lum(albedo), lum(refl)
+        kt_, kl_ = lum(transp), lum(transl)
+        ktot = kd_ + ks_ + kt_ + kl_
+        is_mirror = rdist == 4
+
+        out = np.zeros(3)
+        # ---- NEE over one light picked by the CDF (diffuse + GGX lobes;
+        # pure mirrors skip NEE)
+        r_l = _rand4(sample_index, depth, 2, seed)
+        u_sh = _rand4(sample_index, depth, 6, seed)[0]  # alpha shadow walk
+        cdf = np.asarray(self.lt.pick_cdf)
+        lrow = int(np.clip(np.searchsorted(cdf, r_l[3], side="right") - 1, 0, len(cdf) - 2))
+        pick = float(cdf[lrow + 1] - cdf[lrow])
+        ltype = int(np.asarray(self.lt.ltype)[lrow])
+        lpos = np.asarray(self.lt.pos)[lrow].astype(np.float64)
+        lnorm = np.asarray(self.lt.norm)[lrow].astype(np.float64)
+        inten = np.asarray(self.lt.intensity)[lrow].astype(np.float64)
+        def eval_f_pdf(wi):
+            """mixture (f, pdf) for NEE MIS: diffuse + GGX reflection on the
+            facing side, lambert transmission (translucency) on the back
+            (eval_bsdf two-sided semantics, bsdf/core.py:548)."""
+            cos_i = float(np.dot(wi, ns))
+            if ktot <= 0:
+                return np.zeros(3), 0.0
+            if cos_i <= 0:  # transmission side: translucency lobe only
+                if kl_ <= 0:
+                    return np.zeros(3), 0.0
+                return transl / np.pi, (kl_ / ktot) * abs(cos_i) / np.pi
+            f = albedo / np.pi
+            pdf = (kd_ / ktot) * cos_i / np.pi
+            if ks_ > 0 and rdist == 2 and not is_mirror:  # GGX
+                wo = -d
+                h = wo + wi
+                h = h / max(np.linalg.norm(h), 1e-12)
+                ch = max(float(np.dot(h, ns)), 0.0)
+                coh = max(float(np.dot(wo, h)), 1e-6)
+                co = max(float(np.dot(wo, ns)), 1e-6)
+                a2 = ralpha * ralpha
+                dd = ch * ch * (a2 - 1.0) + 1.0
+                D = a2 / max(np.pi * dd * dd, 1e-12)
+                def g1(c):
+                    return 2 * c / max(c + np.sqrt(a2 + (1 - a2) * c * c), 1e-12)
+                G = g1(co) * g1(cos_i)
+                f = f + refl * D * G / max(4 * co * cos_i, 1e-6)
+                pdf += (ks_ / ktot) * D * ch / (4 * coh)
+            return f, pdf
+
+        f_d = albedo / np.pi
+
+        if ltype == 4:  # area rect
+            vx = np.asarray(self.lt.vx)[lrow].astype(np.float64)
+            vy = np.asarray(self.lt.vy)[lrow].astype(np.float64)
+            area = float(np.asarray(self.lt.area)[lrow])
+            p = lpos + (2 * r_l[0] - 1) * vx + (2 * r_l[1] - 1) * vy
+            to_l = p - pos
+            d2 = float(np.dot(to_l, to_l))
+            dist = np.sqrt(d2)
+            wi = to_l / dist
+            cos_l = float(np.dot(lnorm, -wi))
+            cos_s = abs(float(np.dot(wi, ns)))
+            if cos_l > 1e-6 and cos_s > 0:
+                pdf_w = d2 / (area * cos_l)
+                side = 1.0 if float(np.dot(wi, ns)) >= 0 else -1.0
+                sro = pos + side * ns * 2e-4 * max(1.0, np.abs(pos).max())
+                if not self.occluded(sro, wi, dist, u_sh):
+                    fv, pdf_b = eval_f_pdf(wi)
+                    wmis = self._nee_w(pdf_w * pick, pdf_b)
+                    out += fv * inten * cos_s * wmis / max(pdf_w * pick, 1e-12)
+        elif ltype == 6:  # sphere: cone sampling toward the center
+            rad = float(np.asarray(self.lt.radius)[lrow])
+            to_c = lpos - pos
+            dc2 = float(np.dot(to_c, to_c))
+            dc = np.sqrt(dc2)
+            sin2 = min(rad * rad / dc2, 0.9999)
+            cos_max = np.sqrt(1 - sin2)
+            cos_t = 1 - r_l[0] * (1 - cos_max)
+            sin_t = np.sqrt(max(1 - cos_t * cos_t, 0.0))
+            phi = 2 * np.pi * r_l[1]
+            wd = to_c / dc
+            sign = 1.0 if wd[2] >= 0 else -1.0
+            aa = -1.0 / (sign + wd[2])
+            bb_ = wd[0] * wd[1] * aa
+            tb2 = np.array([1 + sign * wd[0] ** 2 * aa, sign * bb_, -sign * wd[0]])
+            bb2 = np.array([bb_, sign + wd[1] ** 2 * aa, -wd[1]])
+            wi = sin_t * np.cos(phi) * tb2 + sin_t * np.sin(phi) * bb2 + cos_t * wd
+            wi /= max(np.linalg.norm(wi), 1e-12)
+            cos_s = abs(float(np.dot(wi, ns)))
+            b_ = float(np.dot(wi, to_c))
+            disc = max(b_ * b_ - dc2 + rad * rad, 0.0)
+            dist = b_ - np.sqrt(disc)
+            if cos_s > 0 and dist > 1e-5:
+                pdf_w = 1.0 / max(2 * np.pi * (1 - cos_max), 1e-9)
+                side = 1.0 if float(np.dot(wi, ns)) >= 0 else -1.0
+                sro = pos + side * ns * 2e-4 * max(1.0, np.abs(pos).max())
+                if not self.occluded(sro, wi, dist, u_sh):
+                    fv, pdf_b = eval_f_pdf(wi)
+                    wmis = self._nee_w(pdf_w * pick, pdf_b)
+                    out += fv * inten * cos_s * wmis / max(pdf_w * pick, 1e-12)
+        elif ltype == 8:  # mesh light: tri by area CDF + uniform point
+            mrow = int(np.asarray(self.lt.mesh_row)[lrow])
+            area = float(np.asarray(self.lt.area)[lrow])
+            cdfm = self.ml_cdf[mrow]
+            ti = int(np.clip((cdfm < r_l[0]).sum(), 0, self.ml_tri.shape[1] - 1))
+            trim = int(np.clip(self.ml_tri[mrow, ti], 0, len(self.v0) - 1))
+            ub1 = (r_l[0] * 4096.0) % 1.0
+            ub2 = (r_l[1] * 4096.0) % 1.0
+            r1m = np.sqrt(max(ub1, 0.0))
+            pm = (self.v0[trim] + r1m * (1.0 - ub2) * self.e1[trim]
+                  + r1m * ub2 * self.e2[trim]).astype(np.float64)
+            nm = np.cross(self.e1[trim], self.e2[trim]).astype(np.float64)
+            nm /= max(np.linalg.norm(nm), 1e-12)
+            to_l = pm - pos
+            d2 = max(float(np.dot(to_l, to_l)), 1e-12)
+            dist = np.sqrt(d2)
+            wi = to_l / dist
+            cos_m = abs(float(np.dot(nm, -wi)))  # two-sided emission
+            cos_s = abs(float(np.dot(wi, ns)))
+            if cos_m > 1e-6 and cos_s > 0:
+                pdf_w = d2 / (area * cos_m)
+                side = 1.0 if float(np.dot(wi, ns)) >= 0 else -1.0
+                sro = pos + side * ns * 2e-4 * max(1.0, np.abs(pos).max())
+                if not self.occluded(sro, wi, dist * 0.998, u_sh):
+                    fv, pdf_b = eval_f_pdf(wi)
+                    wmis = self._nee_w(pdf_w * pick, pdf_b)
+                    out += fv * inten * cos_s * wmis / max(pdf_w * pick, 1e-12)
+        elif ltype in (0, 1):  # point / spot (delta)
+            to_l = lpos - pos
+            d2 = float(np.dot(to_l, to_l))
+            dist = np.sqrt(d2)
+            wi = to_l / dist
+            cos_s = abs(float(np.dot(wi, ns)))
+            fall = 1.0
+            if ltype == 1:  # spot smoothstep falloff (clight.h:7 semantics)
+                ci = float(np.asarray(self.lt.cos_in)[lrow])
+                co_ = float(np.asarray(self.lt.cos_out)[lrow])
+                sc = float(np.dot(lnorm, -wi))
+                x = np.clip((sc - co_) / max(ci - co_, 1e-6), 0.0, 1.0)
+                fall = x * x * (3 - 2 * x)
+            if cos_s > 0 and fall > 0 and self.mode != "ptstupid":
+                side = 1.0 if float(np.dot(wi, ns)) >= 0 else -1.0
+                sro = pos + side * ns * 2e-4 * max(1.0, np.abs(pos).max())
+                if not self.occluded(sro, wi, dist, u_sh):
+                    fv, _ = eval_f_pdf(wi)
+                    out += fv * (inten * fall / d2) * cos_s / max(pick, 1e-12)
+
+        # ---- bounce: one-sample mixture over diffuse / glossy-mirror /
+        # glass / translucency (sample_bsdf's kd/ks/kt/kl partition,
+        # bsdf/core.py:707-713)
+        if ktot <= 0:
+            return out
+        r_b = _rand4(sample_index, depth, 1, seed)
+        u_lobe = r_b[0] * ktot
+        pick_d = u_lobe < kd_
+        pick_s = (not pick_d) and u_lobe < kd_ + ks_
+        pick_t = (not pick_d) and (not pick_s) and u_lobe < kd_ + ks_ + kt_
+        eps2 = 2e-4 * max(1.0, np.abs(pos).max())
+        ro2 = pos + ns * eps2
+        # Frisvad basis (same as device math3d)
+        sign = 1.0 if ns[2] >= 0 else -1.0
+        a = -1.0 / (sign + ns[2])
+        b = ns[0] * ns[1] * a
+        tb = np.array([1.0 + sign * ns[0] ** 2 * a, sign * b, -sign * ns[0]])
+        bb = np.array([b, sign + ns[1] ** 2 * a, -ns[1]])
+        # SSS boundary events ride the regular lobe mixture below (the
+        # effective-lobe fold above keeps sample/eval/NEE MIS pdfs mutually
+        # consistent — mirrors pt.py); only the medium STATE is SSS-specific:
+        # picking the translucency lobe crosses the boundary.
+        med_child = med
+        if pick_t:
+            # smooth glass: delta Fresnel split (sample_bsdf glass branch,
+            # bsdf/core.py:737-763; oracle scenes keep transp_gloss = 1)
+            eta = ior if facing else 1.0 / max(ior, 1e-4)
+            cos_io = max(float(np.dot(ns, -d)), 0.0)
+            sin2_t = max(0.0, 1.0 - cos_io * cos_io) / max(eta * eta, 1e-12)
+            tir = sin2_t >= 1.0
+            cos_t = np.sqrt(max(1.0 - sin2_t, 0.0))
+            rp = (eta * cos_io - cos_t) / max(eta * cos_io + cos_t, 1e-12)
+            rs = (cos_io - eta * cos_t) / max(cos_io + eta * cos_t, 1e-12)
+            F = 1.0 if tir else min(max(0.5 * (rp * rp + rs * rs), 0.0), 1.0)
+            fogm = float(np.asarray(self.mt.fog_mult)[mat])
+            fogc = np.asarray(self.mt.fog_color)[mat].astype(np.float64)
+            if r_b[3] < F or tir:
+                wi = d - 2 * float(np.dot(d, ns)) * ns
+                fog_child = fog  # reflection stays in the current medium
+            else:
+                inv_eta = 1.0 / max(eta, 1e-6)
+                wi = inv_eta * d + (inv_eta * cos_io - cos_t) * ns
+                wi /= max(np.linalg.norm(wi), 1e-12)
+                ro2 = pos - ns * eps2
+                # entering arms the Beer fog; exiting clears it (pt.py fog
+                # state machine / attenuationStep semantics)
+                fog_child = (fogc, fogm) if (facing and fogm > 0.0) else None
+            lo = self.radiance(ro2, wi, sample_index, seed, depth + 1,
+                               max_depth, 0.0, True, fog=fog_child, med=med)
+            return out + transp * (ktot / max(kt_, 1e-9)) * lo
+        if (not pick_d) and (not pick_s):  # translucency: back cosine lobe
+            ct = np.sqrt(max(r_b[1], 0.0))
+            st = np.sqrt(max(1.0 - r_b[1], 0.0))
+            phi = 2 * np.pi * r_b[2]
+            wi = -(st * np.cos(phi) * tb + st * np.sin(phi) * bb + ct * ns)
+            ro2 = pos - ns * eps2
+            if T_sss > 0.0:  # SSS boundary crossing (pt.py `cross` lanes)
+                if facing:  # entering the medium
+                    dens = float(np.asarray(self.mt.sss_density)[mat])
+                    med_child = (
+                        dens * float(np.asarray(self.mt.sss_scattering)[mat]),
+                        dens * np.asarray(self.mt.sss_absorption)[mat]
+                        .astype(np.float64),
+                        float(np.asarray(self.mt.sss_phase)[mat]))
+                else:  # exiting
+                    med_child = None
+        elif pick_d:
+            ct = np.sqrt(max(r_b[1], 0.0))
+            st = np.sqrt(max(1.0 - r_b[1], 0.0))
+            phi = 2 * np.pi * r_b[2]
+            wi = st * np.cos(phi) * tb + st * np.sin(phi) * bb + ct * ns
+        elif is_mirror:
+            wi = d - 2 * float(np.dot(d, ns)) * ns
+            lo = self.radiance(ro2, wi, sample_index, seed, depth + 1,
+                               max_depth, 0.0, True, fog=fog, med=med)
+            return out + refl * (ktot / max(ks_, 1e-9)) * lo
+        else:  # GGX half-vector sampling
+            a2 = ralpha * ralpha
+            ct2 = (1 - r_b[1]) / max(1 + (a2 - 1) * r_b[1], 1e-12)
+            ct = np.sqrt(np.clip(ct2, 0, 1))
+            st = np.sqrt(np.clip(1 - ct2, 0, 1))
+            phi = 2 * np.pi * r_b[2]
+            h = st * np.cos(phi) * tb + st * np.sin(phi) * bb + ct * ns
+            wi = d - 2 * float(np.dot(d, h)) * h
+            wi /= max(np.linalg.norm(wi), 1e-12)
+        cos_i = float(np.dot(wi, ns))
+        if (cos_i <= 0 and kl_ <= 0) or cos_i == 0:
+            return out
+        fv, pdf = eval_f_pdf(wi)
+        if pdf <= 0:
+            return out
+        lo = self.radiance(ro2, wi, sample_index, seed, depth + 1, max_depth,
+                           pdf, False, fog=fog, med=med_child)
+        return out + fv * abs(cos_i) / pdf * lo
+
+    def render(self, width: int, height: int, spp: int, max_depth: int = 3, seed: int = 777):
+        """(H, W, 3) image; pixel-center rays + per-sample decorrelation
+        identical in STRUCTURE to the production render (not bit-identical:
+        the oracle is an independent estimator)."""
+        from hydracore_tpu_torch.integrators.pt import make_eye_rays
+
+        img = np.zeros((height, width, 3))
+        pix = np.arange(width * height, dtype=np.uint32)
+        for s in range(spp):
+            jitter = np.random.default_rng(seed * 1000 + s).random((width * height, 2)).astype(np.float32)
+            ro, rd = make_eye_rays(self.cam, torch.as_tensor((pix % width).astype(np.int32)),
+                                   torch.as_tensor((pix // width).astype(np.int32)),
+                                   torch.as_tensor(jitter), torch.zeros((len(pix), 2)))
+            ro = ro.numpy().astype(np.float64)
+            rd = rd.numpy().astype(np.float64)
+            for i in range(len(pix)):
+                sample_index = int((np.uint32(pix[i]) * np.uint32(0x9E3779B9)) ^ np.uint32(s))
+                c = self.radiance(ro[i], rd[i], sample_index, seed, 0, max_depth, 0.0, True)
+                img[i // width, i % width] += c
+        return img / spp
+
+    def _light_pdf_hit(self, lrow, o, d, pos, n):
+        ltype = int(np.asarray(self.lt.ltype)[lrow])
+        if ltype == 6:  # sphere: cone-sampling pdf (matches sampling.py)
+            lpos = np.asarray(self.lt.pos)[lrow].astype(np.float64)
+            rad = float(np.asarray(self.lt.radius)[lrow])
+            dc2 = max(float(np.dot(lpos - o, lpos - o)), 1e-12)
+            sin2 = min(rad * rad / dc2, 0.9999)
+            cos_max = np.sqrt(1 - sin2)
+            return 1.0 / max(2 * np.pi * (1 - cos_max), 1e-9)
+        area = float(np.asarray(self.lt.area)[lrow])
+        d2 = float(np.dot(pos - o, pos - o))
+        cos_l = max(float(np.dot(n, -d)), 1e-6)
+        return d2 / max(area * cos_l, 1e-9)
+
+
+class OracleLT:
+    """Independent forward light tracer — the scalar numpy cross-check of
+    the wavefront LT stack: LightSampleForward rect emission (clight.h:1064),
+    the camera connection with the image-measure factor
+    (CameraImageToSurfaceFactor, cbidir.h:78; ConnectToEyeKernel,
+    material.cl:147), cosine diffuse bounces. Shares NO code with the torch
+    wavefront (lt.py) beyond the scene tables, so agreement pins the
+    forward-sampling machinery the whole bidirectional family
+    (LT/SBDPT/IBPT/MMLT) is built on. Diffuse surfaces + rect area lights
+    only (assert-guarded) — the lobes themselves are cross-checked by
+    OracleRenderer on the backward side."""
+
+    def __init__(self, scene):
+        self.r = OracleRenderer(scene)
+        self.lt = self.r.lt
+        self.mt = self.r.mt
+
+    @staticmethod
+    def _cosine_about(n, u1, u2):
+        sign = 1.0 if n[2] >= 0 else -1.0
+        a = -1.0 / (sign + n[2])
+        b = n[0] * n[1] * a
+        tb = np.array([1.0 + sign * n[0] ** 2 * a, sign * b, -sign * n[0]])
+        bb = np.array([b, sign + n[1] ** 2 * a, -n[1]])
+        ct = np.sqrt(max(u1, 0.0))
+        st = np.sqrt(max(1.0 - u1, 0.0))
+        phi = 2.0 * np.pi * u2
+        d = st * np.cos(phi) * tb + st * np.sin(phi) * bb + ct * n
+        return d / max(np.linalg.norm(d), 1e-12)
+
+    def render(self, n_paths: int, max_depth: int = 5, seed: int = 4242):
+        """(H, W, 3) LT splat estimate of the image lt.render_lt computes
+        (direct emitter-to-camera paths excluded on both sides)."""
+        cam = self.r.cam
+        W, H = cam.width, cam.height
+        view = np.linalg.inv(_np(cam.mWorldViewInv, np.float64))
+        tan_half = float(_np(cam.mProjInv)[1, 1])
+        d_img = H / (2.0 * tan_half)
+        cpos = _np(cam.pos, np.float64)
+        cdf = np.asarray(self.lt.pick_cdf, np.float64)
+        ltype = np.asarray(self.lt.ltype)
+        img = np.zeros((H, W, 3))
+        g = np.random.default_rng(seed)
+
+        def connect(pos, ns, albedo, T):
+            to_cam = cpos - pos
+            dist2 = max(float(np.dot(to_cam, to_cam)), 1e-12)
+            dist = np.sqrt(dist2)
+            w_cam = to_cam / dist
+            pv = view[:3, :3] @ pos + view[:3, 3]
+            z = -pv[2]
+            if z <= 1e-4:
+                return
+            sx = pv[0] / z / (tan_half * W / H)
+            sy = pv[1] / z / tan_half
+            px = int(np.floor((sx + 1.0) * 0.5 * W))
+            py = int(np.floor((1.0 - sy) * 0.5 * H))
+            if not (0 <= px < W and 0 <= py < H):
+                return
+            cos_x = float(np.dot(w_cam, ns))
+            if cos_x <= 0.0:  # camera behind the shading surface
+                return
+            eps = 2e-4 * max(1.0, np.abs(pos).max())
+            if self.r.occluded(pos + ns * eps, w_cam, dist):
+                return
+            cos_cam = max(z / dist, 1e-6)
+            factor = (d_img / cos_cam) ** 2 / cos_cam * cos_x / dist2
+            img[py, px] += T * (albedo / np.pi) * factor / n_paths
+
+        for _ in range(n_paths):
+            u = g.random(4)
+            li = int(np.sum(cdf[1:-1] <= u[3]))
+            li = min(max(li, 0), len(cdf) - 2)
+            pick = max(cdf[li + 1] - cdf[li], 1e-12)
+            assert int(ltype[li]) == 4, "OracleLT: rect area lights only"
+            lpos = (np.asarray(self.lt.pos)[li]
+                    + (2 * u[0] - 1) * np.asarray(self.lt.vx)[li]
+                    + (2 * u[1] - 1) * np.asarray(self.lt.vy)[li]).astype(np.float64)
+            lnorm = np.asarray(self.lt.norm)[li].astype(np.float64)
+            Le = np.asarray(self.lt.intensity)[li].astype(np.float64)
+            d = self._cosine_about(lnorm, *g.random(2))
+            # Le * cos / (pdf_a * pdf_w * pick) with pdf_a=1/area,
+            # pdf_w=cos/pi  =>  Le * area * pi / pick
+            T = Le * float(np.asarray(self.lt.area)[li]) * np.pi / pick
+            o = lpos + lnorm * 1e-4
+
+            for depth in range(max_depth - 1):
+                t, tri, uu, vv = self.r.trace(o, d)
+                if not np.isfinite(t):
+                    break
+                w = 1.0 - uu - vv
+                pos = o + t * d
+                n = (w * self.r.n0[tri] + uu * self.r.n1[tri]
+                     + vv * self.r.n2[tri])
+                n = n / max(np.linalg.norm(n), 1e-12)
+                mat = int(self.r.tri_mat[tri])
+                if np.asarray(self.mt.em_color)[mat].max() > 1e-6:
+                    break  # emitter hit: no camera connection, path ends
+                assert (np.asarray(self.mt.refl_color)[mat].max() < 1e-6
+                        and np.asarray(self.mt.transp_color)[mat].max() < 1e-6), \
+                    "OracleLT: diffuse surfaces only"
+                ns = n if np.dot(n, -d) >= 0 else -n
+                albedo = np.asarray(self.mt.diff_color)[mat].astype(np.float64)
+                connect(pos, ns, albedo, T)
+                if depth == max_depth - 2:
+                    break
+                T = T * albedo  # cosine bounce: f*cos/pdf = albedo
+                if T.max() < 1e-7:
+                    break
+                d = self._cosine_about(ns, *g.random(2))
+                o = pos + ns * (2e-4 * max(1.0, np.abs(pos).max()))
+        return img

@@ -57,8 +57,9 @@ from hydracore_tpu_torch.lights.sampling import (env_back_radiance,
                                                  select_light)
 from hydracore_tpu_torch.ops import rng
 from hydracore_tpu_torch.ops.trace_api import (alpha_layer_hit, any_hit,
-                                               any_hit_opaque, ao_any_hit,
-                                               closest_hit, coherence_order,
+                                               any_hit_opaque, any_hit_sorted,
+                                               ao_any_hit, closest_hit,
+                                               coherence_order,
                                                has_shadow_split,
                                                wants_sorted_rays)
 from hydracore_tpu_torch.scene import materials as MC
@@ -253,9 +254,12 @@ def _layer_passes(scene, tri, u, v, o, sdir, t, hit, u_alpha, step: int):
                   | (p.skip_shadow != 0))
 
 
-def shadow_trace(scene, sray_o, sdir, dist, active, u_alpha=None):
+def shadow_trace(scene, sray_o, sdir, dist, active, u_alpha=None,
+                 presorted: bool = True):
     """Occlusion query on the wavefront as it stands (already in coherence
-    order when the traversal wants that). With alpha materials
+    order when the traversal wants that), or sorted into coherence order
+    first when not `presorted` (any_hit_sorted, any_hit_opaque; the layers
+    are taken unsorted, as in the JAX package). With alpha materials
     (settings.has_alpha) it walks up
     to MAX_ALPHA_SHADOW_STEPS stochastic transparent layers (ref: the
     alpha variants of shadow traversal, trace.cl:244+); u_alpha (R,) u32
@@ -265,10 +269,11 @@ def shadow_trace(scene, sray_o, sdir, dist, active, u_alpha=None):
     alpha surfaces does not depend on their order, so the split is exact);
     without, each layer is a closest-hit trace of the scene's route."""
     if not scene.settings.has_alpha:
-        return any_hit(scene, sray_o, sdir, dist * 0.995, active=active)
+        trace = any_hit if presorted else any_hit_sorted
+        return trace(scene, sray_o, sdir, dist * 0.995, active=active)
     if has_shadow_split(scene):
         occluded = any_hit_opaque(scene, sray_o, sdir, dist * 0.995,
-                                  active=active)
+                                  active=active, presorted=presorted)
         searching = active & ~occluded
         t_lo = torch.full_like(dist, 1e-5)
         t_hi = dist * 0.995

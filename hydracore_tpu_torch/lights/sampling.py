@@ -6,7 +6,8 @@ over the type enum; branches of light types the scene does not hold are
 skipped (settings.light_types). Covers every light SceneBuilder makes:
 rect, disk, sphere, cylinder, point, spot (both with an optional IES
 profile), direct, mesh and a sky, constant or textured with a lat-long
-image; and the sky's back plate (env_back_radiance).
+image; and the sky's back plate (env_back_radiance). sample_light_fwd
+starts a light path (emission rays for the light tracer) from any of them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from hydracore_tpu_torch.utils.math3d import (cross3, dot3,
 
 FAR_DIST = 1e8
 PI = math.pi
+INV_4PI = 1.0 / (4.0 * math.pi)
 
 
 def _smoothstep01(x):
@@ -343,3 +345,185 @@ def light_eval_pdf_from_hit(scene, l_idx, ray_o, ray_d, hit_pos, hit_norm,
     if return_pick:
         return pdf, a[:, LA_PICK_PROB]
     return pdf
+
+
+class LightSampleFwd(NamedTuple):
+    pos: torch.Tensor  # (R,3) point on light
+    dir: torch.Tensor  # (R,3) emitted direction
+    norm: torch.Tensor  # (R,3) light normal at pos
+    radiance: torch.Tensor  # (R,3) emitted radiance
+    pdf_a: torch.Tensor  # (R,) area pdf of pos
+    pdf_w: torch.Tensor  # (R,) solid-angle pdf of dir (cos-weighted)
+    cos_at_light: torch.Tensor  # (R,)
+
+
+def scene_bounding_sphere(scene):
+    """(center (3,), radius ()) of the scene from the BVH root box, both
+    tensors on the scene's device (no host read)."""
+    c = (scene.bvh_bmin[0] + scene.bvh_bmax[0]) * 0.5
+    r = torch.linalg.vector_norm(scene.bvh_bmax[0] - scene.bvh_bmin[0]) * 0.5 \
+        + 1e-3
+    return c, r
+
+
+def sample_light_fwd(scene, l_idx, rnds) -> LightSampleFwd:
+    """Sample an emission ray (a light path's start) on light l_idx (R,)
+    with rnds (R,4) uniforms — ref LightSampleForward (clight.h:1064), every
+    light type: rect, disk, sphere, cylinder and mesh emit cosine-weighted
+    (a mesh light picks its triangle by the area CDF), a point uniformly
+    over the sphere, a spot uniformly in its outer cone with the smoothstep
+    falloff (both with an optional IES profile), the sun and the sky from a
+    disk on 1.5 times the scene's bounding sphere, inward (the sky's
+    direction by env importance). Every branch is computed and selected by
+    type, as in the JAX package."""
+    from hydracore_tpu_torch.ops.texture import sample_bilinear
+
+    a = light_rows(scene, l_idx)
+    ltype = a[:, LA_TYPE].to(torch.int32)
+    pos_c = a[:, LA_POS:LA_POS + 3]
+    nrm = a[:, LA_NORM:LA_NORM + 3]
+    vx = a[:, LA_VX:LA_VX + 3]
+    vy = a[:, LA_VY:LA_VY + 3]
+    inten = a[:, LA_INTEN:LA_INTEN + 3]
+    radius = a[:, LA_RADIUS]
+    area = torch.clamp(a[:, LA_AREA], min=1e-12)
+    cos_in = a[:, LA_COS_IN]
+    cos_out = a[:, LA_COS_OUT]
+
+    u1, u2, u3, u4 = rnds[:, 0], rnds[:, 1], rnds[:, 2], rnds[:, 3]
+
+    def sel3(cond, x, y):
+        return torch.where(cond[:, None], x, y)
+
+    # ---- position on the emitter
+    p_rect = pos_c + (2 * u1 - 1)[:, None] * vx + (2 * u2 - 1)[:, None] * vy
+    r_d = sqrt(torch.clamp(u1, 0.0, 1.0))
+    phi_d = 2 * PI * u2
+    p_disk = pos_c + (r_d * torch.cos(phi_d))[:, None] * vx \
+        + (r_d * torch.sin(phi_d))[:, None] * vy
+    # sphere: uniform point on the sphere
+    z = 1.0 - 2.0 * u1
+    r_ = sqrt(torch.clamp(1 - z * z, 0.0, 1.0))
+    sph_n = torch.stack([r_ * torch.cos(2 * PI * u2), z,
+                         r_ * torch.sin(2 * PI * u2)], -1)
+    p_sph = pos_c + radius[:, None] * sph_n
+    # cylinder: lateral surface, normal = radial
+    axis = normalize3(vx)
+    half_h = sqrt(torch.clamp(dot3(vx, vx), min=1e-12))
+    at, ab = make_orthonormal_basis(axis)
+    phi_c = 2 * PI * u2
+    cyl_n = torch.cos(phi_c)[:, None] * at + torch.sin(phi_c)[:, None] * ab
+    p_cyl = pos_c + ((2 * u1 - 1) * half_h)[:, None] * axis \
+        + radius[:, None] * cyl_n
+
+    is_rect = ltype == LIGHT_AREA_RECT
+    is_disk = ltype == LIGHT_AREA_DISK
+    is_sph = ltype == LIGHT_SPHERE
+    is_cyl = ltype == LIGHT_CYLINDER
+    is_mesh = ltype == LIGHT_MESH
+    is_point = ltype == LIGHT_POINT
+    is_spot = ltype == LIGHT_SPOT
+    is_dir = ltype == LIGHT_DIRECT
+    is_sky = ltype == LIGHT_SKY
+    surf = is_rect | is_disk | is_sph | is_cyl | is_mesh  # cosine emitters
+
+    # mesh light: triangle by area CDF + uniform point (MeshLight fwd)
+    mrow = torch.clamp(a[:, LA_MESH_ROW].to(torch.int64), 0,
+                       scene.ml_cdf.shape[0] - 1)
+    cdf_rows = scene.ml_cdf[mrow]
+    ti = torch.clamp((cdf_rows < u1[:, None]).sum(dim=1), 0,
+                     scene.ml_tri.shape[1] - 1)
+    trim = torch.clamp(scene.ml_tri[mrow, ti].long(), 0,
+                       scene.tri_v0.shape[0] - 1)
+    # uniform barycentric point: the sub-bin bits of u1/u2 (below the CDF
+    # quantization) serve as two fresh uniforms
+    ub1 = torch.remainder(u1 * 4096.0, 1.0)
+    ub2 = torch.remainder(u2 * 4096.0, 1.0)
+    r1m = sqrt(torch.clamp(ub1, 0.0, 1.0))
+    te1, te2 = scene.tri_e1[trim], scene.tri_e2[trim]
+    p_mesh = (scene.tri_v0[trim] + (r1m * (1.0 - ub2))[:, None] * te1
+              + (r1m * ub2)[:, None] * te2)
+    mesh_n = normalize3(cross3(te1, te2))
+
+    pos = sel3(is_rect, p_rect, sel3(is_disk, p_disk, p_sph))
+    pos = sel3(is_cyl, p_cyl, pos)
+    pos = sel3(is_mesh, p_mesh, pos)
+    pos = sel3(surf, pos, pos_c)
+    n = sel3(is_sph, sph_n, torch.broadcast_to(nrm, sph_n.shape))
+    n = sel3(is_cyl, cyl_n, n)
+    n = sel3(is_mesh, mesh_n, n)
+
+    # ---- direction
+    # cosine-weighted about n (surface emitters)
+    t, b = make_orthonormal_basis(n)
+    ct = sqrt(torch.clamp(u3, 0.0, 1.0))
+    st = sqrt(torch.clamp(1 - u3, 0.0, 1.0))
+    ph = 2 * PI * u4
+    d_cos = (st * torch.cos(ph))[:, None] * t + (st * torch.sin(ph))[:, None] * b \
+        + ct[:, None] * n
+    # uniform sphere (point)
+    z2 = 1.0 - 2.0 * u3
+    r2 = sqrt(torch.clamp(1 - z2 * z2, 0.0, 1.0))
+    d_uni = torch.stack([r2 * torch.cos(2 * PI * u4), z2,
+                         r2 * torch.sin(2 * PI * u4)], -1)
+    # spot: uniform direction inside the outer cone about the axis (nrm)
+    ct_sp = 1.0 - u3 * (1.0 - torch.clamp(cos_out, -1.0, 1.0))
+    st_sp = sqrt(torch.clamp(1.0 - ct_sp * ct_sp, 0.0, 1.0))
+    ta, ba = make_orthonormal_basis(torch.broadcast_to(nrm, sph_n.shape))
+    d_spot = (st_sp * torch.cos(ph))[:, None] * ta \
+        + (st_sp * torch.sin(ph))[:, None] * ba + ct_sp[:, None] * nrm
+    pdf_spot = 1.0 / torch.clamp(2.0 * PI * (1.0 - cos_out), min=1e-9)
+    spot_fall = _smoothstep01(
+        (ct_sp - cos_out) / torch.clamp(cos_in - cos_out, min=1e-6))
+
+    direction = sel3(surf, d_cos, d_uni)
+    direction = sel3(is_spot, d_spot, direction)
+
+    # sky / sun: a ray from a disk on the scene's bounding sphere, inward
+    sky_dir, pdf_sky = sample_env_dir(scene.env_rows_cdf, scene.env_cols_cdf,
+                                      scene.env_pdf_uv, u3, u4)
+    emit_far = sel3(is_sky, -sky_dir, torch.broadcast_to(nrm, sph_n.shape))
+    cen, rad_s = scene_bounding_sphere(scene)
+    td, bd = make_orthonormal_basis(emit_far)
+    rr = sqrt(torch.clamp(u1, 0.0, 1.0)) * rad_s
+    ph2 = 2 * PI * u2
+    p_far = cen[None, :] - emit_far * (rad_s * 1.5) \
+        + (rr * torch.cos(ph2))[:, None] * td + (rr * torch.sin(ph2))[:, None] * bd
+    pdf_a_far = 1.0 / torch.clamp(PI * rad_s * rad_s, min=1e-12)
+
+    far = is_sky | is_dir
+    pos = sel3(far, p_far, pos)
+    direction = sel3(far, emit_far, direction)
+    n = sel3(far, emit_far, n)
+
+    # ---- pdfs and radiance
+    pdf_a = torch.where(surf, 1.0 / area, 1.0)
+    pdf_a = torch.where(far, pdf_a_far, pdf_a)
+    cos_l = torch.where(surf, torch.clamp(ct, min=1e-6), 1.0)
+    pdf_w = torch.where(surf, cos_l * (1.0 / PI), INV_4PI)
+    pdf_w = torch.where(is_spot, pdf_spot, pdf_w)
+    pdf_w = torch.where(is_sky, torch.clamp(pdf_sky, min=1e-12), pdf_w)
+    pdf_w = torch.where(is_dir, 1.0, pdf_w)  # delta direction
+
+    # IES photometric profile on the emitted direction for point / spot
+    # (as sample_light_rev, so the light tracer agrees with the path tracer)
+    tex_slot = a[:, LA_TEX].to(torch.int32)
+    cos_ax = torch.clamp(dot3(direction, nrm), -1.0, 1.0)
+    theta_v = torch.arccos(cos_ax) * (1.0 / PI)
+    phi_v = torch.remainder(
+        torch.atan2(dot3(direction, ba), dot3(direction, ta)) * (0.5 / PI), 1.0)
+    ies_val = sample_bilinear(scene.texels, scene.tex_table, tex_slot,
+                              torch.stack([phi_v, theta_v], -1),
+                              scene.tex_sampler)[:, 0]
+    has_ies = (tex_slot > 0) & (is_point | is_spot)
+    radiance = inten * torch.where(has_ies, ies_val, 1.0)[:, None]
+    radiance = radiance * torch.where(is_spot, spot_fall, 1.0)[:, None]
+    radiance = sel3(is_sky, env_radiance(scene, sky_dir), radiance)
+
+    return LightSampleFwd(pos=pos, dir=direction, norm=n, radiance=radiance,
+                          pdf_a=pdf_a, pdf_w=pdf_w, cos_at_light=cos_l)
+
+
+def sky_pdf():
+    """Solid-angle pdf of a uniform sky direction."""
+    return INV_4PI

@@ -105,10 +105,8 @@ def sample_bilinear(texels, tex_table, tex_id, uv, samplers=None,
     (K, 4) int32 [offset, w, h, flags], tex_id (R,) slot (0 = white), uv
     (R, 2); samplers, optional (K, 8) [m00 m01 tu m10 m11 tv gamma 0].
     Returns (R, 4) (gamma-linearized rgb when samplers are given and
-    apply_gamma). Nothing in the port calls it yet: the JAX package's one
-    caller is the light tracer's IES lookup (sample_light_fwd), which the
-    port does not carry; it is kept at parity with the JAX version, which
-    the tests hold it to."""
+    apply_gamma). Its caller is the light tracer's IES lookup
+    (lights/sampling.py:sample_light_fwd), as in the JAX package."""
     rec = tex_table[tex_id.long()]
     off, w, h, flags = rec.unbind(dim=1)
     u_in, v_in = uv[:, 0], uv[:, 1]

@@ -153,14 +153,19 @@ def has_shadow_split(scene) -> bool:
             and _pick(scene) is traverse_cluster)
 
 
-def any_hit_opaque(scene, ray_o, ray_d, t_max, active=None):
+def any_hit_opaque(scene, ray_o, ray_d, t_max, active=None,
+                   presorted: bool = True):
     """Occlusion by opaque geometry only: B2 over the shadow pool, where the
     alpha and skip-shadow lanes are zeroed, on the wavefront as it stands
-    (the path tracer's is in coherence order on this route). The caller
-    tests the alpha set with alpha_layer_hit; together they are the
-    reference's one-walk transparent shadow query (trace.cl:244-551)."""
-    return traverse_cluster.any_hit(scene, ray_o, ray_d, t_max, active=active,
-                                    opaque_only=True)
+    (the path tracer's is in coherence order on this route), or put into
+    coherence order first when not `presorted`. The caller tests the alpha
+    set with alpha_layer_hit; together they are the reference's one-walk
+    transparent shadow query (trace.cl:244-551)."""
+    walk = partial(traverse_cluster.any_hit, opaque_only=True)
+    if presorted:
+        return walk(scene, ray_o, ray_d, t_max, active=active)
+    occ, inv = _sorted_call(walk, scene, ray_o, ray_d, t_max, active)
+    return occ[inv]
 
 
 # elements of one (rays x alpha triangles) step of alpha_layer_hit: its

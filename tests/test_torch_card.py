@@ -5,7 +5,8 @@ the opaque shadow pool of an alpha scene), B3
 8-wide BVH; B2 also on the path tracer's AO probes) against their plain
 twins, the path tracer on the card against the CPU twins, by the cluster
 and by the packet route (SSS, fog and AO-dirt materials too), the render
-layers' sum, and the
+layers' sum, light tracing and the G-buffer (and adaptive sampling and
+the numpy oracle on a scene that lies on the card), and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
 plain versions on the card.
 
@@ -28,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from hydracore_tpu_torch.integrators import pt
+from hydracore_tpu_torch.integrators import gbuffer, lt, oracle, pt
 from hydracore_tpu_torch.ops import traverse_cluster as tc
 from hydracore_tpu_torch.ops import traverse_packet as tp
 from hydracore_tpu_torch.scene import statefile as sf
@@ -893,3 +894,89 @@ def test_layers_sum_on_card(cuda, dirt):
                           atol=1e-4)
     assert float(imgs["direct"].sum()) > 0.05 * float(imgs["color"].sum())
     assert float(imgs["indirect"].sum()) > 0.05 * float(imgs["color"].sum())
+
+
+def _close_share(a, b) -> float:
+    a, b = a.cpu(), b.cpu()
+    if a.dim() == 2:
+        a, b = a[..., None], b[..., None]
+    same_inf = torch.isinf(a) & torch.isinf(b)
+    d = torch.where(same_inf, 0.0, a - b).abs().amax(dim=-1)
+    return float((d <= 1e-3).float().mean())
+
+
+@pytest.mark.parametrize("traversal", ["cluster", "packet"])
+def test_lt_on_card_matches_cpu_twins(cuda, traversal):
+    """render_lt on the card (light rays unsorted through B1 or B4, the
+    camera connections through B2 or B4's any-hit mode) against the CPU
+    twins: >= 99% of pixels within 1e-3, total energy within 1e-4."""
+    sc = _box_scene(32, traversal=traversal)
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    img_card = lt.render_lt(sc, 2, paths_per_pass=8192, seed=777,
+                            device=cuda).cpu()
+    if traversal == "cluster":
+        assert tc.closest_launches > 0 and tc.any_launches > 0
+        assert tp.closest_launches == 0
+    else:
+        assert tp.closest_launches > 0 and tp.any_launches > 0
+        assert tc.closest_launches == 0
+    img_cpu = lt.render_lt(sc, 2, paths_per_pass=8192, seed=777, device="cpu")
+    assert torch.isfinite(img_card).all() and float(img_card.sum()) > 0.0
+    assert _close_share(img_card, img_cpu) >= 0.99
+    e_card, e_cpu = float(img_card.double().sum()), float(img_cpu.double().sum())
+    assert abs(e_card - e_cpu) <= 1e-4 * e_cpu
+
+
+def test_gbuffer_on_card_matches_cpu_twins(cuda):
+    """eval_gbuffer on the card through B1/B2 against the CPU twins: float
+    layers by the image rule, ids equal on >= 99% of pixels."""
+    sc = _box_scene(32)
+    tc.reset_launch_counts()
+    g_card = gbuffer.eval_gbuffer(sc, 7, n_samples=4, device=cuda)
+    assert tc.closest_launches > 0 and tc.any_launches > 0
+    g_cpu = gbuffer.eval_gbuffer(sc, 7, n_samples=4, device="cpu")
+    for k, v in g_cpu.items():
+        if k in ("mat_id", "inst_id"):
+            assert float((g_card[k].cpu() == v).float().mean()) >= 0.99, k
+        else:
+            assert _close_share(g_card[k], v) >= 0.99, k
+
+
+def test_instanced_gbuffer_on_card(cuda):
+    """eval_gbuffer on an instanced scene through B3 in both modes: inst_id
+    equal to the flattened layout's on >= 99.9% of pixels."""
+    inst, flat = _instanced_scene(), _instanced_scene(instancing="off")
+    tc.reset_launch_counts()
+    gi = gbuffer.eval_gbuffer(inst, 3, n_samples=4, device=cuda)
+    assert tc.inst_closest_launches > 0 and tc.inst_any_launches > 0
+    gf = gbuffer.eval_gbuffer(flat, 3, n_samples=4, device=cuda)
+    same = float((gi["inst_id"] == gf["inst_id"]).float().mean())
+    assert same >= 0.999, same
+    assert int(gi["inst_id"].max()) > 0
+
+
+def test_adaptive_on_card_matches_cpu_twins(cuda):
+    """render_adaptive with a top-up (spp_base 33: two base rounds) on the
+    card against the CPU twins."""
+    sc = _box_scene(16)
+    kw = dict(spp_base=33, spp_max=40, seed=3, noise_threshold=0.1,
+              tile_pixels=128)
+    img_card = gbuffer.render_adaptive(sc, device=cuda, **kw)
+    img_cpu = gbuffer.render_adaptive(sc, device="cpu", **kw)
+    assert _close_share(torch.tensor(img_card), torch.tensor(img_cpu)) >= 0.99
+
+
+def test_oracle_reads_a_scene_on_the_card(cuda):
+    """The oracle takes its tables off the card (.cpu().numpy())."""
+    b = SceneBuilder()
+    grey = b.lambert([0.65, 0.65, 0.65])
+    b.add_box_interior(2.0, grey, grey, grey, b.lambert([0.7, 0.15, 0.1]), grey)
+    b.rect_light([0, 1.95, 0], 0.7, 0.7, [12.0, 11.0, 9.0])
+    sc = b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=6, height=4,
+                 trace_depth=4)
+    a = oracle.OracleLT(sc.to(cuda)).render(n_paths=300, max_depth=4, seed=2)
+    c = oracle.OracleLT(sc).render(n_paths=300, max_depth=4, seed=2)
+    np.testing.assert_array_equal(a, c)
+    r = oracle.OracleRenderer(sc.to(cuda)).render(6, 4, 1, max_depth=3, seed=2)
+    assert np.isfinite(r).all() and r.sum() > 0

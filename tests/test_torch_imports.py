@@ -33,7 +33,8 @@ def test_sources_import_no_jax():
             "bvh/instanced.py", "bvh/clusters.py", "bvh/wide.py",
             "ops/trace_api.py", "ops/traverse_dense.py", "ops/traverse_wide.py",
             "ops/traverse_packet.py", "ops/proctex.py", "ops/proctex_c.py",
-            "integrators/pt_regen.py",
+            "integrators/pt_regen.py", "integrators/lt.py",
+            "integrators/gbuffer.py", "integrators/oracle.py",
             "tools/bench_pallas_gather.py",
             "tools/proto_prims.py", "tools/proto_subvisit.py",
             "tools/exp_kernel_cost.py", "tools/proto_cluster.py",
