@@ -7,7 +7,8 @@ hydracore_tpu_torch/_build/, the compilers started together), then drives
 four main paths of the MIS+NEE path tracer, a textured fifth (phase 14)
 and a sixth through the last gates of the path tracer (phase 15),
 render_passes at 1024x1024, depth 5, seed 777, each through its kernels,
-then the other schedules of the path tracer (phase 16):
+then the other schedules of the path tracer (phase 16), light tracing and
+the G-buffer (phase 17) and bidirectional path tracing (phase 18):
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit), a
                two-level walk over groups of clusters (the positions and
@@ -127,6 +128,21 @@ noisy), again in the default tiles of 16,384, and at 256^2, spp 33 -> 40
 wavefront sorted into coherence order against the rays as they come;
 64x64 card against CPU for LT, every G-buffer layer and render_adaptive.
 Its "kernels" rows follow phase 16's.
+Phase 18 is bidirectional path tracing (bidir_phase): render_bdpt (full
+SBDPT) and render_ibpt (3-way) on the flat scene (N_PASS passes of 2^20
+lanes: DEPTH camera and DEPTH - 1 light wavefronts through B1, 14 (full) or
+8 (3-way) any-hit wavefronts of NEE, light-vertex-to-camera and inner
+connections through B2 a pass), render_bdpt on sky_scene (the env
+strategies) and on phase 8's packet scene (B4, no packet at MAX_VISITS),
+render_ibpt on phase 6's instanced scene (B3), each timed with its launch
+counters (exact counts a pass), Msamples/s, Mrays/s from the live rays of
+the timed run, peak memory, and profiled; B1/B2, B4 and B3 against their
+twins on BDPT's first camera (unsorted), light, NEE, t = 1 and inner
+wavefronts; the statistical checks of the CPU bidirectional tests at their
+own counts at 16x16 (the port's BDPT per strategy against the port's
+OracleSBDPT, whose eleven images worker processes make meanwhile, and
+SBDPT/IBPT against PT), and the per-strategy images of full and 3-way at
+64x64 card against CPU. Its "kernels" rows follow phase 17's.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -406,9 +422,10 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
     for name, rays, any_hit_mode in cases:
         n_rays = rays.shape[0] * rays.shape[1]
         tk, sk = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode, **pool)
-        tt, stw = tc.cluster_traverse_plain(rays, any_hit_mode=any_hit_mode,
-                                            **twin_pool)
-        torch.cuda.synchronize()
+        # the twin's time and (from its warm-up call) its result
+        plain, (tt, stw) = lab.time_ms(lambda: tc.cluster_traverse_plain(
+            rays, any_hit_mode=any_hit_mode, **twin_pool), 1, rays.device,
+            result=True)
         hk, ht = sk >= 0, stw >= 0
         if any_hit_mode:
             agree = float((hk == ht).float().mean())
@@ -465,8 +482,6 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
                     raise AssertionError(f"{tag} {name}: chunked vs flat pool")
         ms = lab.time_ms(lambda: tc.cluster_traverse(
             rays, any_hit_mode=any_hit_mode, **pool), 20, rays.device)
-        plain = lab.time_ms(lambda: tc.cluster_traverse_plain(
-            rays, any_hit_mode=any_hit_mode, **twin_pool), 1, rays.device)
         bms, by = cluster_bound_ms(scene, rays, tk.reshape(-1))
         log(f"{tag} {name}: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
             f"bound {bms:.5f} ms ({by}) [{card}]")
@@ -2057,9 +2072,11 @@ class TraceProbe:
     inside the run), and with `keep` to keep the rays of the first call of
     each kind as the kernel gets them."""
 
-    def __init__(self, targets, keep: bool = True):
+    def __init__(self, targets, keep: bool = True, keep_at=None):
         self.targets = targets
         self.keep = keep
+        # {kind: {call index: name}}: keep those calls' rays instead, by name
+        self.keep_at = keep_at
         self.live = {"closest": 0, "any": 0}
         self.calls = {"closest": 0, "any": 0}
         self.kept = {}
@@ -2072,10 +2089,12 @@ class TraceProbe:
 
     def _wrap(self, fn, kind):
         def call(scene, ray_o, ray_d, t_max=1e30, active=None, *args, **kw):
-            if self.keep and kind not in self.kept:
+            key = (kind if self.keep_at is None
+                   else self.keep_at.get(kind, {}).get(self.calls[kind]))
+            if self.keep and key is not None and key not in self.kept:
                 tm = t_max.clone() if isinstance(t_max, torch.Tensor) else t_max
-                self.kept[kind] = (ray_o.clone(), ray_d.clone(), tm,
-                                   None if active is None else active.clone())
+                self.kept[key] = (ray_o.clone(), ray_d.clone(), tm,
+                                  None if active is None else active.clone())
             self.calls[kind] += 1
             self.live[kind] = self.live[kind] + (
                 ray_o.shape[0] if active is None else active.sum())
@@ -2094,6 +2113,11 @@ class TraceProbe:
         [(name, o, d, t_max, active, any_hit_mode)]."""
         return [(name, *self.kept[kind], kind == "any")
                 for kind, name in zip(("closest", "any"), names)]
+
+    def raw_at(self):
+        """The calls kept by keep_at, in its order, as raw() gives them."""
+        return [(name, *self.kept[name], kind == "any")
+                for kind, at in self.keep_at.items() for name in at.values()]
 
 
 def probed(targets, fn, runs: list):
@@ -2399,6 +2423,374 @@ def lt_gbuffer_phase(card, pt, tc, tp, dev, host_inst, inst_desc,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           (pkt_counts["pkt_closest_launches"],
                            pkt_counts["pkt_any_launches"])))
+
+# ---------------------------------------------------------------------------
+# Phase 18: bidirectional path tracing (SBDPT and IBPT)
+# ---------------------------------------------------------------------------
+
+# the statistical checks of the bidirectional tests, at their own counts
+BD_W = 16
+BD_ORACLE_PASSES = 192
+BD_RECT = [(0, 2), (1, 2), (1, 3), (2, 1), (2, 2)]
+BD_SKY = [(0, 2), (0, 3), (1, 2), (1, 3), (2, 1), (2, 2)]
+
+
+def bd_launches(depth: int, strategies: str) -> tuple[int, int]:
+    """Closest-hit and any-hit wavefronts of one SBDPT pass at `depth`:
+    depth camera and depth - 1 light wavefronts; NEE from depth - 1 camera
+    vertices, depth - 1 light vertices to the camera, and (full only) the
+    inner connections of at most depth segments."""
+    inner = sum(1 for t in range(2, depth + 1) for s in range(2, depth + 1)
+                if s + t - 1 <= depth)
+    return (2 * depth - 1,
+            2 * (depth - 1) + (inner if strategies == "full" else 0))
+
+
+def bd_keep(depth: int, strategies: str) -> dict:
+    """TraceProbe.keep_at for BDPT's first wavefront of each kind: the
+    unsorted camera wavefront, the first sorted light wavefront, the first
+    NEE, t = 1 and inner-connection wavefronts."""
+    keep = {"closest": {0: "camera", depth: "light"},
+            "any": {0: "NEE", depth - 1: "t=1"}}
+    if strategies == "full":
+        keep["any"][2 * depth - 2] = "inner"
+    return keep
+
+
+def bd_targets():
+    """BDPT's first camera trace (integrators/bdpt.py's closest_hit) and
+    every other trace where ops/trace_api.py calls its traversal, so a
+    sorted call is seen in the order the kernel gets it."""
+    from hydracore_tpu_torch.integrators import bdpt
+    from hydracore_tpu_torch.ops import trace_api
+
+    return [(bdpt, "closest_hit", "closest"),
+            (trace_api, "closest_hit", "closest"),
+            (trace_api, "any_hit", "any")]
+
+
+def bdpt_path(tag, pt, tc, tp, scene, card, prefix: str, strategies: str,
+              n_pass: int, keep: bool) -> tuple:
+    """render_bdpt on `scene` at its size, depth DEPTH, `n_pass` passes of
+    one sample a pixel (2^20 lanes a pass at 1024^2): the launches of each
+    kernel a pass (bd_launches, through the counters named by `prefix`),
+    Msamples/s, Mrays/s (live rays of the timed run), peak memory, a
+    profiled pass. Returns (the probe of an untimed pass that kept BDPT's
+    first wavefront of each kind when `keep`, the counts, the profile)."""
+    from hydracore_tpu_torch.integrators import bdpt
+
+    dev = scene.tri_attr.device
+    W, H = scene.camera.width, scene.camera.height
+    n_c, n_a = bd_launches(DEPTH, strategies)
+
+    def render(n=n_pass):
+        return bdpt.render_bdpt(scene, n, SEED, DEPTH, strategies, device=dev)
+
+    runs = []
+    img, dt, counts, peak = timed_call(
+        tag, tc, tp, probed(bd_targets(), render, runs), card,
+        {prefix + "closest_launches": n_c * n_pass,
+         prefix + "any_launches": n_a * n_pass}, warm=lambda: render(1))
+    if tuple(img.shape) != (H, W, 3) or not bool(
+            torch.isfinite(img).all()) or float(img.sum()) <= 0.0:
+        raise AssertionError(f"{tag}: image not finite and non-zero")
+    live = runs[-1]
+    closest, any_ = live.rays("closest"), live.rays("any")
+    log(f"{tag}: {W}x{H} depth {DEPTH} {strategies} {n_pass} passes in "
+        f"{dt:.3f} s: {n_pass * W * H / dt / 1e6:.4f} Msamples/s, "
+        f"{(closest + any_) / dt / 1e6:.4f} Mrays/s ({closest + any_} live "
+        f"rays counted in the timed run: {closest} closest hit in "
+        f"{live.calls['closest']} wavefronts, {any_} any hit in "
+        f"{live.calls['any']}); launches a pass {n_c} + {n_a}: {counts}; peak "
+        f"device memory {peak / 2**20:.1f} MiB above the scene's [{card}]")
+    probe = None
+    if keep:
+        with TraceProbe(bd_targets(), keep_at=bd_keep(DEPTH,
+                                                      strategies)) as probe:
+            render(1)
+            torch.cuda.synchronize()
+    prof = profile_pass(pt, scene, card, tag, what=f"one {strategies} pass",
+                        run=lambda: render(1))
+    return probe, counts, prof
+
+
+def bd_strategy_twins(tag, scene, strategies: str) -> None:
+    """strategy_images of one pass on the card against the CPU twins: the
+    same labels, each strategy's image by the image rule."""
+    from hydracore_tpu_torch.integrators import bdpt
+
+    card_imgs = bdpt.strategy_images(scene, 0, SEED, DEPTH, strategies,
+                                     device="cuda")
+    t0 = time.time()
+    cpu_imgs = bdpt.strategy_images(scene, 0, SEED, DEPTH, strategies,
+                                    device="cpu")
+    if sorted(card_imgs) != sorted(cpu_imgs):
+        raise AssertionError(f"{tag}: labels {sorted(card_imgs)} / "
+                             f"{sorted(cpu_imgs)}")
+    shares = {lbl: pixels_close(card_imgs[lbl].cpu(), img)
+              for lbl, img in cpu_imgs.items()}
+    log(f"{tag} {strategies}: per-strategy pixels within 1e-3 of the CPU's: "
+        + ", ".join(f"{lbl} {v:.4f}" for lbl, v in sorted(shares.items()))
+        + f" (the CPU's images {time.time() - t0:.2f} s)")
+    if min(shares.values()) < 0.99:
+        raise AssertionError(f"{tag} {strategies}: card vs CPU {shares}")
+
+
+def bd_cornell(mirror: bool = False):
+    """tests/test_bdpt.py's cornell box (tests/test_oracle_bdpt.py's without
+    the mirror) at BD_W^2, depth 3."""
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+
+    b = SceneBuilder()
+    m = b.lambert([0.6, 0.6, 0.6])
+    red = b.lambert([0.7, 0.15, 0.1])
+    left = b.add_material(refl_color=np.array([0.85, 0.85, 0.85], np.float32)) \
+        if mirror else red
+    b.add_box_interior(2.0, m, m, m, left, m)
+    b.rect_light([0, 1.95, 0], 0.6, 0.6, [10.0, 10.0, 10.0])
+    return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=BD_W,
+                   height=BD_W, trace_depth=3)
+
+
+def bd_courtyard(env: str):
+    """tests/test_bdpt_sky.py's courtyard (a floor and a red back wall under
+    a sky) with a constant sky ("const"), its horizon-band image
+    ("textured") or tests/test_oracle_bdpt_sky.py's image ("oracle")."""
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+
+    img = None
+    if env == "textured":
+        img = np.full((16, 32, 4), 0.05, np.float32)
+        img[6:9, :, :3] = 4.0
+        img[:, :, 3] = 1.0
+    elif env == "oracle":
+        img = np.full((8, 16, 4), 0.15, np.float32)
+        img[3:5, :, :3] = 3.0
+        img[:, :, 3] = 1.0
+    b = SceneBuilder()
+    g = b.lambert([0.5, 0.5, 0.5])
+    r = b.lambert([0.7, 0.2, 0.15])
+    b.add_rect([0, -1, 0], [2.5, 0, 0], [0, 0, 2.5], g, flip=True)
+    b.add_rect([0, 0.2, -1.8], [2.0, 0, 0], [0, 1.2, 0], r)
+    b.sky([1.0, 1.0, 1.0], img=img)
+    return b.build(cam_pos=[0, 0.7, 5.0], cam_lookat=[0, 0, 0], width=BD_W,
+                   height=BD_W, trace_depth=3)
+
+
+def bd_oracle_strategy(mode: str, s: int, t: int) -> np.ndarray:
+    """OracleSBDPT.render_strategy(s, t, spp=48, seed=23) on the oracle
+    tests' rect-light box or sky courtyard, on the CPU (a worker process of
+    bidir_statistics)."""
+    from hydracore_tpu_torch.integrators.oracle import OracleSBDPT
+
+    torch.set_num_threads(1)
+    sc = bd_cornell() if mode == "rect" else bd_courtyard("oracle")
+    return OracleSBDPT(sc).render_strategy(s, t, spp=48, seed=23)
+
+
+def bd_blocks(a, n: int = 4):
+    w = a.shape[0] // n
+    return a.reshape(n, w, n, w, 3).mean(axis=(1, 3))
+
+
+def bd_against_oracle(tag, ref, got) -> str:
+    """tests/test_oracle_bdpt.py's criteria: over the 4x4 blocks holding
+    > 2% of the mean, mean within 15% and median block error < 25%; a
+    strategy with no such block carries ~no energy on both sides."""
+    rb, gb = bd_blocks(ref), bd_blocks(got)
+    mask = rb.mean(-1) > 0.02 * max(ref.mean(), 1e-9)
+    if not mask.any():
+        if not got.mean() < max(1e-4, 4.0 * ref.mean()):
+            raise AssertionError(f"{tag}: {got.mean()} against ~0")
+        return f"~0 ({ref.mean():.2e} / {got.mean():.2e})"
+    rel = np.abs(rb - gb).mean(-1)[mask] / np.maximum(rb.mean(-1)[mask], 1e-9)
+    med = float(np.median(rel))
+    tot = abs(got.mean() - ref.mean()) / max(ref.mean(), 1e-12)
+    if tot >= 0.15 or med >= 0.25:
+        raise AssertionError(f"{tag}: means {ref.mean()} / {got.mean()}, "
+                             f"median block err {med}")
+    return f"mean {tot:.2%} off, median block {med:.3f}"
+
+
+def bd_against_pt(tag, ref, got, tol_mean, tol_block, floor) -> str:
+    """tests/test_bdpt.py's and tests/test_bdpt_sky.py's criteria: means
+    within tol_mean, the median 4x4-block error over blocks above `floor`
+    below tol_block."""
+    rel = abs(got.mean() - ref.mean()) / max(ref.mean(), 1e-9)
+    rb, gb = bd_blocks(ref), bd_blocks(got)
+    mask = rb.mean(-1) > floor
+    med = float(np.median(np.abs(rb - gb).mean(-1)[mask]
+                          / np.maximum(rb.mean(-1)[mask], 1e-9)))
+    if rel >= tol_mean or med >= tol_block:
+        raise AssertionError(f"{tag}: pt {ref.mean()} got {got.mean()}, "
+                             f"median block err {med}")
+    return f"mean {rel:.2%} off, median block {med:.3f}"
+
+
+def bidir_statistics(card, pt, dev, meanwhile=None) -> None:
+    """The statistical checks of the bidirectional tests at BD_W^2, their
+    own pass counts and seeds, on `dev`: the port's BDPT per (s, t), 192
+    passes of one wavefront, against the port's OracleSBDPT at 48 samples
+    a pixel (tests/test_oracle_bdpt.py, test_oracle_bdpt_sky.py; the eleven
+    oracle images in worker processes while the card renders and
+    `meanwhile()` runs), and render_bdpt / render_ibpt at 64 passes against
+    PT at 128 / 96 spp (tests/test_bdpt.py, test_bdpt_sky.py)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from hydracore_tpu_torch.integrators import bdpt
+
+    t0 = time.time()
+    jobs = [("rect", s, t) for s, t in BD_RECT] + [("sky", s, t)
+                                                  for s, t in BD_SKY]
+    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = {job: ex.submit(bd_oracle_strategy, *job) for job in jobs}
+        dev_imgs = {}
+        for mode, sc in (("rect", bd_cornell()),
+                         ("sky", bd_courtyard("oracle"))):
+            t1 = time.time()
+            imgs = bdpt.strategy_images(sc, range(BD_ORACLE_PASSES), 5, 3,
+                                        device=dev)
+            dev_imgs[mode] = {k: v.double().cpu().numpy()
+                              for k, v in imgs.items()}
+            log(f"phase 18 statistics {mode}: {BD_ORACLE_PASSES} passes of "
+                f"{BD_W}^2 in one wavefront on {dev} in "
+                f"{time.time() - t1:.2f} s [{card}]")
+
+        def pt_image(sc, spp):
+            img, _ = pt.render_passes(sc, 0, 3, n_pass=spp, max_depth=3,
+                                      device=dev)
+            return (img / spp).cpu().numpy()
+
+        t1 = time.time()
+        checks = []
+        box = bd_cornell()
+        ref = pt_image(box, 128)
+        for name, strat, seed in (("SBDPT", "full", 5), ("IBPT", "3way", 9)):
+            got = bdpt.render_bdpt(box, 64, seed, strategies=strat,
+                                   device=dev).cpu().numpy()
+            checks.append((f"{name} diffuse box", bd_against_pt(
+                f"phase 18 {name} diffuse", ref, got, 0.08, 0.1, 0.05)))
+        mirror = bd_cornell(mirror=True)
+        got = bdpt.render_bdpt(mirror, 64, 5, device=dev).cpu().numpy()
+        checks.append(("SBDPT mirror box", bd_against_pt(
+            "phase 18 SBDPT mirror", pt_image(mirror, 128), got, 0.12, 0.15,
+            0.05)))
+        for env in ("const", "textured"):
+            sc = bd_courtyard(env)
+            ref = pt_image(sc, 96)
+            runs = [("SBDPT", "full")] + ([("IBPT", "3way")]
+                                          if env == "const" else [])
+            for name, strat in runs:
+                got = bdpt.render_bdpt(sc, 64, 9, strategies=strat,
+                                       device=dev).cpu().numpy()
+                checks.append((f"{name} sky {env}", bd_against_pt(
+                    f"phase 18 {name} sky {env}", ref, got, 0.10, 0.15,
+                    0.05 * ref.mean())))
+        log(f"phase 18 statistics against PT ({time.time() - t1:.2f} s): "
+            + "; ".join(f"{k}: {v}" for k, v in checks))
+        if meanwhile is not None:
+            meanwhile()
+        t1 = time.time()
+        res = {}
+        for (mode, s, t), fut in futures.items():
+            ref = fut.result()
+            res[mode, s, t] = bd_against_oracle(
+                f"phase 18 oracle {mode} ({s}, {t})", ref,
+                dev_imgs[mode][(s, t)])
+    log(f"phase 18 statistics against OracleSBDPT (waited "
+        f"{time.time() - t1:.2f} s for {workers} workers): "
+        + "; ".join(f"{m} ({s},{t}) {v}" for (m, s, t), v in res.items()))
+    log(f"phase 18 statistics: {time.time() - t0:.2f} s")
+
+
+def bidir_phase(card, pt, tc, tp, dev, host_inst, host_pkt) -> list:
+    """Phase 18: SBDPT and IBPT at WIDTH x HEIGHT, depth DEPTH, seed SEED,
+    2^20 lanes a pass. render_bdpt (full) and render_ibpt on the flat scene
+    (B1, B2; N_PASS passes each), render_bdpt on sky_scene (the env
+    strategies, one pass), on the packet scene of phase 8 (B4, one pass; no
+    packet at MAX_VISITS) and render_ibpt on the instanced scene of phase 6
+    (B3, one pass): each timed with its launch counters (bd_launches a
+    pass), its live rays and peak memory, and profiled; B1/B2, B4 and B3
+    against their twins on BDPT's first camera (unsorted), light, NEE,
+    t = 1 and inner-connection wavefronts (bd_keep); the statistical
+    checks of bidir_statistics and, while its oracle works, the
+    per-strategy images of full and 3-way at 64^2 card against CPU (flat;
+    full on the sky scene). Returns the "kernels" rows of the new paths."""
+    from hydracore_tpu_torch.integrators import bdpt
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+
+    t0 = time.time()
+    scene = bench_scene(WIDTH, HEIGHT, DEPTH).to(dev)
+    probe, full_counts, _ = bdpt_path("phase 18 SBDPT flat", pt, tc, tp,
+                                      scene, card, "", "full", N_PASS, True)
+    full_recs = check_kernels("phase 18 SBDPT flat", tc, scene,
+                              cluster_cases(tc, probe.raw_at()), card)
+    del probe
+    bdpt_path("phase 18 IBPT flat", pt, tc, tp, scene, card, "", "3way",
+              N_PASS, False)
+    del scene
+    log(f"phase 18 flat: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    sky = sky_scene(WIDTH, HEIGHT).to(dev)
+    bdpt_path("phase 18 SBDPT sky", pt, tc, tp, sky, card, "", "full", 1,
+              False)
+    del sky
+    log(f"phase 18 sky: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    pkt_scene = host_pkt.to(dev)
+    probe, pkt_counts, _ = bdpt_path("phase 18 SBDPT packet", pt, tc, tp,
+                                     pkt_scene, card, "pkt_", "full", 1, True)
+    packet_peak("phase 18 SBDPT packet", tp, lambda: bdpt.render_bdpt(
+        pkt_scene, 1, SEED, DEPTH, device=dev))
+    pkt_recs = check_packet("phase 18 SBDPT packet", tp, pkt_scene,
+                            probe.raw_at(), card)
+    del probe, pkt_scene
+    log(f"phase 18 packet: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    inst_scene = host_inst.to(dev)
+    probe, inst_counts, _ = bdpt_path("phase 18 IBPT instanced", pt, tc, tp,
+                                      inst_scene, card, "inst_", "3way", 1,
+                                      True)
+    inst_recs = check_kernels("phase 18 IBPT instanced", tc, inst_scene,
+                              cluster_cases(tc, probe.raw_at()), card)
+    del probe, inst_scene
+    log(f"phase 18 instanced: {time.time() - t0:.2f} s")
+
+    def twins():
+        t0 = time.time()
+        small = bench_scene(64, 64, DEPTH)
+        for strat in ("full", "3way"):
+            bd_strategy_twins("phase 18 flat 64x64", small, strat)
+        bd_strategy_twins("phase 18 sky 64x64", sky_scene(64, 64), "full")
+        log(f"phase 18 64x64 images: {time.time() - t0:.2f} s")
+
+    bidir_statistics(card, pt, dev, meanwhile=twins)
+
+    at = "hydracore_tpu/ops/traverse_cluster.py"
+    b12 = ("B1 cluster traversal", "B2 cluster traversal")
+    b3 = ("B3 cluster traversal", "B3 cluster traversal")
+    b4 = ("B4 packet traversal", "B4 packet traversal")
+    return (kernel_rows(b12, "flat pool Cp 384, SBDPT's 2^20-ray wavefronts",
+                        CLUSTER_CU, f"{at}:576", full_recs,
+                        (full_counts["closest_launches"],
+                         full_counts["any_launches"]))
+            + kernel_rows(b3, f"instanced Ci {host_inst.cl_map.shape[1]}, "
+                          "IBPT's 2^20-ray wavefronts", CLUSTER_CU,
+                          f"{at}:394", inst_recs,
+                          (inst_counts["inst_closest_launches"],
+                           inst_counts["inst_any_launches"]))
+            + kernel_rows(b4, f"{host_pkt.wbvh_nodes.shape[0]} wide nodes, "
+                          "SBDPT's unsorted 2^20-ray wavefronts", PACKET_CU,
+                          "hydracore_tpu/ops/traverse_packet.py:204",
+                          pkt_recs, (pkt_counts["pkt_closest_launches"],
+                                     pkt_counts["pkt_any_launches"])))
+
 
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
@@ -3049,6 +3441,11 @@ def main() -> int:
     lt_rows = lt_gbuffer_phase(card, pt, tc, tp, dev, host_inst, desc,
                                host_pkt)
     log(f"phase 17 LT, G-buffer, adaptive: {time.time() - t0:.2f} s")
+
+    # ---- phase 18: bidirectional path tracing (SBDPT and IBPT)
+    t0 = time.time()
+    bd_rows = bidir_phase(card, pt, tc, tp, dev, host_inst, host_pkt)
+    log(f"phase 18 bidirectional: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -3071,8 +3468,8 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + opaque_rows + gates_rows + schedule_rows + lt_rows + lab_rows
-            + trav_rows)
+            + opaque_rows + gates_rows + schedule_rows + lt_rows + bd_rows
+            + lab_rows + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 The port's own copy of the JAX package's integrators/oracle.py (ref CPU
 core role, CPUExpLayer + IntegratorMISPT, SURVEY.md §4.4: "the CPU
 reference core as oracle"): a deliberately boring, per-ray-recursive,
-pure-numpy MIS path tracer (OracleRenderer) and forward light tracer
-(OracleLT) sharing NOTHING with the torch wavefront except the scene tables
-and the counter-based RNG, independent implementations the wavefront
+pure-numpy MIS path tracer (OracleRenderer), forward light tracer
+(OracleLT) and per-(s, t) bidirectional oracle (OracleSBDPT, rect light or
+sky) sharing NOTHING with the torch wavefront except the scene tables and
+the counter-based RNG, independent implementations the wavefront
 integrators are tested against. The scene's tables are read once into host
 numpy arrays (`.cpu().numpy()`), so a scene on the card works too.
 
@@ -711,4 +712,594 @@ class OracleLT:
                     break
                 d = self._cosine_about(ns, *g.random(2))
                 o = pos + ns * (2e-4 * max(1.0, np.abs(pos).max()))
+        return img
+
+
+class OracleSBDPT:
+    """Independent scalar-numpy bidirectional oracle — per-(s, t) strategy
+    images with explicit absolute-product MIS in float64.
+
+    The reference carries CPU reference integrators for the bidirectional
+    family (IntegratorSBDPT / IntegratorMMLT, CPUExp_Integrators.h:797,842,
+    CPUExp_Integrators_*Bidir*.cpp). Aggregate agreement with PT cannot
+    catch a bug symmetric across the shared library (e.g. an eval_bsdf pdf
+    convention consumed by every strategy). This oracle shares NOTHING with
+    the torch wavefront (bdpt.py) beyond the scene tables and the traversal
+    cross-checked elsewhere: camera/light subpaths, per-vertex area pdfs,
+    the power-heuristic weights and the splat geometry are all re-derived
+    here in scalar form. Diffuse (lambert) surfaces + one rect area light
+    (or a sky) only, assert-guarded.
+
+    Conventions pinned against bdpt.py (so per-strategy images estimate the
+    SAME weighted integrals):
+      * camera measure is per-pixel: pdf_w = d_img^2/cos_c^3 with
+        d_img = H / (2 tan(fov/2))  (bdpt.cam_pdf_w);
+      * a t'=1 strategy's contribution and its density in the weight walk
+        carry the 1/n_splat screen-sample suppression (n_splat = W*H);
+      * on k=2 paths the unsampled (s'=1, t'=1) strategy leaves the
+        denominator (bdpt._mis_weight);
+      * t' = k requires a geometrically hittable light.
+    """
+
+    def __init__(self, scene):
+        self.r = OracleRenderer(scene)
+        self.lt = self.r.lt
+        self.mt = self.r.mt
+        ltype = np.asarray(self.lt.ltype)
+        self.sky_mode = len(ltype) >= 1 and int(ltype[0]) == 3
+        if not self.sky_mode:
+            emitters = np.where(np.asarray(self.lt.area) > 0)[0]
+            assert len(ltype) >= 1 and int(ltype[0]) == 4 \
+                and len(emitters) >= 1, \
+                "OracleSBDPT: rect area light (or sky) expected at row 0"
+        assert (np.asarray(self.mt.refl_color).max() < 1e-6
+                and np.asarray(self.mt.transp_color).max() < 1e-6), \
+            "OracleSBDPT: diffuse surfaces only"
+        cam = self.r.cam
+        self.W, self.H = cam.width, cam.height
+        self.world_view_inv = _np(cam.mWorldViewInv, np.float64)
+        self.view = np.linalg.inv(self.world_view_inv)
+        self.proj_inv = _np(cam.mProjInv, np.float64)
+        self.tan_half = float(self.proj_inv[1, 1])
+        self.d_img = self.H / (2.0 * self.tan_half)
+        self.cpos = _np(cam.pos, np.float64)
+        self.n_splat = float(self.W * self.H)
+        # light-0 tables, shared by render_strategy and OracleMMLT
+        self.Le = np.asarray(self.lt.intensity)[0].astype(np.float64)
+        self.lpos = np.asarray(self.lt.pos)[0].astype(np.float64)
+        self.lvx = np.asarray(self.lt.vx)[0].astype(np.float64)
+        self.lvy = np.asarray(self.lt.vy)[0].astype(np.float64)
+        self.lnorm = np.asarray(self.lt.norm)[0].astype(np.float64)
+        self.larea = float(np.asarray(self.lt.area)[0])
+        cdf0 = np.asarray(self.lt.pick_cdf, np.float64)
+        self.pick = max(cdf0[1] - cdf0[0], 1e-12)
+        if self.sky_mode:
+            # infinite-light tables (the sky case, pinning the env
+            # conventions of _bdpt_core: endpoint in solid-angle measure,
+            # first surface vertex at planar bounding-disk density —
+            # ref cbidir.h:619-625 / mlt.cl:723 env handling)
+            bmin = _np(scene.bvh_bmin[0], np.float64)
+            bmax = _np(scene.bvh_bmax[0], np.float64)
+            self.scene_cen = (bmin + bmax) * 0.5
+            self.scene_rad = float(np.linalg.norm(bmax - bmin) * 0.5 + 1e-3)
+            self.pdf_a_far = 1.0 / max(np.pi * self.scene_rad ** 2, 1e-12)
+            self.env_rows = _np(scene.env_rows_cdf, np.float64)
+            self.env_cols = _np(scene.env_cols_cdf, np.float64)
+            self.env_pdf_uv = _np(scene.env_pdf_uv, np.float64)
+            self.pick_over_area = 0.0  # unused in sky mode
+        else:
+            self.pick_over_area = self.pick / self.larea
+
+    def _light_y0(self, u0: float, u1: float) -> dict:
+        """The light-sample vertex y0 at rect-light uniform coords."""
+        y0p = (self.lpos + (2 * u0 - 1) * self.lvx
+               + (2 * u1 - 1) * self.lvy)
+        return dict(pos=y0p, ns=self.lnorm, ng=self.lnorm, alb=np.zeros(3),
+                    em=self.Le, beta=self.Le / self.pick_over_area,
+                    pf=self.pick_over_area)
+
+    def _occluded(self, a, ng_a, b) -> bool:
+        dv = b - a
+        dist = np.linalg.norm(dv)
+        w = dv / max(dist, 1e-12)
+        eps = 2e-4 * max(1.0, np.abs(a).max())
+        return self.r.occluded(a + ng_a * eps, w, dist * 0.995)
+
+    # ---- shared scalar helpers
+    def _eye_ray(self, px, py, jx, jy):
+        x = (px + jx) / self.W * 2.0 - 1.0
+        y = 1.0 - (py + jy) / self.H * 2.0
+        pv = self.proj_inv @ np.array([x, y, 0.0, 1.0])
+        dv = pv[:3] / max(abs(pv[3]), 1e-12)
+        dv /= np.linalg.norm(dv)
+        d = self.world_view_inv[:3, :3] @ dv
+        return self.cpos, d / np.linalg.norm(d), dv
+
+    def _cam_pdf_w(self, d_world):
+        dv = self.view[:3, :3] @ d_world
+        cos_c = max(-dv[2], 1e-6)
+        return self.d_img ** 2 / cos_c ** 3
+
+    @staticmethod
+    def _to_area(pdf_w, frm, to, to_ng):
+        d = to - frm
+        d2 = max(float(d @ d), 1e-12)
+        w = d / np.sqrt(d2)
+        return pdf_w * abs(float(w @ to_ng)) / d2
+
+    def _surface(self, tri, uu, vv, d):
+        """(ns, ng, mat, albedo, emission) oriented toward -d."""
+        w = 1.0 - uu - vv
+        n = (w * self.r.n0[tri] + uu * self.r.n1[tri] + vv * self.r.n2[tri])
+        n = n / max(np.linalg.norm(n), 1e-12)
+        ng = np.cross(self.r.e1[tri], self.r.e2[tri])
+        ng = ng / max(np.linalg.norm(ng), 1e-12)
+        if float(n @ -d) < 0.0:
+            n = -n
+        if float(ng @ n) < 0.0:
+            ng = -ng
+        mat = int(self.r.tri_mat[tri])
+        alb = np.asarray(self.mt.diff_color)[mat].astype(np.float64)
+        em = np.asarray(self.mt.em_color)[mat].astype(np.float64)
+        return n, ng, mat, alb, em
+
+    def _walk(self, o, d, pdf_w0, n_surf, g):
+        """Trace up to n_surf diffuse vertices; returns (verts, esc):
+        verts the vertex list dict(pos, ns, ng, alb, em, beta, pf) — beta
+        at ARRIVAL, pf the camera/light-side area pdf of this vertex — and
+        esc the environment-escape record dict(dir, pdf_w, beta) when the
+        walk left the scene (None otherwise; pdf_w is the RAW solid-angle
+        pdf that generated the escaping direction — the env endpoint lives
+        in directional measure, matching _bdpt_core's sky strategies)."""
+        verts = []
+        esc = None
+        beta = np.ones(3)
+        prev = o.copy()
+        pdf_w = pdf_w0
+        for _ in range(n_surf):
+            t, tri, uu, vv = self.r.trace(o, d)
+            if not np.isfinite(t):
+                esc = dict(dir=d.copy(), pdf_w=pdf_w, beta=beta.copy())
+                break
+            pos = o + t * d
+            ns, ng, mat, alb, em = self._surface(tri, uu, vv, d)
+            pf = self._to_area(pdf_w, prev, pos, ng)
+            verts.append(dict(pos=pos, ns=ns, ng=ng, alb=alb, em=em,
+                              beta=beta.copy(), pf=pf))
+            if em.max() > 1e-6:
+                break  # emitters terminate subpaths (matches bdpt validity)
+            u = g.random(2)
+            wi = OracleLT._cosine_about(ns, u[0], u[1])
+            cos_i = max(float(wi @ ns), 0.0)
+            pdf_w = cos_i / np.pi
+            if pdf_w < 1e-9:
+                break
+            beta = beta * alb  # lambert: f*cos/pdf = albedo
+            prev = pos
+            o = pos + ng * (2e-4 * max(1.0, np.abs(pos).max()))
+            d = wi
+        return verts, esc
+
+    def _pl_chain(self, xs, k):
+        """Light-side area pdfs pl[i] = pdfA(x_i | x_{i+1}); pl[k-1] is the
+        light-position pdf. xs[i] must carry pos/ns/ng; x_{k-1} is y0."""
+        pl = [1.0] * k
+        pl[k - 1] = self.pick_over_area
+        for i in range(k - 2, 0, -1):
+            src = xs[i + 1]
+            dv = xs[i]["pos"] - src["pos"]
+            dist = max(np.linalg.norm(dv), 1e-12)
+            w = dv / dist
+            cos_s = max(float(w @ src["ns"]), 0.0)
+            pl[i] = self._to_area(cos_s / np.pi, src["pos"], xs[i]["pos"],
+                                  xs[i]["ng"])
+        return pl
+
+    def _pf_chain(self, xs, k):
+        """Camera-side pf[i] = pdfA(x_i | x_{i-1}); pf[1] is the camera
+        vertex pdf (xs[0] = pinhole sentinel with pos only)."""
+        pf = [1.0] * k
+        dv = xs[1]["pos"] - self.cpos
+        w = dv / max(np.linalg.norm(dv), 1e-12)
+        pf[1] = self._to_area(self._cam_pdf_w(w), self.cpos,
+                              xs[1]["pos"], xs[1]["ng"])
+        for i in range(2, k):
+            src = xs[i - 1]
+            dv = xs[i]["pos"] - src["pos"]
+            dist = max(np.linalg.norm(dv), 1e-12)
+            w = dv / dist
+            cos_s = max(float(w @ src["ns"]), 0.0)
+            pf[i] = self._to_area(cos_s / np.pi, src["pos"], xs[i]["pos"],
+                                  xs[i]["ng"])
+        return pf
+
+    # ---- sky-mode helpers: the env endpoint lives in DIRECTIONAL measure
+    # (pinning _bdpt_core's infinite-light convention, cbidir.h:619-625 /
+    # mlt.cl:723: pl[k-1] = pick * env_pdf_w, pl[k-2] = planar bounding-
+    # disk density x |cos|, pf[k-1] = raw solid-angle scatter pdf).
+    def _env_pdf_w(self, d):
+        """Scalar mirror of envmap.env_pdf_for_dir."""
+        Ht, Wt = self.env_pdf_uv.shape
+        u = 0.5 + np.arctan2(d[0], -d[2]) * (0.5 / np.pi)
+        v = np.arccos(np.clip(d[1], -1.0, 1.0)) / np.pi
+        row = min(max(int(v * Ht), 0), Ht - 1)
+        col = min(max(int(u * Wt), 0), Wt - 1)
+        sin_t = np.sqrt(max(1.0 - d[1] ** 2, 1e-8))
+        return float(self.env_pdf_uv[row, col]) \
+            / max(2.0 * np.pi ** 2 * sin_t, 1e-8)
+
+    def _env_sample(self, u1, u2):
+        """Scalar mirror of envmap.sample_env_dir: (dir TOWARD sky, pdf_w)."""
+        Ht, Wt = self.env_pdf_uv.shape
+        row = min(max(int(np.searchsorted(self.env_rows, u1, side="right"))
+                      - 1, 0), Ht - 1)
+        fr = (u1 - self.env_rows[row]) / max(
+            self.env_rows[row + 1] - self.env_rows[row], 1e-12)
+        ccdf = self.env_cols[row]
+        col = min(max(int(np.sum(ccdf <= u2)) - 1, 0), Wt - 1)
+        fc = (u2 - ccdf[col]) / max(ccdf[col + 1] - ccdf[col], 1e-12)
+        v = (row + fr) / Ht
+        u = (col + fc) / Wt
+        theta = v * np.pi
+        phi = (u - 0.5) * 2.0 * np.pi
+        st = np.sin(theta)
+        d = np.array([st * np.sin(phi), np.cos(theta), -st * np.cos(phi)])
+        d /= max(np.linalg.norm(d), 1e-12)
+        pdf = float(self.env_pdf_uv[row, col]) \
+            / max(2.0 * np.pi ** 2 * st, 1e-8)
+        return d, pdf
+
+    def _pf_chain_sky(self, xs, k, d_sky):
+        """Camera-side pdfs for a path whose LAST vertex x_{k-1} is the
+        environment (xs[1..k-2] surface vertices; xs[0] pinhole):
+        pf[k-1] is the RAW solid-angle pdf toward the sky."""
+        pf = [1.0] * k
+        if k == 2:
+            pf[1] = self._cam_pdf_w(d_sky)
+            return pf
+        dv = xs[1]["pos"] - self.cpos
+        w = dv / max(np.linalg.norm(dv), 1e-12)
+        pf[1] = self._to_area(self._cam_pdf_w(w), self.cpos,
+                              xs[1]["pos"], xs[1]["ng"])
+        for i in range(2, k - 1):
+            src = xs[i - 1]
+            dv = xs[i]["pos"] - src["pos"]
+            dist = max(np.linalg.norm(dv), 1e-12)
+            w = dv / dist
+            cos_s = max(float(w @ src["ns"]), 0.0)
+            pf[i] = self._to_area(cos_s / np.pi, src["pos"], xs[i]["pos"],
+                                  xs[i]["ng"])
+        pf[k - 1] = max(float(xs[k - 2]["ns"] @ d_sky), 0.0) / np.pi
+        return pf
+
+    def _pl_chain_sky(self, xs, k, d_sky):
+        """Light-side pdfs for an env-terminated path: pl[k-1] the sky
+        sampler's pick * env_pdf_w, pl[k-2] the planar bounding-disk
+        density x |cos|, interior vertices as in _pl_chain."""
+        pl = [1.0] * k
+        pl[k - 1] = self.pick * self._env_pdf_w(d_sky)
+        if k >= 3:
+            pl[k - 2] = self.pdf_a_far \
+                * abs(float(xs[k - 2]["ng"] @ d_sky))
+        for i in range(k - 3, 0, -1):
+            src = xs[i + 1]
+            dv = xs[i]["pos"] - src["pos"]
+            dist = max(np.linalg.norm(dv), 1e-12)
+            w = dv / dist
+            cos_s = max(float(w @ src["ns"]), 0.0)
+            pl[i] = self._to_area(cos_s / np.pi, src["pos"], xs[i]["pos"],
+                                  xs[i]["ng"])
+        return pl
+
+    def _occluded_far(self, a, ng_a, d) -> bool:
+        eps = 2e-4 * max(1.0, np.abs(a).max())
+        return self.r.occluded(a + ng_a * eps, d, 1e8)
+
+    def _weight(self, pf, pl, t_strat, k, hittable):
+        """Power heuristic over all t' in 1..k (absolute products, f64) —
+        the explicit form of bdpt._mis_weight's ratio walk."""
+        def p_of(tp):
+            v = 1.0
+            for i in range(1, tp):
+                v *= pf[i]
+            for i in range(tp, k):
+                v *= pl[i]
+            return v
+
+        total, num = 0.0, 0.0
+        for tp in range(1, k + 1):
+            if k == 2 and tp == 1:
+                continue  # unsampled directly-visible-light splat
+            if tp == k and not hittable:
+                continue
+            d = p_of(tp) * (self.n_splat if tp == 1 else 1.0)
+            total += d * d
+            if tp == t_strat:
+                num = d * d
+        return num / total if total > 0 else 0.0
+
+    def _sample_light_path_env(self, n_surf, g):
+        """Env-started light subpath: y0 is the sky endpoint (directional),
+        surface vertices walked from a scene-bounding disk inward.
+        Returns (y0, ys); y0 carries env_dir (TOWARD the sky), beta_dir
+        (radiance over the direction density, the s'=1 connect beta) and
+        the verts' beta already folds Le/(pick*pdf_a_far*pdf_w)."""
+        u = g.random(2)
+        d_sky, pdf_w = self._env_sample(u[0], u[1])
+        Le = self.r._env_radiance(d_sky)
+        y0 = dict(env_dir=d_sky, em=Le, pdf_w=pdf_w,
+                  beta_dir=Le / max(self.pick * pdf_w, 1e-300))
+        if n_surf == 0:
+            return y0, []
+        emit = -d_sky
+        # orthonormal basis about the emission direction
+        a = np.array([1.0, 0.0, 0.0]) if abs(emit[0]) < 0.9 \
+            else np.array([0.0, 1.0, 0.0])
+        tt = np.cross(emit, a)
+        tt /= max(np.linalg.norm(tt), 1e-12)
+        bb = np.cross(emit, tt)
+        u = g.random(2)
+        rr = np.sqrt(u[0]) * self.scene_rad
+        ph = 2.0 * np.pi * u[1]
+        o0 = (self.scene_cen - emit * (self.scene_rad * 1.5)
+              + rr * np.cos(ph) * tt + rr * np.sin(ph) * bb)
+        ys, _ = self._walk(o0, emit, 1.0, n_surf, g)
+        beta_walk = Le / max(self.pick * self.pdf_a_far * pdf_w, 1e-300)
+        for y in ys:
+            y["beta"] = y["beta"] * beta_walk
+        if ys:
+            # first surface vertex's light-side density is the PLANAR
+            # bounding-disk density (not pdf_w-to-area)
+            ys[0]["pf"] = self.pdf_a_far * abs(float(ys[0]["ng"] @ emit))
+        return y0, ys
+
+    def _render_strategy_sky(self, s: int, t: int, spp: int, seed: int):
+        """Sky-mode (s, t) strategy image: the light endpoint x_{k-1} is
+        the environment. Mirrors _bdpt_core's env s'=0 / s'=1 / env-started
+        light-subpath blocks in scalar float64."""
+        k = s + t
+        g = np.random.default_rng(seed)
+        img = np.zeros((self.H, self.W, 3))
+        pin = dict(pos=self.cpos)
+
+        if t >= 2:
+            for py in range(self.H):
+                for px in range(self.W):
+                    acc = np.zeros(3)
+                    for _ in range(spp):
+                        o, d, _ = self._eye_ray(px, py, *g.random(2))
+                        zs, esc = self._walk(o, d, self._cam_pdf_w(d),
+                                             t - 1, g)
+                        if s == 0:
+                            # camera path escapes to the sky after t-2
+                            # surface vertices
+                            if len(zs) != t - 2 or esc is None:
+                                continue
+                            d_sky = esc["dir"]
+                            xs = [pin] + zs + [None]
+                            pf = self._pf_chain_sky(xs, k, d_sky)
+                            pf[k - 1] = esc["pdf_w"]
+                            pl = self._pl_chain_sky(xs, k, d_sky)
+                            w = self._weight(pf, pl, t, k, True)
+                            acc += esc["beta"] \
+                                * self.r._env_radiance(d_sky) * w
+                            continue
+                        if len(zs) < t - 1:
+                            continue
+                        z = zs[-1]
+                        if s == 1:
+                            # directional NEE toward a sampled env dir
+                            u = g.random(2)
+                            d_sky, pdf_w = self._env_sample(u[0], u[1])
+                            cos_z = float(z["ns"] @ d_sky)
+                            if cos_z <= 0.0:
+                                continue
+                            if self._occluded_far(z["pos"], z["ng"], d_sky):
+                                continue
+                            beta_dir = self.r._env_radiance(d_sky) \
+                                / max(self.pick * pdf_w, 1e-300)
+                            c = (z["beta"] * (z["alb"] / np.pi) * cos_z
+                                 * beta_dir)
+                            xs = [pin] + zs + [None]
+                            pf = self._pf_chain_sky(xs, k, d_sky)
+                            pl = self._pl_chain_sky(xs, k, d_sky)
+                            w = self._weight(pf, pl, t, k, True)
+                            acc += c * w
+                            continue
+                        # s >= 2: inner connection to an env-started
+                        # light subpath
+                        y0, ys = self._sample_light_path_env(s - 1, g)
+                        if len(ys) < s - 1:
+                            continue
+                        yv = ys[-1]
+                        dv = yv["pos"] - z["pos"]
+                        d2 = max(float(dv @ dv), 1e-12)
+                        dist = np.sqrt(d2)
+                        wl = dv / dist
+                        cos_z = float(wl @ z["ns"])
+                        cos_y = float(-wl @ yv["ns"])
+                        if cos_z <= 0 or cos_y <= 1e-6:
+                            continue
+                        if self._occluded(z["pos"], z["ng"], yv["pos"]):
+                            continue
+                        G = abs(cos_z) * abs(cos_y) / d2
+                        c = (z["beta"] * (z["alb"] / np.pi) * G
+                             * (yv["alb"] / np.pi) * yv["beta"])
+                        xs = [pin] + zs + list(reversed(ys)) + [None]
+                        pf = self._pf_chain_sky(xs, k, y0["env_dir"])
+                        pl = self._pl_chain_sky(xs, k, y0["env_dir"])
+                        w = self._weight(pf, pl, t, k, True)
+                        acc += c * w
+                    img[py, px] += acc / spp
+            return img
+
+        # t == 1: env-started light paths splatted to the camera
+        n_paths = int(self.n_splat)
+        for _ in range(spp):
+            for _p in range(n_paths):
+                y0, ys = self._sample_light_path_env(s - 1, g)
+                if len(ys) < s - 1:
+                    continue
+                yv = ys[-1]
+                to_cam = self.cpos - yv["pos"]
+                dist2 = max(float(to_cam @ to_cam), 1e-12)
+                dist = np.sqrt(dist2)
+                w_cam = to_cam / dist
+                pv = self.view[:3, :3] @ yv["pos"] + self.view[:3, 3]
+                zc = -pv[2]
+                if zc <= 1e-4:
+                    continue
+                sx = pv[0] / zc / (self.tan_half * self.W / self.H)
+                sy = pv[1] / zc / self.tan_half
+                qx = int(np.floor((sx + 1.0) * 0.5 * self.W))
+                qy = int(np.floor((1.0 - sy) * 0.5 * self.H))
+                if not (0 <= qx < self.W and 0 <= qy < self.H):
+                    continue
+                cos_x = float(w_cam @ yv["ns"])
+                if cos_x <= 0.0:
+                    continue
+                if self._occluded(yv["pos"], yv["ng"], self.cpos):
+                    continue
+                cos_cam = max(zc / dist, 1e-6)
+                factor = ((self.d_img / cos_cam) ** 2 / cos_cam
+                          * cos_x / dist2)
+                c = yv["beta"] * (yv["alb"] / np.pi) * factor / self.n_splat
+                xs = [pin] + list(reversed(ys)) + [None]
+                pf = self._pf_chain_sky(xs, k, y0["env_dir"])
+                pl = self._pl_chain_sky(xs, k, y0["env_dir"])
+                w = self._weight(pf, pl, 1, k, True)
+                img[qy, qx] += c * w / spp
+        return img
+
+    def render_strategy(self, s: int, t: int, spp: int, seed: int = 11):
+        """(H, W, 3) float64 image of the MIS-weighted (s, t) strategy:
+        t camera vertices (incl. pinhole), s light vertices (incl. the
+        light sample y0)."""
+        k = s + t
+        assert k >= 2 and t >= 1
+        if self.sky_mode:
+            return self._render_strategy_sky(s, t, spp, seed)
+        g = np.random.default_rng(seed)
+        lnorm = self.lnorm
+        img = np.zeros((self.H, self.W, 3))
+
+        def sample_light_path(n_surf):
+            u = g.random(2)
+            y0 = self._light_y0(u[0], u[1])
+            if n_surf == 0:
+                return y0, []
+            u = g.random(2)
+            d0 = OracleLT._cosine_about(lnorm, u[0], u[1])
+            o0 = y0["pos"] + lnorm * 1e-4
+            # beta after leaving: Le/(pick/area) * cos/pdf_w = that * pi
+            ys, _ = self._walk(o0, d0, max(float(d0 @ lnorm), 1e-9) / np.pi,
+                               n_surf, g)
+            for y in ys:
+                y["beta"] = y["beta"] * y0["beta"] * np.pi
+            return y0, ys
+
+        occluded = self._occluded
+
+        for py in range(self.H):
+            for px in range(self.W):
+                acc = np.zeros(3)
+                for _ in range(spp):
+                    if t >= 2:
+                        o, d, _ = self._eye_ray(px, py, *g.random(2))
+                        zs, _ = self._walk(o, d, self._cam_pdf_w(d),
+                                           t - 1, g)
+                        if len(zs) < t - 1:
+                            continue
+                        z = zs[-1]
+                        # mid-path emitter ends the subpath before t-1
+                        if any(zz["em"].max() > 1e-6 for zz in zs[:-1]):
+                            continue
+                    if s == 0:
+                        if z["em"].max() <= 1e-6:
+                            continue
+                        if float(z["ns"] @ (zs[-2]["pos"] - z["pos"]
+                                            if t > 2 else self.cpos
+                                            - z["pos"])) <= 0.0:
+                            continue
+                        xs = [dict(pos=self.cpos)] + zs
+                        pf = self._pf_chain(xs, k)
+                        pl = self._pl_chain(xs, k)
+                        w = self._weight(pf, pl, t, k, True)
+                        acc += z["beta"] * z["em"] * w
+                        continue
+                    y0, ys = sample_light_path(s - 1)
+                    if s >= 2 and len(ys) < s - 1:
+                        continue
+                    if s >= 2 and any(yy["em"].max() > 1e-6 for yy in ys):
+                        continue
+                    yv = ys[-1] if s >= 2 else y0
+                    if t >= 2:
+                        if z["em"].max() > 1e-6:
+                            continue  # camera subpath ended on the light
+                        dv = yv["pos"] - z["pos"]
+                        d2 = max(float(dv @ dv), 1e-12)
+                        dist = np.sqrt(d2)
+                        wl = dv / dist
+                        cos_z = float(wl @ z["ns"])
+                        cos_y = float(-wl @ yv["ns"])
+                        if cos_z <= 0 or cos_y <= 1e-6:
+                            continue
+                        if occluded(z["pos"], z["ng"], yv["pos"]):
+                            continue
+                        G = abs(cos_z) * abs(cos_y) / d2
+                        f_z = z["alb"] / np.pi
+                        f_y = (yv["alb"] / np.pi if s >= 2
+                               else np.ones(3))
+                        c = (z["beta"] * f_z * G * f_y
+                             * (yv["beta"] if s >= 2 else y0["beta"]))
+                        xs = ([dict(pos=self.cpos)] + zs
+                              + list(reversed(ys)) + [y0])
+                        pf = self._pf_chain(xs, k)
+                        pl = self._pl_chain(xs, k)
+                        w = self._weight(pf, pl, t, k, True)
+                        acc += c * w
+                    else:
+                        # t = 1 handled image-wide below (splats)
+                        pass
+                img[py, px] += acc / spp
+
+        if t == 1:
+            # light-path splats: n_splat paths per "pass", spp passes
+            n_paths = int(self.n_splat)
+            for _ in range(spp):
+                for _p in range(n_paths):
+                    y0, ys = sample_light_path(s - 1)
+                    if len(ys) < s - 1 or any(
+                            yy["em"].max() > 1e-6 for yy in ys):
+                        continue
+                    yv = ys[-1]
+                    to_cam = self.cpos - yv["pos"]
+                    dist2 = max(float(to_cam @ to_cam), 1e-12)
+                    dist = np.sqrt(dist2)
+                    w_cam = to_cam / dist
+                    pv = self.view[:3, :3] @ yv["pos"] + self.view[:3, 3]
+                    zc = -pv[2]
+                    if zc <= 1e-4:
+                        continue
+                    sx = pv[0] / zc / (self.tan_half * self.W / self.H)
+                    sy = pv[1] / zc / self.tan_half
+                    qx = int(np.floor((sx + 1.0) * 0.5 * self.W))
+                    qy = int(np.floor((1.0 - sy) * 0.5 * self.H))
+                    if not (0 <= qx < self.W and 0 <= qy < self.H):
+                        continue
+                    cos_x = float(w_cam @ yv["ns"])
+                    if cos_x <= 0.0:
+                        continue
+                    if occluded(yv["pos"], yv["ng"], self.cpos):
+                        continue
+                    cos_cam = max(zc / dist, 1e-6)
+                    factor = ((self.d_img / cos_cam) ** 2 / cos_cam
+                              * cos_x / dist2)
+                    c = yv["beta"] * (yv["alb"] / np.pi) * factor \
+                        / self.n_splat
+                    xs = [dict(pos=self.cpos)] + list(reversed(ys)) + [y0]
+                    pf = self._pf_chain(xs, k)
+                    pl = self._pl_chain(xs, k)
+                    w = self._weight(pf, pl, 1, k, True)
+                    img[qy, qx] += c * w / spp
         return img

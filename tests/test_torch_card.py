@@ -6,7 +6,8 @@ the opaque shadow pool of an alpha scene), B3
 twins, the path tracer on the card against the CPU twins, by the cluster
 and by the packet route (SSS, fog and AO-dirt materials too), the render
 layers' sum, light tracing and the G-buffer (and adaptive sampling and
-the numpy oracle on a scene that lies on the card), and the
+the numpy oracle on a scene that lies on the card), bidirectional path
+tracing strategy by strategy, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
 plain versions on the card.
 
@@ -29,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from hydracore_tpu_torch.integrators import gbuffer, lt, oracle, pt
+from hydracore_tpu_torch.integrators import bdpt, gbuffer, lt, oracle, pt
 from hydracore_tpu_torch.ops import traverse_cluster as tc
 from hydracore_tpu_torch.ops import traverse_packet as tp
 from hydracore_tpu_torch.scene import statefile as sf
@@ -980,3 +981,19 @@ def test_oracle_reads_a_scene_on_the_card(cuda):
     np.testing.assert_array_equal(a, c)
     r = oracle.OracleRenderer(sc.to(cuda)).render(6, 4, 1, max_depth=3, seed=2)
     assert np.isfinite(r).all() and r.sum() > 0
+
+
+def test_bdpt_on_card_matches_cpu_twins(cuda):
+    """One full SBDPT pass at 32x32, depth 5 (B1 on its camera and light
+    wavefronts, B2 on its NEE, t = 1 and inner connections) against the
+    CPU twins, strategy by strategy: the same labels, each image by the
+    image rule."""
+    sc = _box_scene(32)
+    tc.reset_launch_counts()
+    card = bdpt.strategy_images(sc, 0, 777, 5, "full", device=cuda)
+    assert tc.closest_launches == 9 and tc.any_launches == 14
+    cpu = bdpt.strategy_images(sc, 0, 777, 5, "full", device="cpu")
+    assert sorted(card) == sorted(cpu) and (2, 2) in cpu
+    for lbl, img in cpu.items():
+        assert torch.isfinite(card[lbl]).all(), lbl
+        assert _close_share(card[lbl], img) >= 0.99, lbl

@@ -35,6 +35,7 @@ def test_sources_import_no_jax():
             "ops/traverse_packet.py", "ops/proctex.py", "ops/proctex_c.py",
             "integrators/pt_regen.py", "integrators/lt.py",
             "integrators/gbuffer.py", "integrators/oracle.py",
+            "integrators/bdpt.py",
             "tools/bench_pallas_gather.py",
             "tools/proto_prims.py", "tools/proto_subvisit.py",
             "tools/exp_kernel_cost.py", "tools/proto_cluster.py",
