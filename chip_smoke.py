@@ -8,7 +8,8 @@ four main paths of the MIS+NEE path tracer, a textured fifth (phase 14)
 and a sixth through the last gates of the path tracer (phase 15),
 render_passes at 1024x1024, depth 5, seed 777, each through its kernels,
 then the other schedules of the path tracer (phase 16), light tracing and
-the G-buffer (phase 17) and bidirectional path tracing (phase 18):
+the G-buffer (phase 17), bidirectional path tracing (phase 18) and
+Metropolis light transport (phase 19):
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit), a
                two-level walk over groups of clusters (the positions and
@@ -143,6 +144,27 @@ own counts at 16x16 (the port's BDPT per strategy against the port's
 OracleSBDPT, whose eleven images worker processes make meanwhile, and
 SBDPT/IBPT against PT), and the per-strategy images of full and 3-way at
 64x64 card against CPU. Its "kernels" rows follow phase 17's.
+Phase 19 is Metropolis light transport (metropolis_phase): render_mlt
+(PSSMLT over the path tracer's legacy mode, 2^20 chains) on the flat scene
+(N_PASS passes of MLT_MUT mutations, the first a burn-in pass: DEPTH
+closest-hit wavefronts through B1, the first in chain order, the rest
+sorted inside the call, and DEPTH - 1 sorted shadow wavefronts through B2 a
+mutation) and on phase 8's packet scene (B4, one pass, no packet at
+MAX_VISITS), render_mmlt (the depth groups' chains in one merged SBDPT
+wavefront of 2^20 lanes a mutation, after 16 probe rounds) on the flat
+scene (N_PASS passes) and on phase 6's instanced scene (B3, one pass):
+each timed with its launch counters (exact counts), Mmutations/s over the
+mutation loop, Mrays/s from the live rays of the timed run, acceptance,
+b or b_k and the allocation, the start's or burn-in's share, host syncs,
+peak memory, one mutation profiled; B1/B2, B4 and B3 against their twins
+on the first mutation's camera wavefront (chain order) and first sorted
+bounce and shadow wavefronts (MLT) or first connection wavefront (MMLT);
+one PSSMLT and one MMLT mutation at 64x64 on the card against the CPU
+twins from one chain state (proposals, splats, accept decisions); and the
+statistical checks of tests/test_mmlt.py and tests/test_oracle_mmlt.py that
+the CPU tests leave out, at their own sizes (metropolis_statistics: the
+bulb in a glass shell on the card, the others on the CPU twins in worker
+processes meanwhile). Its "kernels" rows follow phase 18's.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -2536,9 +2558,10 @@ def bd_strategy_twins(tag, scene, strategies: str) -> None:
         raise AssertionError(f"{tag} {strategies}: card vs CPU {shares}")
 
 
-def bd_cornell(mirror: bool = False):
+def bd_cornell(mirror: bool = False, width: int = BD_W):
     """tests/test_bdpt.py's cornell box (tests/test_oracle_bdpt.py's without
-    the mirror) at BD_W^2, depth 3."""
+    the mirror; tests/test_mmlt.py's diffuse box, tests/test_oracle_mmlt.py's
+    at 12^2) at width^2, depth 3."""
     from hydracore_tpu_torch.scene.procedural import SceneBuilder
 
     b = SceneBuilder()
@@ -2548,8 +2571,8 @@ def bd_cornell(mirror: bool = False):
         if mirror else red
     b.add_box_interior(2.0, m, m, m, left, m)
     b.rect_light([0, 1.95, 0], 0.6, 0.6, [10.0, 10.0, 10.0])
-    return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=BD_W,
-                   height=BD_W, trace_depth=3)
+    return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=width,
+                   height=width, trace_depth=3)
 
 
 def bd_courtyard(env: str):
@@ -2612,12 +2635,13 @@ def bd_against_oracle(tag, ref, got) -> str:
     return f"mean {tot:.2%} off, median block {med:.3f}"
 
 
-def bd_against_pt(tag, ref, got, tol_mean, tol_block, floor) -> str:
-    """tests/test_bdpt.py's and tests/test_bdpt_sky.py's criteria: means
-    within tol_mean, the median 4x4-block error over blocks above `floor`
-    below tol_block."""
+def bd_against_pt(tag, ref, got, tol_mean, tol_block, floor,
+                  n: int = 4) -> str:
+    """tests/test_bdpt.py's, test_bdpt_sky.py's and test_mmlt.py's criteria
+    (and, with n = 3, test_oracle_mmlt.py's): means within tol_mean, the
+    median n x n-block error over blocks above `floor` below tol_block."""
     rel = abs(got.mean() - ref.mean()) / max(ref.mean(), 1e-9)
-    rb, gb = bd_blocks(ref), bd_blocks(got)
+    rb, gb = bd_blocks(ref, n), bd_blocks(got, n)
     mask = rb.mean(-1) > floor
     med = float(np.median(np.abs(rb - gb).mean(-1)[mask]
                           / np.maximum(rb.mean(-1)[mask], 1e-9)))
@@ -2788,6 +2812,464 @@ def bidir_phase(card, pt, tc, tp, dev, host_inst, host_pkt) -> list:
             + kernel_rows(b4, f"{host_pkt.wbvh_nodes.shape[0]} wide nodes, "
                           "SBDPT's unsorted 2^20-ray wavefronts", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204",
+                          pkt_recs, (pkt_counts["pkt_closest_launches"],
+                                     pkt_counts["pkt_any_launches"])))
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: Metropolis light transport (PSSMLT and MMLT)
+# ---------------------------------------------------------------------------
+
+MLT_CHAINS = 1 << 20  # chains of every 1024^2 run: one wavefront a mutation
+MLT_MUT = 4  # mutations a pass
+MLT_TWIN_W = 64  # the card-against-CPU steps
+
+
+def mlt_targets():
+    """PSSMLT's traces: the first (chain-order) camera wavefront where
+    integrators/pt.py calls closest_hit, every other one where
+    ops/trace_api.py calls its traversal, so the sorted bounces and shadow
+    rays are seen as the kernel gets them."""
+    from hydracore_tpu_torch.integrators import pt as ptm
+    from hydracore_tpu_torch.ops import trace_api
+
+    return [(ptm, "closest_hit", "closest"),
+            (trace_api, "closest_hit", "closest"),
+            (trace_api, "any_hit", "any")]
+
+
+def host_syncs(run) -> int:
+    """The synchronizing CUDA operations of run(), as the sync debug mode
+    reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def metropolis_run(tag, pt, tc, tp, scene, card, prefix: str, method: str,
+                   n_pass: int) -> tuple:
+    """render_mlt or render_mmlt ("mlt", "mmlt") on `scene` at its size,
+    MLT_CHAINS chains, depth DEPTH, `n_pass` passes of MLT_MUT mutations
+    (MLT: the first pass a burn-in one when there are two; MMLT: the
+    default 16 probe rounds): the exact launches of each kernel through the
+    counters named by `prefix`, Mmutations/s over the mutation loop,
+    Mrays/s (the live rays of the timed run), the acceptance rate, b or b_k
+    and the allocation, the start's or burn-in's seconds, peak memory, and
+    one mutation profiled, with its host syncs. The timed run also keeps
+    the first mutation's camera wavefront (chain order) and its first
+    bounce and shadow wavefronts (MLT; sorted inside the call on the
+    cluster route) or its first connection wavefront (MMLT), as the kernel
+    gets them. Returns (that probe, the counts, the profile)."""
+    from hydracore_tpu_torch.integrators import mlt, mmlt
+
+    dev = scene.tri_attr.device
+    W, H = scene.camera.width, scene.camera.height
+    steps = n_pass * MLT_MUT
+    if method == "mlt":
+        targets = mlt_targets()
+        n_c, n_a = DEPTH, DEPTH - 1  # a trace of the chains' vectors
+        evals = steps + 1  # the start's trace, then one a mutation
+
+        def render(n=n_pass, m=MLT_MUT, stats=None):
+            return mlt.render_mlt(scene, n, MLT_CHAINS, m, SEED, DEPTH,
+                                  burn_in=1 if n > 1 else 0, device=dev,
+                                  stats=stats)
+        keep_at = {"closest": {n_c: "camera", n_c + 1: "first bounce"},
+                   "any": {n_a: "first shadow"}}
+
+        def warm():
+            return render(1, 1)
+    else:
+        targets = bd_targets()
+        n_c, n_a = bd_launches(DEPTH, "full")
+        rounds = max(1, min(int(scene.settings.mmlt_burn_iters), 16))
+        evals = rounds + 1 + steps  # probe rounds, the starts, mutations
+
+        def render(n=n_pass, m=MLT_MUT, stats=None, cap=16):
+            return mmlt.render_mmlt(scene, n, MLT_CHAINS, m, SEED, DEPTH,
+                                    burn_rounds_cap=cap, device=dev,
+                                    stats=stats)
+        keep_at = {"closest": {(rounds + 1) * n_c: "camera"},
+                   "any": {(rounds + 1) * n_a: "connection"}}
+
+        def warm():
+            return render(1, 1, cap=1)
+
+    runs, st = [], {}
+
+    def timed():
+        with TraceProbe(targets, keep_at=keep_at) as probe:
+            out = render(stats=st)
+        runs.append(probe)
+        return out
+
+    img, dt, counts, peak = timed_call(
+        tag, tc, tp, timed, card, {prefix + "closest_launches": n_c * evals,
+                                   prefix + "any_launches": n_a * evals},
+        warm=warm)
+    if tuple(img.shape) != (H, W, 3) or not bool(
+            torch.isfinite(img).all()) or float(img.sum()) <= 0.0:
+        raise AssertionError(f"{tag}: image not finite and non-zero")
+    probe = runs[-1]
+    closest, any_ = probe.rays("closest"), probe.rays("any")
+    acc = int(st["accepted"]) / (MLT_CHAINS * steps)
+    if not 0.0 < acc < 1.0:
+        raise AssertionError(f"{tag}: acceptance {acc}")
+    if method == "mlt":
+        what = (f"b {st['b']:.6f}, start (trace and resampling of "
+                f"{MLT_CHAINS} uniform vectors) {st['start_s']:.3f} s")
+        lead = st["start_s"]
+        reads = "3 host reads a run (the start's two, b's one)"
+    else:
+        what = (f"b_k {', '.join(f'{k}: {b:.6f}' for k, b in st['b'].items())}"
+                f", chains a group {st['alloc']}, burn-in ({st['burn_rounds']} "
+                f"probe rounds of 2048 chains a group, the allocation, the "
+                f"resampling and the starts' evaluation) {st['burn_s']:.3f} s")
+        lead = st["burn_s"]
+        reads = "one host read a probe round and one a pass (b_k)"
+    log(f"{tag}: {W}x{H} depth {DEPTH}, {MLT_CHAINS} chains, {n_pass} passes "
+        f"of {MLT_MUT} mutations in {dt:.3f} s ({lead:.3f} s before the "
+        f"mutation loop, {100 * lead / dt:.1f}% of the call; the loop "
+        f"{st['loop_s']:.3f} s): {MLT_CHAINS * steps / st['loop_s'] / 1e6:.4f} "
+        f"Mmutations/s, {(closest + any_) / dt / 1e6:.4f} Mrays/s "
+        f"({closest + any_} live rays counted in the timed run: {closest} "
+        f"closest hit in {probe.calls['closest']} wavefronts, {any_} any "
+        f"hit in {probe.calls['any']}); launches {counts}, {n_c} + {n_a} a "
+        f"mutation; acceptance {acc:.4f}; {what}; peak device memory "
+        f"{peak / 2**20:.1f} MiB above the scene's [{card}]")
+    if method == "mlt":
+        state = mlt.init_chains(scene, MLT_CHAINS, SEED, DEPTH)
+        fb = torch.zeros((H * W, 3), dtype=torch.float32, device=dev)
+
+        def step():
+            mlt.mlt_step(scene, fb, *state, 1, SEED, DEPTH)
+    else:
+        kmax = DEPTH + 1
+        lane_k = torch.cat([torch.full((n,), k, dtype=torch.int64, device=dev)
+                            for k, n in st["alloc"].items()])
+        gid = torch.cat([torch.full((n,), g, dtype=torch.int64, device=dev)
+                         for g, n in enumerate(st["alloc"].values())])
+        u = mmlt._init_psv(lane_k.shape[0], mmlt.psv_dims(kmax), 0, SEED,
+                           device=dev)
+        pix, col, f = mmlt._eval_merged(scene, u, lane_k, kmax, DEPTH)
+        state = (u, f, pix, col, lane_k, gid)
+        n_grp = len(st["alloc"])
+        fb = torch.zeros((n_grp * H * W, 3), dtype=torch.float32, device=dev)
+
+        def step():
+            mmlt._mmlt_step_merged(scene, fb, *state, 1, SEED, n_grp, kmax,
+                                   DEPTH, 1024.0, 1.0, H * W)
+    prof = profile_pass(pt, scene, card, tag,
+                        what=f"one mutation of {state[0].shape[0]} chains",
+                        run=step)
+    log(f"{tag}: {host_syncs(step)} host syncs a mutation (the sync debug "
+        f"mode's count), and {reads}")
+    del state, fb
+    return probe, counts, prof
+
+
+def step_twins(tag) -> None:
+    """One PSSMLT mutation and one merged MMLT mutation at
+    MLT_TWIN_W^2 (bench_scene, depth DEPTH) on the card and on the CPU
+    twins, each from one chain state made on the CPU: the proposals
+    (`large` equal, large steps bit for bit, small steps within 1e-6 on
+    the circle), the splat images by the image rule (MMLT group by group),
+    the accept decisions equal on >= 99.9% of chains."""
+    from hydracore_tpu_torch.integrators import mlt, mmlt
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+
+    t0 = time.time()
+    host = bench_scene(MLT_TWIN_W, MLT_TWIN_W, DEPTH)
+    card = host.to("cuda")
+    hw = MLT_TWIN_W * MLT_TWIN_W
+
+    def proposals(what, u, key, step):
+        u_c, l_c = mlt._mutate(u.cuda(), key.cuda(), step, SEED)
+        u_h, l_h = mlt._mutate(u, key, step, SEED)
+        u_c, l_c = u_c.cpu(), l_c.cpu()
+        d = (u_c - u_h).abs()
+        circ = float(torch.minimum(d, 1.0 - d).max())
+        if (not torch.equal(l_c, l_h) or not torch.equal(u_c[l_h], u_h[l_h])
+                or circ > 1e-6):
+            raise AssertionError(f"{tag} {what}: proposals differ ({circ})")
+        return circ
+
+    def accepts(what, u0, u_card, u_cpu):
+        a_c = (u_card.cpu() != u0).any(dim=1)
+        a_h = (u_cpu != u0).any(dim=1)
+        same = float((a_c == a_h).float().mean())
+        if same < 0.999 or not 0.0 < float(a_h.float().mean()) < 1.0:
+            raise AssertionError(f"{tag} {what}: accept decisions agree on "
+                                 f"{same}")
+        return same, float(a_h.float().mean())
+
+    R = 4 * hw  # four chains a pixel
+    state = mlt.init_chains(host, R, SEED, DEPTH)
+    circ = proposals("mlt", state[0], torch.arange(R), 2)
+    out_c = mlt.mlt_step(card, torch.zeros((hw, 3), device="cuda"),
+                         *(x.cuda() for x in state), 2, SEED, DEPTH)
+    out_h = mlt.mlt_step(host, torch.zeros((hw, 3)), *state, 2, SEED, DEPTH)
+    close = pixels_close(out_c[0].cpu(), out_h[0])
+    same, rate = accepts("mlt", state[0], out_c[1], out_h[1])
+    log(f"{tag} PSSMLT step of {R} chains: proposals' largest small-step "
+        f"difference {circ:.2e}, splat pixels within 1e-3 of the CPU's "
+        f"{close:.4f}, accept decisions equal on {same:.6f} (acceptance "
+        f"{rate:.4f})")
+    if close < 0.99:
+        raise AssertionError(f"{tag} mlt: splat image {close}")
+
+    kmax = DEPTH + 1
+    ks = list(range(2, kmax + 1))
+    lane_k = torch.tensor(ks).repeat_interleave(1024)
+    gid = lane_k - 2
+    u = mmlt._init_psv(lane_k.shape[0], mmlt.psv_dims(kmax), 0, SEED)
+    pix, col, f = mmlt._eval_merged(host, u, lane_k, kmax, DEPTH)
+    key = torch.arange(u.shape[0], dtype=torch.int64) + 0x9E3779B9
+    circ = proposals("mmlt", u, key, 3)
+    args = (len(ks), kmax, DEPTH, 1024.0, 1.0, hw)
+    out_c = mmlt._mmlt_step_merged(
+        card, torch.zeros((len(ks) * hw, 3), device="cuda"),
+        *(x.cuda() for x in (u, f, pix, col, lane_k, gid)), 3, SEED, *args)
+    out_h = mmlt._mmlt_step_merged(host, torch.zeros((len(ks) * hw, 3)), u,
+                                   f, pix, col, lane_k, gid, 3, SEED, *args)
+    shares = [pixels_close(out_c[0][g * hw:(g + 1) * hw].cpu(),
+                           out_h[0][g * hw:(g + 1) * hw])
+              for g in range(len(ks))]
+    same, rate = accepts("mmlt", u, out_c[1], out_h[1])
+    log(f"{tag} MMLT step of {u.shape[0]} chains (groups k = {ks}): "
+        f"proposals' largest small-step difference {circ:.2e}, splat pixels "
+        f"within 1e-3 of the CPU's by group {[round(s, 4) for s in shares]}, "
+        f"accept decisions equal on {same:.6f} (acceptance {rate:.4f}); "
+        f"{time.time() - t0:.2f} s")
+    if min(shares) < 0.99:
+        raise AssertionError(f"{tag} mmlt: splat images {shares}")
+
+
+# tests/test_oracle_mmlt.py's box and the strategies of its k = 3 check
+MM_ORACLE_W = 12
+MM_K3 = [(0, 3), (1, 2), (2, 1)]
+
+
+def mirror_floor_box():
+    """tests/test_mmlt.py's mirror-floor caustic box at 16x16, depth 4 (a
+    0.3 x 0.3 light of 20)."""
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+
+    b = SceneBuilder()
+    m = b.lambert([0.5, 0.5, 0.5])
+    mirror = b.add_material(refl_color=np.array([0.9, 0.9, 0.9], np.float32))
+    b.add_box_interior(2.0, mirror, m, m, m, m)
+    b.rect_light([0, 1.95, 0], 0.3, 0.3, [20.0, 20.0, 20.0])
+    return b.build(cam_pos=[0, 0, 5.6], cam_lookat=[0, 0, 0], width=16,
+                   height=16, trace_depth=4)
+
+
+def sds_scene():
+    """tests/test_mmlt.py's bulb in a glass shell at 24x24, depth 6."""
+    from hydracore_tpu_torch.scene.procedural import SceneBuilder
+
+    b = SceneBuilder()
+    m = b.lambert([0.6, 0.6, 0.6])
+    glass = b.add_material(transp_color=np.array([0.95, 0.95, 0.95],
+                                                 np.float32),
+                           transp_gloss=1.0, transp_ior=1.5)
+    b.add_box_interior(2.0, m, m, m, m, m)
+    b.add_sphere([0, 0.8, 0], 0.5, glass, n_seg=24, n_ring=12)
+    b.rect_light([0, 0.8, 0], 0.1, 0.1, [200.0, 200.0, 200.0])
+    return b.build(cam_pos=[0.0, 0.0, 5.6], cam_lookat=[0, 0, 0], width=24,
+                   height=24, trace_depth=6)
+
+
+def mm_stat_job(job: str):
+    """A worker process of metropolis_statistics, on the CPU twins (one
+    thread): tests/test_oracle_mmlt.py's oracle images (the k = 3 strategy
+    sum of OracleSBDPT, OracleMMLT at k = 3 and over k = 2..3) and its
+    render_mmlt at k = 2..3, or tests/test_mmlt.py's diffuse and
+    mirror-floor checks, (PT, render_mmlt)."""
+    from hydracore_tpu_torch.integrators import mmlt
+    from hydracore_tpu_torch.integrators import pt as ptm
+    from hydracore_tpu_torch.integrators.oracle import OracleMMLT
+
+    torch.set_num_threads(1)
+    if job == "diffuse":
+        box = bd_cornell()
+        return (ptm.render(box, spp=128, seed=3, device="cpu").numpy(),
+                mmlt.render_mmlt(box, 24, 16 * 16 * 4, 8, seed=7, burn_in=5,
+                                 device="cpu").numpy())
+    if job == "mirror":
+        box = mirror_floor_box()
+        return (ptm.render(box, spp=96, seed=3, device="cpu").numpy(),
+                mmlt.render_mmlt(box, 16, 16 * 16 * 4, 8, seed=7, burn_in=4,
+                                 device="cpu").numpy())
+    small = bd_cornell(width=MM_ORACLE_W)
+    if job == "render_mmlt k=2..3":
+        return mmlt.render_mmlt(small, 20, MM_ORACLE_W ** 2 * 4, 8, seed=7,
+                                max_depth=2, burn_in=5, device="cpu").numpy()
+    omm = OracleMMLT(small)
+    if job == "strategies k=3":
+        return sum(omm.o.render_strategy(s, t, spp=24, seed=29 + s + 7 * t)
+                   for s, t in MM_K3)
+    if job == "metropolis k=3":
+        return omm.render([3], n_chains=24, n_steps=220, n_pool=400, seed=5)
+    return omm.render([2, 3], n_chains=24, n_steps=220, n_pool=400, seed=11)
+
+
+def metropolis_statistics(card, pt, dev, meanwhile=None) -> None:
+    """The statistical checks of tests/test_mmlt.py and
+    tests/test_oracle_mmlt.py that the CPU tests leave out, unchanged, at
+    their own sizes, counts, seeds and limits: render_mmlt against a
+    192-pass SBDPT on the bulb in a glass shell, and better than PT there,
+    on `dev` (the card), while worker processes run the others on the CPU
+    twins (render_mmlt is host-bound at these chain counts, 0.1-0.8 s a
+    mutation on the card, and the 64^2 steps hold the card's mutation to
+    the CPU's): render_mmlt against PT on the diffuse box and on the
+    mirror-floor caustic box, against OracleMMLT over k = 2..3, and
+    OracleMMLT at k = 3 against the k = 3 strategy sum of OracleSBDPT.
+    `meanwhile()` runs after the card's check."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from hydracore_tpu_torch.integrators import bdpt, mmlt
+
+    t0 = time.time()
+    jobs = ["diffuse", "mirror", "render_mmlt k=2..3", "strategies k=3",
+            "metropolis k=3", "oracle k=2..3"]
+    with ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = {job: ex.submit(mm_stat_job, job) for job in jobs}
+        sds = sds_scene()
+        fl = bdpt.render_bdpt(sds, 192, seed=11, max_depth=6,
+                              device=dev).cpu().numpy().mean(axis=-1)
+        region = fl > max(np.percentile(fl, 50), 1e-6)
+        if not np.isfinite(fl).all() or region.sum() < 50:
+            raise AssertionError("phase 19 SDS: the SBDPT reference")
+        ref_pt = pt.render(sds, spp=48, seed=3, max_depth=6,
+                           device=dev).cpu().numpy().mean(axis=-1)
+        mm = mmlt.render_mmlt(sds, 12, 24 * 24 * 4, 8, seed=7, burn_in=6,
+                              device=dev).cpu().numpy()
+        rel = abs(mm.mean() - fl.mean()) / fl.mean()
+        r = fl[region]
+        e_pt = float(np.median(np.abs(ref_pt[region] - r)
+                               / np.maximum(r, 1e-9)))
+        e_mm = float(np.median(np.abs(mm.mean(axis=-1)[region] - r)
+                               / np.maximum(r, 1e-9)))
+        if not (rel < 0.25 and e_mm < 0.5 * e_pt):
+            raise AssertionError(f"phase 19 SDS: mean {rel}, median errors "
+                                 f"MMLT {e_mm} PT {e_pt}")
+        log(f"phase 19 statistics on {dev} ({time.time() - t0:.2f} s): bulb "
+            f"in a glass shell: mean {rel:.2%} off the SBDPT reference, "
+            f"median error MMLT {e_mm:.3f} against PT {e_pt:.3f}")
+        if meanwhile is not None:
+            meanwhile()
+        t1 = time.time()
+        res = {job: fut.result() for job, fut in futures.items()}
+    checks = {
+        "diffuse box against PT": bd_against_pt(
+            "phase 19 MMLT diffuse", *res["diffuse"], 0.15, 0.15, 0.05)}
+    ref, got = res["mirror"]
+    ratio = got.mean() / ref.mean()
+    if not 0.3 < ratio < 3.0:
+        raise AssertionError(f"phase 19 MMLT mirror caustic: {ratio}")
+    checks["mirror caustic"] = f"MMLT / PT mean {ratio:.4f}"
+    ref = res["strategies k=3"]
+    checks["OracleMMLT k=3 against the strategy sum"] = bd_against_pt(
+        "phase 19 OracleMMLT k=3", ref, res["metropolis k=3"], 0.20, 0.30,
+        0.05 * max(ref.mean(), 1e-9), n=3)
+    ref = res["oracle k=2..3"]
+    checks["render_mmlt k=2..3 against OracleMMLT"] = bd_against_pt(
+        "phase 19 MMLT against OracleMMLT", ref, res["render_mmlt k=2..3"],
+        0.20, 0.30, 0.05 * max(ref.mean(), 1e-9), n=3)
+    log(f"phase 19 statistics on the CPU twins (waited {time.time() - t1:.2f}"
+        f" s for {len(jobs)} workers): "
+        + "; ".join(f"{k}: {v}" for k, v in checks.items()))
+    log(f"phase 19 statistics: {time.time() - t0:.2f} s")
+
+
+def metropolis_phase(card, pt, tc, tp, dev, host_inst, host_pkt) -> list:
+    """Phase 19: PSSMLT and MMLT at WIDTH x HEIGHT, depth DEPTH, seed SEED,
+    MLT_CHAINS chains. render_mlt on the flat scene (B1, B2; N_PASS passes
+    of MLT_MUT mutations, the first a burn-in pass) and on phase 8's packet
+    scene (B4, one pass; no packet at MAX_VISITS), render_mmlt on the flat
+    scene (N_PASS passes) and on phase 6's instanced scene (B3, one pass):
+    each timed with its launch counters (exact counts), Mmutations/s,
+    Mrays/s, acceptance, b / b_k, peak memory, and one mutation profiled;
+    B1/B2, B4 and B3 against their twins on the first mutation's camera
+    wavefront (chain order) and first sorted bounce and shadow wavefronts
+    (MLT) or first connection wavefront (MMLT); the statistical checks
+    (metropolis_statistics) and, while its workers finish, one step of
+    each on the card against the CPU twins at 64^2 (step_twins). Returns
+    the "kernels" rows of the new paths."""
+    from hydracore_tpu_torch.integrators import mlt
+    from hydracore_tpu_torch.scene.procedural import bench_scene
+
+    t0 = time.time()
+    scene = bench_scene(WIDTH, HEIGHT, DEPTH).to(dev)
+    probe, mlt_counts, _ = metropolis_run("phase 19 PSSMLT flat", pt, tc, tp,
+                                          scene, card, "", "mlt", N_PASS)
+    mlt_recs = check_kernels("phase 19 PSSMLT flat", tc, scene,
+                             cluster_cases(tc, probe.raw_at()), card)
+    del probe
+    probe, mmlt_counts, _ = metropolis_run("phase 19 MMLT flat", pt, tc, tp,
+                                           scene, card, "", "mmlt", N_PASS)
+    mmlt_recs = check_kernels("phase 19 MMLT flat", tc, scene,
+                              cluster_cases(tc, probe.raw_at()), card)
+    del probe, scene
+    log(f"phase 19 flat: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    pkt_scene = host_pkt.to(dev)
+    probe, pkt_counts, _ = metropolis_run("phase 19 PSSMLT packet", pt, tc,
+                                          tp, pkt_scene, card, "pkt_", "mlt",
+                                          1)
+    packet_peak("phase 19 PSSMLT packet", tp, lambda: mlt.render_mlt(
+        pkt_scene, 1, MLT_CHAINS, 1, SEED, DEPTH, burn_in=0, device=dev))
+    pkt_recs = check_packet("phase 19 PSSMLT packet", tp, pkt_scene,
+                            probe.raw_at(), card)
+    del probe, pkt_scene
+    log(f"phase 19 packet: {time.time() - t0:.2f} s")
+
+    t0 = time.time()
+    inst_scene = host_inst.to(dev)
+    probe, inst_counts, _ = metropolis_run("phase 19 MMLT instanced", pt, tc,
+                                           tp, inst_scene, card, "inst_",
+                                           "mmlt", 1)
+    inst_recs = check_kernels("phase 19 MMLT instanced", tc, inst_scene,
+                              cluster_cases(tc, probe.raw_at()), card)
+    del probe, inst_scene
+    log(f"phase 19 instanced: {time.time() - t0:.2f} s")
+
+    metropolis_statistics(card, pt, dev,
+                          meanwhile=lambda: step_twins("phase 19 64x64"))
+
+    at = "hydracore_tpu/ops/traverse_cluster.py"
+    b12 = ("B1 cluster traversal", "B2 cluster traversal")
+    b3 = ("B3 cluster traversal", "B3 cluster traversal")
+    b4 = ("B4 packet traversal", "B4 packet traversal")
+    return (kernel_rows(b12, "flat pool Cp 384, PSSMLT's 2^20-chain "
+                        "wavefronts", CLUSTER_CU, f"{at}:576", mlt_recs,
+                        (mlt_counts["closest_launches"],
+                         mlt_counts["any_launches"]))
+            + kernel_rows(b12, "flat pool Cp 384, MMLT's 2^20-chain "
+                          "wavefronts", CLUSTER_CU, f"{at}:576", mmlt_recs,
+                          (mmlt_counts["closest_launches"],
+                           mmlt_counts["any_launches"]))
+            + kernel_rows(b3, f"instanced Ci {host_inst.cl_map.shape[1]}, "
+                          "MMLT's 2^20-chain wavefronts", CLUSTER_CU,
+                          f"{at}:394", inst_recs,
+                          (inst_counts["inst_closest_launches"],
+                           inst_counts["inst_any_launches"]))
+            + kernel_rows(b4, f"{host_pkt.wbvh_nodes.shape[0]} wide nodes, "
+                          "PSSMLT's unsorted 2^20-chain wavefronts",
+                          PACKET_CU, "hydracore_tpu/ops/traverse_packet.py:204",
                           pkt_recs, (pkt_counts["pkt_closest_launches"],
                                      pkt_counts["pkt_any_launches"])))
 
@@ -3446,6 +3928,11 @@ def main() -> int:
     t0 = time.time()
     bd_rows = bidir_phase(card, pt, tc, tp, dev, host_inst, host_pkt)
     log(f"phase 18 bidirectional: {time.time() - t0:.2f} s")
+
+    # ---- phase 19: Metropolis light transport (PSSMLT and MMLT)
+    t0 = time.time()
+    mlt_rows = metropolis_phase(card, pt, tc, tp, dev, host_inst, host_pkt)
+    log(f"phase 19 Metropolis: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"
@@ -3469,7 +3956,7 @@ def main() -> int:
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
             + opaque_rows + gates_rows + schedule_rows + lt_rows + bd_rows
-            + lab_rows + trav_rows)
+            + mlt_rows + lab_rows + trav_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

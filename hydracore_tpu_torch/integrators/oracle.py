@@ -4,10 +4,11 @@ The port's own copy of the JAX package's integrators/oracle.py (ref CPU
 core role, CPUExpLayer + IntegratorMISPT, SURVEY.md §4.4: "the CPU
 reference core as oracle"): a deliberately boring, per-ray-recursive,
 pure-numpy MIS path tracer (OracleRenderer), forward light tracer
-(OracleLT) and per-(s, t) bidirectional oracle (OracleSBDPT, rect light or
-sky) sharing NOTHING with the torch wavefront except the scene tables and
-the counter-based RNG, independent implementations the wavefront
-integrators are tested against. The scene's tables are read once into host
+(OracleLT), per-(s, t) bidirectional oracle (OracleSBDPT, rect light or
+sky) and scalar Metropolis over that target (OracleMMLT), sharing NOTHING
+with the torch wavefront except the scene tables and the counter-based
+RNG: independent implementations the wavefront integrators are tested
+against. The scene's tables are read once into host
 numpy arrays (`.cpu().numpy()`), so a scene on the card works too.
 
 Slow by construction (python loop over pixels); use tiny resolutions.
@@ -1302,4 +1303,217 @@ class OracleSBDPT:
                     pl = self._pl_chain(xs, k)
                     w = self._weight(pf, pl, 1, k, True)
                     img[qy, qx] += c * w / spp
+        return img
+
+
+class _SeqU:
+    """Sequential reader over a fixed uniform vector — the rng shim that
+    lets the walk helpers consume a Metropolis state's dims in order."""
+
+    def __init__(self, u):
+        self.u = np.asarray(u, np.float64)
+        self.i = 0
+
+    def random(self, n=None):
+        m = 1 if n is None else int(n)
+        out = self.u[self.i:self.i + m]
+        if out.shape[0] != m:  # explicit: assert would vanish under -O and
+            raise IndexError(  # silently corrupt the Metropolis mapping
+                f"uniform vector exhausted: want {m}, have {out.shape[0]}")
+        self.i += m
+        return float(out[0]) if n is None else out
+
+
+class OracleMMLT:
+    """Independent scalar Metropolis over the scalar SBDPT target.
+
+    The reference keeps a CPU MMLT reference integrator
+    (IntegratorMMLT, CPUExp_Integrators.h:842) next to the GPU chains.
+    Agreement with PT and a per-strategy check of the target (through
+    OracleSBDPT) leave the CHAIN machinery — Kelemen mutations, the Veach
+    (1-a)/a double splat, contribution-proportional starts, the per-depth
+    b_k normalization — checked only in aggregate. This oracle re-derives
+    that machinery in scalar numpy on top of OracleSBDPT's path evaluation
+    (which shares nothing with the torch wavefront), so per-depth image
+    agreement pins the Metropolis estimator end-to-end:
+
+        E[image_k] = W*H * b_k * E_pi[ sum_S col_S(u) / f(u) ]
+                   = W*H * integral( sum_{s+t=k} col_st(u) du )
+
+    — the same per-depth integral render_mmlt estimates
+    (GPUOCLLayerAdvanced.cpp:395 MMLT_Pass semantics).
+
+    State layout for path length k (vertex count, pinhole + light incl.):
+    [2 pixel] + 2*(k-1) camera-bounce dirs + [2 light pos + 2 emit dir] +
+    2*max(k-2, 0) light-bounce dirs. One state evaluates ALL t' = 1..k
+    strategies from one camera walk + one light walk, as mmlt._eval_merged
+    does over bdpt._bdpt_core with every lane at depth k.
+    """
+
+    def __init__(self, scene):
+        self.o = OracleSBDPT(scene)  # owns the light tables + occlusion
+        self.Le = self.o.Le
+        self.lnorm = self.o.lnorm
+
+    @staticmethod
+    def dims(k: int) -> int:
+        return 2 + 2 * (k - 1) + 4 + 2 * max(k - 2, 0)
+
+    @staticmethod
+    def _lum(c):
+        return 0.2126 * c[0] + 0.7152 * c[1] + 0.0722 * c[2]
+
+    def _occluded(self, a, ng_a, b):
+        return self.o._occluded(a, ng_a, b)
+
+    def eval_state(self, u, k: int):
+        """(f_lum, [(qy, qx, rgb), ...]) — every k-vertex strategy's
+        MIS-weighted contribution at primary-sample state u."""
+        o = self.o
+        W, H = o.W, o.H
+        fx, fy = float(u[0]) * W, float(u[1]) * H
+        px = min(int(fx), W - 1)
+        py = min(int(fy), H - 1)
+        co, cd, _ = o._eye_ray(px, py, fx - px, fy - py)
+        zs, _ = o._walk(co, cd, o._cam_pdf_w(cd), k - 1,
+                        _SeqU(u[2:2 + 2 * (k - 1)]))
+        lb = 2 + 2 * (k - 1)
+        y0 = o._light_y0(float(u[lb]), float(u[lb + 1]))
+        y0p = y0["pos"]
+        ys = []
+        if k >= 3:
+            d0 = OracleLT._cosine_about(self.lnorm, float(u[lb + 2]),
+                                        float(u[lb + 3]))
+            ys, _ = o._walk(y0p + self.lnorm * 1e-4, d0,
+                            max(float(d0 @ self.lnorm), 1e-9) / np.pi,
+                            k - 2, _SeqU(u[lb + 4:]))
+            for y in ys:
+                y["beta"] = y["beta"] * y0["beta"] * np.pi
+        pin = dict(pos=o.cpos)
+        splats = []
+        for t in range(1, k + 1):
+            s = k - t
+            if t == 1 and k == 2:
+                continue  # unsampled directly-visible-light splat
+            if t >= 2:
+                if len(zs) < t - 1 or any(
+                        zz["em"].max() > 1e-6 for zz in zs[:t - 2]):
+                    continue
+                z = zs[t - 2]
+            if s == 0:
+                if z["em"].max() <= 1e-6:
+                    continue
+                prev = zs[k - 3]["pos"] if k > 2 else o.cpos
+                if float(z["ns"] @ (prev - z["pos"])) <= 0.0:
+                    continue
+                xs = [pin] + zs[:k - 1]
+                w = o._weight(o._pf_chain(xs, k), o._pl_chain(xs, k), t, k,
+                              True)
+                splats.append((py, px, z["beta"] * z["em"] * w))
+                continue
+            if s >= 2 and (len(ys) < s - 1 or any(
+                    yy["em"].max() > 1e-6 for yy in ys[:s - 1])):
+                continue
+            yv = ys[s - 2] if s >= 2 else y0
+            if t >= 2:
+                if z["em"].max() > 1e-6:
+                    continue  # camera subpath ended on the light
+                dv = yv["pos"] - z["pos"]
+                d2 = max(float(dv @ dv), 1e-12)
+                dist = np.sqrt(d2)
+                wl = dv / dist
+                cos_z = float(wl @ z["ns"])
+                cos_y = float(-wl @ yv["ns"])
+                if cos_z <= 0 or cos_y <= 1e-6:
+                    continue
+                if self._occluded(z["pos"], z["ng"], yv["pos"]):
+                    continue
+                G = abs(cos_z) * abs(cos_y) / d2
+                c = (z["beta"] * (z["alb"] / np.pi) * G
+                     * (yv["alb"] / np.pi if s >= 2 else np.ones(3))
+                     * (yv["beta"] if s >= 2 else y0["beta"]))
+                xs = [pin] + zs[:t - 1] + list(reversed(ys[:s - 1])) + [y0]
+                w = o._weight(o._pf_chain(xs, k), o._pl_chain(xs, k), t, k,
+                              True)
+                splats.append((py, px, c * w))
+            else:  # t == 1: connect yv to the eye, splat where it lands
+                to_cam = o.cpos - yv["pos"]
+                dist2 = max(float(to_cam @ to_cam), 1e-12)
+                dist = np.sqrt(dist2)
+                w_cam = to_cam / dist
+                pv = o.view[:3, :3] @ yv["pos"] + o.view[:3, 3]
+                zc = -pv[2]
+                if zc <= 1e-4:
+                    continue
+                sx = pv[0] / zc / (o.tan_half * o.W / o.H)
+                sy = pv[1] / zc / o.tan_half
+                qx = int(np.floor((sx + 1.0) * 0.5 * o.W))
+                qy = int(np.floor((1.0 - sy) * 0.5 * o.H))
+                if not (0 <= qx < o.W and 0 <= qy < o.H):
+                    continue
+                cos_x = float(w_cam @ yv["ns"])
+                if cos_x <= 0.0:
+                    continue
+                if self._occluded(yv["pos"], yv["ng"], o.cpos):
+                    continue
+                cos_cam = max(zc / dist, 1e-6)
+                factor = ((o.d_img / cos_cam) ** 2 / cos_cam
+                          * cos_x / dist2)
+                c = (yv["beta"] * (yv["alb"] / np.pi) * factor
+                     / o.n_splat)
+                xs = [pin] + list(reversed(ys[:s - 1])) + [y0]
+                w = o._weight(o._pf_chain(xs, k), o._pl_chain(xs, k), 1, k,
+                              True)
+                splats.append((qy, qx, c * w))
+        f = sum(self._lum(rgb) for _, _, rgb in splats)
+        return float(f), splats
+
+    def render(self, ks, n_chains: int = 32, n_steps: int = 250,
+               n_pool: int = 512, seed: int = 3, p_large: float = 0.3,
+               step: float = 0.08):
+        """(H, W, 3) image: per-depth Metropolis chains with large/small
+        mutations, double splats, and b_k from the uniform (pool +
+        large-step) samples — render_mmlt's estimator in scalar form."""
+        o = self.o
+        W, H = o.W, o.H
+        img = np.zeros((H, W, 3))
+        g = np.random.default_rng(seed)
+        for k in ks:
+            D = self.dims(k)
+            pool_u = g.random((n_pool, D))
+            evals = [self.eval_state(pool_u[i], k) for i in range(n_pool)]
+            fs = np.array([e[0] for e in evals])
+            b_sum, b_n = float(fs.sum()), float(n_pool)
+            if fs.sum() <= 0.0:
+                continue  # no transport at this depth
+            cdf = np.cumsum(fs)
+            picks = np.clip(np.searchsorted(
+                cdf, (np.arange(n_chains) + g.random(n_chains))
+                / n_chains * cdf[-1]), 0, n_pool - 1)
+            us = pool_u[picks].copy()
+            cur = [evals[p] for p in picks]
+            fb = np.zeros((H, W, 3))
+            for _ in range(n_steps):
+                for c in range(n_chains):
+                    f_x, spl_x = cur[c]
+                    large = g.random() < p_large
+                    up = (g.random(D) if large
+                          else (us[c] + (g.random(D) - 0.5) * step) % 1.0)
+                    f_y, spl_y = self.eval_state(up, k)
+                    if large:
+                        b_sum += f_y
+                        b_n += 1.0
+                    a = min(1.0, f_y / max(f_x, 1e-12))
+                    if f_x > 0 and a < 1.0:
+                        w_old = (1.0 - a) / f_x
+                        for qy, qx, rgb in spl_x:
+                            fb[qy, qx] += rgb * w_old
+                    if f_y > 0 and a > 0:
+                        w_new = a / f_y
+                        for qy, qx, rgb in spl_y:
+                            fb[qy, qx] += rgb * w_new
+                    if g.random() < a:
+                        us[c] = up
+                        cur[c] = (f_y, spl_y)
+            img += fb * (b_sum / b_n) * (W * H) / (n_steps * n_chains)
         return img

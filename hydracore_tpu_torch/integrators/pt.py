@@ -59,6 +59,7 @@ from hydracore_tpu_torch.ops import rng
 from hydracore_tpu_torch.ops.trace_api import (alpha_layer_hit, any_hit,
                                                any_hit_opaque, any_hit_sorted,
                                                ao_any_hit, closest_hit,
+                                               closest_hit_sorted,
                                                coherence_order,
                                                has_shadow_split,
                                                wants_sorted_rays)
@@ -255,20 +256,24 @@ def _layer_passes(scene, tri, u, v, o, sdir, t, hit, u_alpha, step: int):
 
 
 def shadow_trace(scene, sray_o, sdir, dist, active, u_alpha=None,
-                 presorted: bool = True):
+                 presorted: bool = True, has_alpha: bool | None = None):
     """Occlusion query on the wavefront as it stands (already in coherence
     order when the traversal wants that), or sorted into coherence order
     first when not `presorted` (any_hit_sorted, any_hit_opaque; the layers
     are taken unsorted, as in the JAX package). With alpha materials
-    (settings.has_alpha) it walks up
+    (has_alpha, by default settings.has_alpha) it walks up
     to MAX_ALPHA_SHADOW_STEPS stochastic transparent layers (ref: the
     alpha variants of shadow traversal, trace.cl:244+); u_alpha (R,) u32
     values (int64) key their uniforms. With the split shadow sets one B2
     walk over the opaque pool answers for opaque geometry and the layers
     are taken from the dense alpha set alone (occlusion by opaque and by
     alpha surfaces does not depend on their order, so the split is exact);
-    without, each layer is a closest-hit trace of the scene's route."""
-    if not scene.settings.has_alpha:
+    without, each layer is a closest-hit trace of the scene's route.
+    has_alpha=False makes every surface opaque to shadow rays, as PSSMLT
+    asks."""
+    if has_alpha is None:
+        has_alpha = bool(scene.settings.has_alpha)
+    if not has_alpha:
         trace = any_hit if presorted else any_hit_sorted
         return trace(scene, sray_o, sdir, dist * 0.995, active=active)
     if has_shadow_split(scene):
@@ -311,7 +316,8 @@ def shadow_trace(scene, sray_o, sdir, dist, active, u_alpha=None,
 # ----------------------------------------------------------------------------
 
 def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
-             min_rr_depth: int = 3):
+             min_rr_depth: int = 3, rand_fn=None,
+             has_alpha: bool | None = None):
     """Trace a batch of primary rays (already in coherence order, as
     Morton-ordered primaries are) to completion. sample_idx (R,) u32 stream
     ids (int64) key every random number. The live state is re-sorted every
@@ -321,16 +327,31 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     probes (has_proc_ao) and the layer split (render_layer). Returns
     (radiance (R,3) in caller order, rays_traced (int64 scalar tensor)):
     the ray counter feeds the Mrays/s metric (MRaysStat analogue) and
-    counts the AO probes too."""
+    counts the AO probes too.
+
+    With rand_fn(depth, group) -> (R, 4) uniforms the JAX package's legacy
+    mode runs instead (PSSMLT's positional random provider, integrators/
+    mlt.py): sample_idx and seed go unused, the rays stay in caller order
+    (the first wavefront through closest_hit, later bounces through
+    closest_hit_sorted, NEE through shadow_trace(presorted=False)), the
+    alpha / blend-walk uniforms are drawn at every depth and `has_alpha`
+    (default settings.has_alpha) picks the shadow walk alone: a surface
+    with an opacity map still passes camera-path rays."""
     st = scene.settings
     dev = ray_o.device
     R = ray_o.shape[0]
+    legacy = rand_fn is not None
+    alpha_sh = bool(st.has_alpha) if has_alpha is None else bool(has_alpha)
     has_alpha = bool(st.has_alpha)
 
-    def rand(sidx, depth, group):
-        return rng.rand4(sidx, depth, group, seed)
+    if legacy:
+        def rand(sidx, depth, group):
+            return rand_fn(depth, group)
+    else:
+        def rand(sidx, depth, group):
+            return rng.rand4(sidx, depth, group, seed)
 
-    sorted_mode = wants_sorted_rays(scene)
+    sorted_mode = not legacy and wants_sorted_rays(scene)
     sidx = sample_idx
     orig_pos = torch.arange(R, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
@@ -381,7 +402,8 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         fog_state = torch.zeros((R, 4), dtype=torch.float32, device=dev)
     has_proc_ao = bool(st.has_proc_ao)
     # the alpha / blend-walk uniforms are drawn only where a gate reads them
-    want_r_a = has_alpha or (st.has_blend and getattr(st, "blend_depth", 1) > 1)
+    want_r_a = legacy or has_alpha or (st.has_blend
+                                       and getattr(st, "blend_depth", 1) > 1)
     if has_sky_s:
         sky_rows = scene.lights.ltype == LIGHT_SKY
         has_sky = sky_rows.any()
@@ -412,8 +434,13 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
                 fog_state = fog_state[perm]
 
         rays_traced = rays_traced + alive.sum()
-        t, tri, u, v = closest_hit(scene, ray_o, ray_d, active=alive,
-                                   kind="primary" if depth == 0 else "bounce")
+        if legacy and depth > 0:  # sort, trace, unsort inside the call
+            t, tri, u, v = closest_hit_sorted(scene, ray_o, ray_d,
+                                              active=alive)
+        else:
+            t, tri, u, v = closest_hit(
+                scene, ray_o, ray_d, active=alive,
+                kind="primary" if depth == 0 else "bounce")
         hit = alive & (tri >= 0)
         miss = alive & ~hit
 
@@ -566,8 +593,9 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         # zero-contribution lanes need no occlusion query
         need_sh = ok & (contrib.amax(dim=-1) > 0.0)
         rays_traced = rays_traced + need_sh.sum()  # shadow rays
-        u_sh = (r_l[:, 0] * 16777216.0).to(torch.int64) if has_alpha else None
-        occluded = shadow_trace(scene, sray_o, ls.dir, ls.dist, need_sh, u_sh)
+        u_sh = (r_l[:, 0] * 16777216.0).to(torch.int64) if alpha_sh else None
+        occluded = shadow_trace(scene, sray_o, ls.dir, ls.dist, need_sh, u_sh,
+                                presorted=not legacy, has_alpha=alpha_sh)
         acc = acc + torch.where((need_sh & ~occluded)[:, None], contrib, 0.0)
 
         # ---- next bounce (NextBounce: BSDF sample, RR, flags)

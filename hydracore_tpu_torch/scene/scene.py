@@ -19,8 +19,10 @@ Which traversal reads the scene is one static choice on it, `traversal`
 name. Textures (image, normal map, blend mask, opacity), procedural
 textures with their AO input, SSS, glass fog, sky images, back plates, IES
 profiles and the render layers are carried; a procedural texture that
-ships its C source raises NotImplementedError (ops/proctex.py), and
-check_supported refuses scenes the port cannot take.
+ships its C source is compiled by ops/proctex_c.py (outside the
+translator's subset, a ProcTexCompileError warns and the stdlib match is
+bound, ops/proctex.py), and check_supported refuses scenes the port cannot
+take.
 """
 from __future__ import annotations
 
@@ -762,9 +764,10 @@ def check_supported(sc: SceneData) -> None:
     """Raise for a scene the port cannot take: one without RenderSettings
     (NotImplementedError), settings.has_inst without the instanced tables
     or the other way round, or an unknown render layer (ValueError).
-    Procedural textures, their AO input, SSS, glass fog and the direct and
-    indirect layers all render; only a procedural texture's C source still
-    raises, where the material table is built (ops/proctex.py)."""
+    Procedural textures (from a C source too: ops/proctex_c.py compiles
+    it, and a ProcTexCompileError warns and binds the stdlib match), their
+    AO input, SSS, glass fog and the direct and indirect layers all
+    render."""
     st = sc.settings
     if st is None:
         raise NotImplementedError("a scene without RenderSettings")

@@ -7,7 +7,8 @@ twins, the path tracer on the card against the CPU twins, by the cluster
 and by the packet route (SSS, fog and AO-dirt materials too), the render
 layers' sum, light tracing and the G-buffer (and adaptive sampling and
 the numpy oracle on a scene that lies on the card), bidirectional path
-tracing strategy by strategy, and the
+tracing strategy by strategy, one Metropolis step of PSSMLT and of MMLT
+from a shared chain state, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
 plain versions on the card.
 
@@ -30,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from hydracore_tpu_torch.integrators import bdpt, gbuffer, lt, oracle, pt
+from hydracore_tpu_torch.integrators import (bdpt, gbuffer, lt, mlt, mmlt,
+                                            oracle, pt)
 from hydracore_tpu_torch.ops import traverse_cluster as tc
 from hydracore_tpu_torch.ops import traverse_packet as tp
 from hydracore_tpu_torch.scene import statefile as sf
@@ -997,3 +999,78 @@ def test_bdpt_on_card_matches_cpu_twins(cuda):
     for lbl, img in cpu.items():
         assert torch.isfinite(card[lbl]).all(), lbl
         assert _close_share(card[lbl], img) >= 0.99, lbl
+
+
+def _same_proposals(card, cpu, what):
+    """_mutate on the card and on the CPU: `large` equal, large steps bit
+    for bit, small steps within 1e-6 on the circle (a float32 exp)."""
+    (u_c, l_c), (u_h, l_h) = card, cpu
+    l_c, u_c = l_c.cpu(), u_c.cpu()
+    assert torch.equal(l_c, l_h), what
+    assert torch.equal(u_c[l_h], u_h[l_h]), what
+    d = (u_c - u_h).abs()
+    assert float(torch.minimum(d, 1.0 - d).max()) <= 1e-6, what
+
+
+def _same_accepts(u0, u_card, u_cpu, what):
+    """The accept decisions (a chain's vector changed) equal on >= 99.9% of
+    chains, and some accepted, some not."""
+    a_c = (u_card.cpu() != u0).any(dim=1)
+    a_h = (u_cpu != u0).any(dim=1)
+    assert 0.0 < float(a_h.float().mean()) < 1.0, what
+    assert float((a_c == a_h).float().mean()) >= 0.999, what
+
+
+def test_mlt_step_on_card_matches_cpu_twins(cuda):
+    """One PSSMLT mutation of 32 * 32 * 4 chains at 32x32, depth 5, from one
+    chain state (the CPU's burn-in resampling): the proposals, the splat
+    image by the image rule, the accept decisions."""
+    sc = _box_scene(32)
+    R, md, seed, step = 32 * 32 * 4, 5, 777, 3
+    state = mlt.init_chains(sc, R, seed, md)
+    key = torch.arange(R, dtype=torch.int64)
+    _same_proposals(mlt._mutate(state[0].to(cuda), key.to(cuda), step, seed),
+                    mlt._mutate(state[0], key, step, seed), "mlt")
+    tc.reset_launch_counts()
+    card = mlt.mlt_step(sc.to(cuda), torch.zeros((32 * 32, 3), device=cuda),
+                        *(x.to(cuda) for x in state), step, seed, md)
+    assert tc.closest_launches == md and tc.any_launches == md - 1
+    cpu = mlt.mlt_step(sc, torch.zeros((32 * 32, 3)), *state, step, seed, md)
+    assert torch.isfinite(card[0]).all() and float(card[0].sum()) > 0.0
+    assert _close_share(card[0], cpu[0]) >= 0.99
+    _same_accepts(state[0], card[1], cpu[1], "mlt")
+    assert float(card[6]) == float(cpu[6])
+
+
+def test_mmlt_step_on_card_matches_cpu_twins(cuda):
+    """One merged MMLT mutation at 32x32, depth 5 (groups k = 2..6, 1,024
+    chains each) from one chain state (the CPU's evaluation of uniform
+    vectors): the proposals, each group's splat image by the image rule,
+    the accept decisions."""
+    sc = _box_scene(32)
+    md, kmax, seed, step = 5, 6, 777, 5
+    ks = list(range(2, kmax + 1))
+    lane_k = torch.tensor(ks).repeat_interleave(1024)
+    gid = lane_k - 2
+    u = mmlt._init_psv(lane_k.shape[0], mmlt.psv_dims(kmax), 0, seed)
+    pix, col, f = mmlt._eval_merged(sc, u, lane_k, kmax, md)
+    key = torch.arange(u.shape[0], dtype=torch.int64) + 0x9E3779B9
+    _same_proposals(mmlt._mutate(u.to(cuda), key.to(cuda), step, seed),
+                    mmlt._mutate(u, key, step, seed), "mmlt")
+    hw = 32 * 32
+    args = (len(ks), kmax, md, 1024.0, 1.0, hw)
+    tc.reset_launch_counts()
+    card = mmlt._mmlt_step_merged(
+        sc.to(cuda), torch.zeros((len(ks) * hw, 3), device=cuda),
+        *(x.to(cuda) for x in (u, f, pix, col, lane_k, gid)), step, seed,
+        *args)
+    assert tc.closest_launches == 2 * md - 1 and tc.any_launches == 14
+    cpu = mmlt._mmlt_step_merged(sc, torch.zeros((len(ks) * hw, 3)), u, f,
+                                 pix, col, lane_k, gid, step, seed, *args)
+    for gi in range(len(ks)):
+        sl = slice(gi * hw, (gi + 1) * hw)
+        assert torch.isfinite(card[0][sl]).all(), gi
+        assert _close_share(card[0][sl], cpu[0][sl]) >= 0.99, gi
+    _same_accepts(u, card[1], cpu[1], "mmlt")
+    assert torch.equal(card[6].cpu(), cpu[6])
+

@@ -35,7 +35,8 @@ def test_sources_import_no_jax():
             "ops/traverse_packet.py", "ops/proctex.py", "ops/proctex_c.py",
             "integrators/pt_regen.py", "integrators/lt.py",
             "integrators/gbuffer.py", "integrators/oracle.py",
-            "integrators/bdpt.py",
+            "integrators/bdpt.py", "integrators/mlt.py",
+            "integrators/mmlt.py",
             "tools/bench_pallas_gather.py",
             "tools/proto_prims.py", "tools/proto_subvisit.py",
             "tools/exp_kernel_cost.py", "tools/proto_cluster.py",
