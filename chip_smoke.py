@@ -8,8 +8,8 @@ four main paths of the MIS+NEE path tracer, a textured fifth (phase 14)
 and a sixth through the last gates of the path tracer (phase 15),
 render_passes at 1024x1024, depth 5, seed 777, each through its kernels,
 then the other schedules of the path tracer (phase 16), light tracing and
-the G-buffer (phase 17), bidirectional path tracing (phase 18) and
-Metropolis light transport (phase 19):
+the G-buffer (phase 17), bidirectional path tracing (phase 18),
+Metropolis light transport (phase 19) and the front ends (phase 20):
   flat         the procedural bench_scene (26,252 triangles, one flat
                cluster pool) through B1 (closest hit) and B2 (any hit), a
                two-level walk over groups of clusters (the positions and
@@ -165,6 +165,27 @@ statistical checks of tests/test_mmlt.py and tests/test_oracle_mmlt.py that
 the CPU tests leave out, at their own sizes (metropolis_statistics: the
 bulb in a glass shell on the card, the others on the CPU twins in worker
 processes meanwhile). Its "kernels" rows follow phase 18's.
+Phase 20 is the front ends (front_ends_phase), on statefile libraries
+written here (front_library: scene/library.py:write_library's
+scene with a field of small boxes, the cluster route over a flat pool, and
+one with 20 spheres of 25,280 triangles, which load_scene instances): the
+CLI (app/cli.py, in this process) renders PT at 1024x1024, 16 spp in two
+chunks of 8, held through its checkpoint against render_passes over the
+same passes, its printed Msamples/s and wall time logged beside
+render_passes' and the host time a pass adds when every chunk writes its
+PNG, checkpoint and shared-image delta; then every route and flag at
+256x256 (raytracing, lt, sbdpt, ibpt, mlt, mmlt, offline_pt, multichip on
+an NCCL world of 1, regen, layer direct, evalgbuffer, both denoise
+filters, stat; -multichip with -method lt; PT on the instanced library),
+each with its launch counters set to 0 just before and read just after
+(B1/B2, or B3 on the instanced library, must move); 8 + 8 passes resumed
+from a checkpoint against a straight 16; a run stopped by the exitnow
+mailbox; two CLI processes (python -m hydracore_tpu_torch.app.cli, seeds 1
+and 2) adding into one shared image; render_with_plugin with the pinhole
+plugin and one InteractiveSession step of every method on the packet
+route (B4), each timed, and make_server's /frame.png and /status; and
+64x64 card against CPU for the CLI's PT (the checkpoint's float sum) and
+the pinhole plugin. It adds no "kernels" row: no kernel is new.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -3274,6 +3295,424 @@ def metropolis_phase(card, pt, tc, tp, dev, host_inst, host_pkt) -> list:
                                      pkt_counts["pkt_any_launches"])))
 
 
+# ----------------------------------------------------------------------------
+# Phase 20: the front ends (the CLI, the camera plugins, the viewer), the
+# mesh on NCCL (a world of 1) and the utils
+# ----------------------------------------------------------------------------
+
+FRONT_W = 256  # the width of the routes, the resume and the shared image
+FRONT_GRID = 12  # small boxes a side on the flat library's floor
+FRONT_BALLS = 20  # 25,280-triangle spheres of the instanced library
+# depth of the short library: the Metropolis routes (the CLI's 8 passes of
+# 16 mutations at least, each mutation a host-bound wavefront) and the
+# viewer's steps; mmlt_burn_iters 1 there (one probe round)
+FRONT_SHORT_DEPTH = 2
+
+
+def front_library(root: str, size: int, **kw) -> str:
+    """scene/library.py's library at size x size with phase 20's settings:
+    depth DEPTH, seed SEED, 16 spp and a FRONT_GRID^2 field of small boxes
+    (the cluster route over a flat pool); `kw` overrides them (balls=,
+    depth=, burn_iters=)."""
+    from hydracore_tpu_torch.scene.library import write_library
+
+    return write_library(root, size, **{"depth": DEPTH, "spp": 16, "seed": SEED,
+                                        "grid": FRONT_GRID, **kw})
+
+
+def run_cli(tag, tc, tp, argv, expect: set, device=None) -> tuple:
+    """The port's CLI in this process (main(argv, device)) with the launch
+    counters set to 0 just before and read just after: each counter named
+    in `expect` must be > 0, and at least one must be. Returns (stdout,
+    seconds, counts); the CLI's lines are echoed."""
+    import contextlib
+    import io
+
+    from hydracore_tpu_torch.app import cli
+
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, device=device)
+    if device is None:
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = launch_counts(tc, tp)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"{tag} | {line}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: the CLI returned {rc}")
+    if device is None and (not expect
+                           or any(counts[k] <= 0 for k in expect)):
+        raise AssertionError(f"{tag}: launch counts {counts}, expected "
+                             f"{sorted(expect)} > 0")
+    log(f"{tag}: {dt:.3f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return out, dt, counts
+
+
+def cli_speed(out: str) -> float:
+    """The Msamples/s of the CLI's last [pass] line."""
+    return float(re.findall(r"speed = ([0-9.]+) M\(samples\)/s", out)[-1])
+
+
+def front_cli(tag, pt, tc, tp, flat, lib, work, card, dev) -> None:
+    """The CLI's PT at 1024x1024, 16 spp in two chunks of 8, against
+    render_passes over the same passes; the host time a pass adds when
+    every chunk writes its PNG, checkpoint and shared-image delta."""
+    from hydracore_tpu_torch.utils.checkpoint import save_checkpoint
+    from hydracore_tpu_torch.utils.framebuffer import hdr_to_ldr, save_png
+    from hydracore_tpu_torch.utils.shared_image import SharedAccumImage
+
+    ck = os.path.join(work, "pt1024.npz")
+    expect = {"closest_launches", "any_launches"}
+    warm = ["-inputlib", lib, "-out", os.path.join(work, "warm.png"),
+            "-spp", "1", "-width", str(FRONT_W), "-height", str(FRONT_W)]
+    run_cli(f"{tag} warm-up", tc, tp, warm, expect)
+    out, wall, counts = run_cli(
+        f"{tag} PT 1024", tc, tp, ["-inputlib", lib, "-out",
+                                   os.path.join(work, "pt1024.png"),
+                                   "-spp", "16", "-checkpoint", ck], expect)
+    if out.count("[pass] spp = ") != 1 or "spp = 16/16" not in out:
+        raise AssertionError(f"{tag}: the pass lines {out}")
+    msps = cli_speed(out)
+    fb, spp, seed = (lambda z: (z["fb_sum"], int(z["spp"]), int(z["seed"])))(
+        np.load(ck))
+    if (spp, seed, fb.shape) != (16, SEED, (WIDTH, HEIGHT, 3)):
+        raise AssertionError(f"{tag}: checkpoint {spp}, {seed}, {fb.shape}")
+    scene = flat.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = None
+    for base in (0, 8):
+        img, _ = pt.render_passes(scene, base, SEED, n_pass=8,
+                                  max_depth=DEPTH, device=dev)
+        ref = img if ref is None else ref + img
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    close = pixels_close(torch.as_tensor(fb) / 16, ref.cpu() / 16)
+    log(f"{tag} PT 1024x1024 depth {DEPTH} 16 spp: the CLI prints "
+        f"{msps:.2f} Msamples/s, {wall:.2f} s wall (scene load and PNG "
+        f"included); render_passes over the same two chunks of 8 "
+        f"{dt:.3f} s, {16 * WIDTH * HEIGHT / dt / 1e6:.4f} Msamples/s; "
+        f"checkpoint against render_passes: pixels within 1e-3 {close:.4f}; "
+        f"B1 {counts['closest_launches']}, B2 {counts['any_launches']} "
+        f"launches [{card}]")
+    if close < 0.99:
+        raise AssertionError(f"{tag}: checkpoint vs render_passes {close}")
+    # the host work of a snapshot, each part alone at 1024x1024 ...
+    cur = ref.cpu().numpy()
+    parts = {}
+    name = f"front_{os.getpid()}"
+    shimg = SharedAccumImage.attach_or_create(name, WIDTH, HEIGHT)
+    try:
+        for part, run in (
+                ("png", lambda: save_png(os.path.join(work, "snap.png"),
+                                         hdr_to_ldr(cur / 16, gamma=2.2))),
+                ("checkpoint", lambda: save_checkpoint(
+                    os.path.join(work, "snap.npz"), cur, 16, SEED)),
+                ("shared image", lambda: shimg.add(cur, 16))):
+            t0 = time.time()
+            run()
+            parts[part] = (time.time() - t0) * 1e3
+    finally:
+        shimg.unlink()
+    # ... and inside the CLI: every chunk writes all three
+    out_s, wall_s, _ = run_cli(
+        f"{tag} PT 1024 snapshots", tc, tp,
+        ["-inputlib", lib, "-out", os.path.join(work, "snap1024.png"),
+         "-spp", "16", "-saveinterval", "1e-9", "-checkpoint",
+         os.path.join(work, "snap1024.npz"), "-sharedimage", name + "_cli"],
+        expect)
+    SharedAccumImage.attach(name + "_cli").unlink()
+    log(f"{tag} snapshot at 1024x1024: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items())
+        + f"; the CLI with a snapshot every chunk {wall_s:.2f} s against "
+        f"{wall:.2f} s: {(wall_s - wall) / 16 * 1e3:.1f} ms a pass, "
+        f"{cli_speed(out_s):.2f} against {msps:.2f} printed Msamples/s "
+        f"[{card}]")
+
+
+FRONT_ROUTES = [
+    ("raytracing", ["-method", "raytracing"]),
+    ("lt", ["-method", "lt"]),
+    ("sbdpt", ["-method", "sbdpt"]),
+    ("ibpt", ["-method", "ibpt"]),
+    ("mlt", ["-method", "mlt"]),
+    ("mmlt", ["-method", "mmlt", "-mmltthreads", "16384"]),
+    ("offline_pt", ["-offline_pt", "1"]),
+    ("multichip (NCCL world of 1)", ["-multichip", "1"]),
+    ("regen", ["-regen", "1"]),
+    ("layer direct", ["-layer", "direct"]),
+    ("evalgbuffer", ["-evalgbuffer", "1"]),
+    ("denoise bilateral", ["-denoise", "bilateral"]),
+    ("denoise nlm", ["-denoise", "nlm"]),
+    ("stat", ["-stat", "1"]),
+]
+
+
+def front_routes(tag, tc, tp, lib, short_lib, inst_lib, work) -> None:
+    """Every route and flag of the CLI at FRONT_W^2, 4 spp, each with its
+    launch counters read: B1/B2 on the flat library (MLT and MMLT on the
+    short one), B3 on the instanced one."""
+    expect = {"closest_launches", "any_launches"}
+    size = ["-spp", "4", "-width", str(FRONT_W), "-height", str(FRONT_W)]
+    for name, flags in FRONT_ROUTES:
+        out_png = os.path.join(work, f"{name.split()[0]}.png")
+        src = short_lib if name in ("mlt", "mmlt") else lib
+        out, dt, _ = run_cli(f"{tag} {name}", tc, tp,
+                             ["-inputlib", src, "-out", out_png] + size + flags,
+                             expect)
+        if name.startswith("multichip") and "[mesh] 1 devices" not in out:
+            raise AssertionError(f"{tag}: {name} did not take the mesh")
+        if name == "stat" and "[stat] rays/sec(" not in out:
+            raise AssertionError(f"{tag}: no [stat] line")
+        if name == "evalgbuffer" and not os.path.exists(
+                out_png.rsplit(".", 1)[0] + "_normal.png"):
+            raise AssertionError(f"{tag}: no G-buffer images")
+        if not os.path.exists(out_png):
+            raise AssertionError(f"{tag}: {name} wrote no image")
+    # -multichip with -method lt is single-device LT (the route order)
+    out, _, _ = run_cli(f"{tag} multichip + lt", tc, tp,
+                        ["-inputlib", lib, "-out", os.path.join(work, "mclt.png")]
+                        + size + ["-multichip", "1", "-method", "lt"], expect)
+    if "[mesh]" in out:
+        raise AssertionError(f"{tag}: -method lt took the mesh")
+    run_cli(f"{tag} instanced library PT", tc, tp,
+            ["-inputlib", inst_lib, "-spp", "4", "-out",
+             os.path.join(work, "inst.png")],
+            {"inst_closest_launches", "inst_any_launches"})
+
+
+def front_resume(tag, tc, tp, lib, work) -> None:
+    """8 + 8 passes through a checkpoint against a straight 16, and a run
+    stopped early through the exitnow mailbox."""
+    base = ["-inputlib", lib, "-width", str(FRONT_W), "-height", str(FRONT_W)]
+    expect = {"closest_launches", "any_launches"}
+    ck = {k: os.path.join(work, f"{k}.npz") for k in ("a", "b", "s")}
+    run_cli(f"{tag} resume 8", tc, tp, base + [
+        "-out", os.path.join(work, "a.png"), "-spp", "8", "-checkpoint",
+        ck["a"]], expect)
+    run_cli(f"{tag} resume +8", tc, tp, base + [
+        "-out", os.path.join(work, "b.png"), "-spp", "16", "-resume", ck["a"],
+        "-checkpoint", ck["b"]], expect)
+    run_cli(f"{tag} straight 16", tc, tp, base + [
+        "-out", os.path.join(work, "s.png"), "-spp", "16", "-checkpoint",
+        ck["s"]], expect)
+    fb_b, fb_s = (np.load(ck[k])["fb_sum"] for k in "bs")
+    close = pixels_close(torch.as_tensor(fb_b) / 16, torch.as_tensor(fb_s) / 16)
+    log(f"{tag}: 8 + 8 resumed against a straight 16: pixels within 1e-3 "
+        f"{close:.4f}")
+    if close < 0.99 or int(np.load(ck["b"])["spp"]) != 16:
+        raise AssertionError(f"{tag}: resume {close}")
+    out_png = os.path.join(work, "stop.png")
+    with open(out_png + ".ctl", "w") as f:
+        f.write("exitnow")
+    out, _, _ = run_cli(f"{tag} exitnow", tc, tp, base + [
+        "-out", out_png, "-spp", "64"], expect)
+    if "[exitnow] stopping at spp=8" not in out or os.path.exists(
+            out_png + ".ctl"):
+        raise AssertionError(f"{tag}: exitnow")
+
+
+def front_shared(tag, lib, work) -> None:
+    """Two CLI processes on the one card (python -m
+    hydracore_tpu_torch.app.cli, different -seed) add into one shared
+    image: the combined spp is the sum of theirs."""
+    from hydracore_tpu_torch.utils.shared_image import SharedAccumImage
+
+    name = f"front_{os.getpid()}_merge"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hydracore_tpu_torch.app.cli", "-inputlib", lib,
+         "-out", os.path.join(work, f"merge{seed}.png"), "-spp", "8",
+         "-width", str(FRONT_W), "-height", str(FRONT_W), "-seed", str(seed),
+         "-sharedimage", name, "-checkpoint",
+         os.path.join(work, f"merge{seed}.npz")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for seed in (1, 2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: a CLI process failed:\n{text[-3000:]}")
+    img = SharedAccumImage.attach(name)
+    try:
+        fb, spp = img.read()
+    finally:
+        img.unlink()
+    parts = [np.load(os.path.join(work, f"merge{s}.npz"))["fb_sum"] for s in (1, 2)]
+    err = float(np.abs(fb - parts[0] - parts[1]).max())
+    log(f"{tag}: two CLI processes, seeds 1 and 2, 8 spp each: combined spp "
+        f"{spp:.0f}, |combined - sum of the two| <= {err:.3e} "
+        f"({time.time() - t0:.2f} s, process start-up included)")
+    if spp != 16 or err > 1e-3 * max(float(np.abs(fb).max()), 1.0):
+        raise AssertionError(f"{tag}: shared image spp {spp}, error {err}")
+
+
+def front_viewer(tag, tc, tp, pkt, card) -> None:
+    """render_with_plugin(SimplePinholePlugin) and one InteractiveSession
+    step of every method on the packet route (B4), each step timed; the
+    HTTP surface of make_server on port 0."""
+    import threading
+    import urllib.request
+
+    from hydracore_tpu_torch.app.cam_plugin import (SimplePinholePlugin,
+                                                    render_with_plugin)
+    from hydracore_tpu_torch.app.viewer import (METHODS, InteractiveSession,
+                                                make_server)
+    from hydracore_tpu_torch.scene.statefile import CameraDesc
+
+    expect = {"pkt_closest_launches", "pkt_any_launches"}
+
+    def counted(what, run, warm=False):
+        if warm:
+            run()
+        torch.cuda.synchronize()
+        tc.reset_launch_counts()
+        tp.reset_launch_counts()
+        t0 = time.time()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = launch_counts(tc, tp)
+        if not any(counts[k] > 0 for k in expect):
+            raise AssertionError(f"{tag} {what}: launch counts {counts}")
+        return out, dt, counts
+
+    R = FRONT_W * FRONT_W
+    plug, dt, counts = counted("plugin", lambda: render_with_plugin(
+        pkt, SimplePinholePlugin(pkt, seed=SEED), n_blocks=4, block_size=R,
+        seed=SEED), warm=True)
+    img = plug.image()
+    if not np.isfinite(img).all() or img.mean() <= 0:
+        raise AssertionError(f"{tag}: the plugin's image")
+    log(f"{tag} pinhole plugin: 4 blocks of {R} rays in {dt:.3f} s, "
+        f"{4 * R / dt / 1e6:.4f} Msamples/s, B4 {counts['pkt_closest_launches']}"
+        f" + {counts['pkt_any_launches']} launches [{card}]")
+    cam = CameraDesc(position=np.float32([0, 4, 14]), look_at=np.zeros(3, np.float32),
+                     up=np.float32([0, 1, 0]), fov=40.0)
+    s = InteractiveSession(pkt, cam, seed=SEED)
+    for method in METHODS:
+        s.set_method(method)
+        _, dt, counts = counted(method, s.step)
+        log(f"{tag} viewer step {method}: {dt * 1e3:.1f} ms at "
+            f"{FRONT_W}x{FRONT_W}, spp {s.status()['spp']}, B4 "
+            f"{counts['pkt_closest_launches']} + {counts['pkt_any_launches']} "
+            f"launches [{card}]")
+    s.set_method("pathtracing")
+    s.step()
+    server = make_server(s, port=0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        png = urllib.request.urlopen(base + "/frame.png", timeout=60).read()
+        st = json.loads(urllib.request.urlopen(base + "/status", timeout=60).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=60)
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or st["spp"] != 1:
+        raise AssertionError(f"{tag}: HTTP surface {png[:8]}, {st}")
+    log(f"{tag} viewer HTTP: /frame.png {len(png)} bytes, /status {st}")
+
+
+def front_twins(tag, lib, work) -> None:
+    """64x64 card against CPU: the CLI's PT through the checkpoint's float
+    sum, and the pinhole plugin on the same numpy rays."""
+    from hydracore_tpu_torch.app import cli
+    from hydracore_tpu_torch.app.cam_plugin import (SimplePinholePlugin,
+                                                    render_with_plugin)
+    from hydracore_tpu_torch.scene.scene import load_scene
+
+    fbs = {}
+    for dev in ("cuda", "cpu"):
+        ck = os.path.join(work, f"twin_{dev}.npz")
+        t0 = time.time()
+        cli.main(["-inputlib", lib, "-out", os.path.join(work, f"twin_{dev}.png"),
+                  "-spp", "4", "-width", "64", "-height", "64", "-checkpoint",
+                  ck], device=None if dev == "cuda" else "cpu")
+        fbs[dev] = torch.as_tensor(np.load(ck)["fb_sum"]) / 4
+        log(f"{tag} CLI 64x64 4 spp on the {dev}: {time.time() - t0:.2f} s")
+    close = pixels_close(fbs["cuda"], fbs["cpu"])
+    small = load_scene(lib, 64, 64)
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        plug = render_with_plugin(small, SimplePinholePlugin(small, seed=SEED),
+                                  n_blocks=2, block_size=64 * 64, seed=SEED,
+                                  device=dev)
+        imgs[dev] = torch.as_tensor(plug.image())
+    close_p = pixels_close(imgs["cuda"], imgs["cpu"])
+    log(f"{tag} 64x64 card against CPU: the CLI's checkpoint {close:.4f}, the "
+        f"pinhole plugin {close_p:.4f} of pixels within 1e-3")
+    if close < 0.99 or close_p < 0.99:
+        raise AssertionError(f"{tag}: card vs CPU {close}, {close_p}")
+
+
+def front_ends_phase(card, pt, tc, tp, dev) -> None:
+    """Phase 20: the front ends on statefile libraries written here. The
+    CLI's PT at 1024x1024 against render_passes; every route at
+    FRONT_W^2 (B1/B2 on the flat library, B3 on the instanced one);
+    resume, exitnow, two CLI processes on one shared image; the pinhole
+    plugin and the viewer's steps on the packet route (B4) and its HTTP
+    surface; 64x64 card against CPU."""
+    from hydracore_tpu_torch.ops import trace_api
+    from hydracore_tpu_torch.scene.scene import load_scene
+    from hydracore_tpu_torch.utils.build import BUILD_DIR
+
+    tag = "phase 20"
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="front_", dir=BUILD_DIR)
+    try:
+        t0 = time.time()
+        lib = front_library(os.path.join(work, "flat"), WIDTH)
+        short_lib = front_library(os.path.join(work, "short"), FRONT_W,
+                                  depth=FRONT_SHORT_DEPTH, burn_iters=1)
+        inst_lib = front_library(os.path.join(work, "inst"), FRONT_W,
+                                 balls=FRONT_BALLS)
+        flat = load_scene(lib)
+        inst = load_scene(inst_lib)
+        pkt = load_scene(short_lib, traversal="packet")
+        for name, sc in (("flat", flat), ("instanced", inst), ("packet", pkt)):
+            log(f"{tag} {name} library: {sc.num_triangles} triangles, "
+                f"{sc.camera.width}x{sc.camera.height}, route "
+                f"{trace_api._pick(sc).__name__.rsplit('.', 1)[-1]}, cluster pool "
+                f"{tuple(sc.cl_tris.shape[:-2])}, instanced "
+                f"{sc.settings.has_inst}")
+        if (trace_api._pick(flat) is not tc or flat.settings.has_inst
+                or not inst.settings.has_inst or trace_api._pick(pkt) is not tp):
+            raise AssertionError(f"{tag}: the libraries' layouts")
+        log(f"{tag} libraries written and loaded: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        front_cli(tag, pt, tc, tp, flat, lib, work, card, dev)
+        log(f"{tag} CLI at 1024: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        front_routes(tag, tc, tp, lib, short_lib, inst_lib, work)
+        log(f"{tag} routes: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        front_resume(tag, tc, tp, lib, work)
+        front_shared(tag, lib, work)
+        log(f"{tag} resume, exitnow, shared image: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        front_viewer(tag, tc, tp, pkt.to(dev), card)
+        log(f"{tag} plugin and viewer: {time.time() - t0:.2f} s")
+        t0 = time.time()
+        front_twins(tag, lib, work)
+        log(f"{tag} card against CPU: {time.time() - t0:.2f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
 LAB_SRCS = ["lab_gather.cu", "lab_prims.cu", "lab_subvisit.cu",
@@ -3933,6 +4372,12 @@ def main() -> int:
     t0 = time.time()
     mlt_rows = metropolis_phase(card, pt, tc, tp, dev, host_inst, host_pkt)
     log(f"phase 19 Metropolis: {time.time() - t0:.2f} s")
+
+    # ---- phase 20: the front ends (the CLI and its routes, the camera
+    # plugin, the viewer), the mesh on NCCL and the utils
+    t0 = time.time()
+    front_ends_phase(card, pt, tc, tp, dev)
+    log(f"phase 20 front ends: {time.time() - t0:.2f} s")
     log(f"all phases: {time.time() - t_start:.1f} s")
 
     at = "hydracore_tpu/ops/traverse_cluster.py"

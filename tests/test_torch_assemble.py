@@ -8,7 +8,8 @@ instance, a single-use mesh (all of which must flatten) and a
 negative-scale matrix added. Every leaf the port keeps must be bit-exact
 (tolerance 0) in the flattened and in the instanced layout, and the static
 settings equal. A second case writes a tiny scene library (statefile XML
-and .vsgf chunks) and loads it with both packages' load_statefile.
+and .vsgf chunks, scene/library.py) and loads it with both packages'
+load_statefile.
 """
 import dataclasses
 import struct
@@ -24,6 +25,7 @@ from hydracore_tpu.scene import vsgf as jvsgf
 from hydracore_tpu_torch.scene import scene as pscene
 from hydracore_tpu_torch.scene import statefile as psf
 from hydracore_tpu_torch.scene import vsgf as pvsgf
+from hydracore_tpu_torch.scene.library import write_library
 from tests.test_torch_scene import (_assert_same_leaves, jax_leaves,
                                     jax_settings, to_port)
 
@@ -195,76 +197,6 @@ def test_auto_instancing_rule():
     assert not pscene._should_instance(desc, keep, flat, "off")
     with pytest.raises(ValueError, match="instancing"):
         pscene.assemble(desc, instancing="always")
-
-
-# ----------------------------------------------------------------------------
-# a scene library on disk: statefile XML + .vsgf chunks
-# ----------------------------------------------------------------------------
-
-def vsgf_bytes(pos, norm, tang, texcoord, indices, mat_indices) -> bytes:
-    """A .vsgf chunk in the layout scene/vsgf.py documents."""
-    body = b"".join(np.ascontiguousarray(a).tobytes() for a in (
-        pos.astype(np.float32), norm.astype(np.float32),
-        tang.astype(np.float32), texcoord.astype(np.float32),
-        indices.astype(np.int32).reshape(-1), mat_indices.astype(np.int32)))
-    head = struct.pack("<QIIII", 24 + len(body), pos.shape[0],
-                       indices.size, 1, 0)
-    return head + body
-
-
-def write_library(root, size=24):
-    (root / "data").mkdir()
-    chunks = {0: plane_arrays(), 1: box_arrays()}
-    mesh_xml = []
-    for mid, arr in chunks.items():
-        blob = vsgf_bytes(**arr)
-        (root / "data" / f"chunk_{mid:05d}.vsgf").write_bytes(blob)
-        V, T = arr["pos"].shape[0], arr["indices"].shape[0]
-        off = 24
-        kids = []
-        for tag, n in (("positions", V * 16), ("normals", V * 16),
-                       ("tangents", V * 16), ("texcoords", V * 8),
-                       ("indices", T * 12), ("matindices", T * 4)):
-            kids.append(f'<{tag} bytesize="{n}" offset="{off}"/>')
-            off += n
-        mesh_xml.append(
-            f'<mesh id="{mid}" name="m{mid}" type="vsgf" bytesize="{len(blob)}"'
-            f' loc="data/chunk_{mid:05d}.vsgf" offset="0" vertNum="{V}" '
-            f'triNum="{T}">{"".join(kids)}</mesh>')
-    # the light's mesh has no chunk on disk: the loader makes the rect
-    mesh_xml.append('<mesh id="2" name="lmesh" type="vsgf" light_id="1" '
-                    'loc="data/chunk_00002.vsgf" offset="0" bytesize="0"/>')
-
-    def m16(M):
-        return " ".join(repr(float(x)) for x in M.reshape(-1))
-
-    inst = [f'<instance id="0" mesh_id="0" rmap_id="-1" '
-            f'matrix="{m16(xform(0, 0, 0))}"/>']
-    for k, (tx, tz, s, ry) in enumerate(BOXES[:3]):
-        extra = ' remap_lists="0 4"' if k == 2 else ""
-        inst.append(f'<instance id="{k + 1}" mesh_id="1" rmap_id="-1"{extra} '
-                    f'matrix="{m16(xform(tx, 0.0, tz, s, ry))}"/>')
-    m_l = m16(xform(0.0, 6.0, 0.0))
-    inst.append(f'<instance_light id="0" light_id="1" matrix="{m_l}"/>')
-    inst.append(f'<instance id="4" mesh_id="2" rmap_id="-1" light_id="1" '
-                f'linst_id="0" matrix="{m_l}"/>')
-    text = f'''<?xml version="1.0"?>
-<textures_lib></textures_lib>
-<materials_lib>{"".join(MAT_XML[k] for k in (0, 1, 2, 4))}</materials_lib>
-<lights_lib>{SKY_XML}{RECT_XML}</lights_lib>
-<cam_lib><camera id="0" name="cam" type="uvn"><fov>40</fov>
-<nearClipPlane>0.01</nearClipPlane><farClipPlane>100</farClipPlane>
-<up>0 1 0</up><position>0 4 14</position><look_at>0 0 0</look_at>
-</camera></cam_lib>
-<geometry_lib>{"".join(mesh_xml)}</geometry_lib>
-<render_lib><render_settings type="HydraModern" id="0"><width>{size}</width>
-<height>{size}</height><method_primary>pathtracing</method_primary>
-<trace_depth>4</trace_depth><diff_trace_depth>2</diff_trace_depth>
-<maxRaysPerPixel>64</maxRaysPerPixel><seed>5</seed><pt_error>2.5</pt_error>
-<clamping>100</clamping></render_settings></render_lib>
-<scenes><scene id="0" name="s">{"".join(inst)}</scene></scenes>
-'''
-    (root / "statex_00001.xml").write_text(text)
 
 
 def _same_desc(dj, dp):

@@ -1074,3 +1074,58 @@ def test_mmlt_step_on_card_matches_cpu_twins(cuda):
     _same_accepts(u, card[1], cpu[1], "mmlt")
     assert torch.equal(card[6].cpu(), cpu[6])
 
+
+
+def _front_library(tmp_path, size=32):
+    """chip_smoke.py's statefile library (phase 20's settings): the scene of
+    scene/library.py with a field of small boxes, the cluster route over a
+    flat pool (B1/B2)."""
+    from hydracore_tpu_torch.scene.library import write_library
+
+    return write_library(tmp_path / "lib", size, depth=5, spp=16, seed=777,
+                         grid=12)
+
+
+def test_cli_pt_on_card_matches_cpu(cuda, tmp_path):
+    """The CLI's pass loop on the card (the default device) against
+    device="cpu" at 32x32, 4 spp: the checkpoints' float sums by the image
+    rule, B1 and B2 launched."""
+    from hydracore_tpu_torch.app import cli
+    from hydracore_tpu_torch.utils.checkpoint import load_checkpoint
+
+    lib = _front_library(tmp_path)
+    fbs = {}
+    for dev in (None, "cpu"):
+        ck = str(tmp_path / f"{dev}.npz")
+        tc.reset_launch_counts()
+        assert cli.main(["-inputlib", lib, "-out", str(tmp_path / f"{dev}.png"),
+                         "-spp", "4", "-checkpoint", ck], device=dev) == 0
+        if dev is None:
+            assert tc.closest_launches > 0 and tc.any_launches > 0
+        fb, spp, _ = load_checkpoint(ck)
+        assert spp == 4 and np.isfinite(fb).all() and fb.sum() > 0
+        fbs[dev] = torch.as_tensor(fb) / 4
+    assert _close_share(fbs[None], fbs["cpu"]) >= 0.99
+
+
+def test_mesh_world_of_one_on_card(cuda, tmp_path):
+    """make_mesh on the card: an NCCL world of 1 in this process;
+    render_distributed against the same loop on the CPU (gloo) at 32x32,
+    4 spp, by the image rule; close() destroys the group."""
+    import torch.distributed as dist
+
+    from hydracore_tpu_torch.parallel import mesh as pm
+    from hydracore_tpu_torch.scene.scene import load_scene
+
+    sc = load_scene(_front_library(tmp_path))
+    mesh = pm.make_mesh()
+    try:
+        assert (mesh.size, mesh.rank, dist.get_backend()) == (1, 0, "nccl")
+        tc.reset_launch_counts()
+        card = pm.render_distributed(sc, 4, mesh=mesh, seed=777)
+        assert tc.closest_launches > 0
+    finally:
+        mesh.close()
+    assert not dist.is_initialized()
+    cpu = pm.render_distributed(sc, 4, seed=777, device="cpu")
+    assert _close_share(card.cpu(), cpu) >= 0.99
