@@ -49,16 +49,24 @@ on (64, 128)), T5 (sub-visits, G 512, V 64, C 384) and T1 (the cluster
 kernel's cost split on bench_scene at 512x512, every variant and B1 as
 "full") held against their plain versions on the card at the tools' own
 sizes and timed with them (T7 also against one embedding_bag call, T6's
-probes where one PyTorch call computes them against that call), then each
+probes where one PyTorch call computes them against that call, each
+probe, the launch floor and the call timed in turns over graphs of the
+same length; T6 also bit for bit on k8's
+adversarial inputs: a NaN, a row of -inf, ties of -0.0 and +0.0), then each
 tool's main() run with its launch counters set to 0 just before and read
 just after; main() times each lab kernel as the mean of a CUDA graph of
-its calls, without the host's issue time.
+its calls, without the host's issue time (T6 beside the launch floor, an
+empty kernel over a graph of the same length).
 Phase 13 is the lab's traversal prototypes, each tool's main() first, with
 its launch counter set to 0 just before and read just after, and its
 outputs and times then used by the checks: T2 (the dense cluster
 traversal over synthetic clusters, 262,144 rays, C 256) in the tool's eight
-jobs, kernel against plain version bit for bit, the MXU job without a hit,
-and once more with random plane columns, where the Plucker test must hit;
+jobs, kernel against plain version bit for bit, each job's time beside its
+bound, the MXU job without a hit, and once more with random plane columns,
+where the Plucker test must hit; its adversarial inputs (ties within and
+across clusters, an empty list, lists of 0-15 entries, Cp 384, R_BLK 1024
+with plane columns) in every mode, bit for bit; its SASS's instructions a
+position and a lane and the time that they permit at the issue rate;
 T3 and T4 (packets of 128 and 1024 rays) on bench_scene at 512x512 with the
 tools' coherent and incoherent rays, each against its plain version on
 16,384 rays from the middle of the set (t, u, v, slot, visits equal), the
@@ -186,6 +194,8 @@ plugin and one InteractiveSession step of every method on the packet
 route (B4), each timed, and make_server's /frame.png and /status; and
 64x64 card against CPU for the CLI's PT (the checkpoint's float sum) and
 the pinhole plugin. It adds no "kernels" row: no kernel is new.
+"python3 chip_smoke.py --lab" runs phase 1 and then phases 12 and 13
+alone, and prints their "kernels" line and the card's line.
 Any failed check raises: the script then exits non-zero and prints no
 result line. On success the last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the card's name and power
@@ -862,7 +872,7 @@ SASS_CLASSES = {
 }
 
 
-def kernel_code(tag, src: str) -> None:
+def kernel_code(tag, src: str) -> dict:
     """Registers, spills (the stack frame and local memory), shared memory
     and SASS instructions of every kernel in csrc/`src`'s library, read with
     cuobjdump (-res-usage, -sass). The instructions are counted by class
@@ -873,9 +883,11 @@ def kernel_code(tag, src: str) -> None:
     slab tests) and neither; a body is the address range from its first
     block to its last, in the kernel's own code (up to its last EXIT: the
     out-of-line paths after it, the division's slow path among them, are in
-    neither)."""
+    neither). Returns {mangled name: the kernel's own code, a list of
+    (address, opcode, operands)}."""
     from hydracore_tpu_torch.utils import build
 
+    recs = {}
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib_so = build.lib_path(src)
     res = subprocess.run([tool, "-res-usage", lib_so], capture_output=True,
@@ -925,6 +937,8 @@ def kernel_code(tag, src: str) -> None:
             f"{len(code)} SASS instructions ("
             f"{', '.join(f'{k} {v}' for k, v in counts.items())}); the "
             f"loop's node body {node}, leaf body {leaf} instructions")
+        recs[fn] = own
+    return recs
 
 
 def golden_cornell(width: int, height: int, traversal: str = "auto"):
@@ -3784,43 +3798,103 @@ def prim_library(x, xi) -> dict:
     }
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits: torch.equal is false on NaN."""
+    return t.contiguous().view(torch.int32)
+
+
+def us_spread(ms: float, spread) -> str:
+    return f"{ms * 1e3:.3f} us ({spread[0] * 1e3:.3f}-{spread[1] * 1e3:.3f})"
+
+
+def interleaved(fns: dict, n: int, device, reps: int = 4) -> dict:
+    """Each fn timed as a CUDA graph of n calls, reps times, in turns
+    (forward, then backward: A B C C B A ...), so that a drift of the card
+    over the run falls on all alike; name -> (median ms, (min, max))."""
+    ts = {name: [] for name in fns}
+    names = list(fns)
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            ts[name].append(lab.time_ms(fns[name], n, device, graph=True))
+    return {name: (float(np.median(v)), (min(v), max(v)))
+            for name, v in ts.items()}
+
+
 def lab_prims(card, dev="cuda") -> list:
-    """T6: each probe equal to its plain version and, where there is one,
-    to the one-call PyTorch form (prim_library) on the tool's x and xi;
-    plain and library timed beside it (the library over a CUDA graph of 200
-    calls, as main() times the kernel); then the tool's main() (1,000
-    launches a probe)."""
+    """T6: each probe equal to its plain version bit for bit on the tool's
+    x and xi and on k8's adversarial inputs (t6.adversarial_inputs: a NaN,
+    a row of -inf, ties of -0.0 and +0.0), and, where there is one, to the
+    one-call PyTorch form (prim_library); the plain version timed beside
+    it; then the tool's main() (its counter read), which times the launch
+    floor (an empty kernel) and each probe; then each probe, the floor and
+    the probe's library call in turns (interleaved: graphs of
+    t6.GRAPH_CALLS calls, 4 times each), the times of the "kernels" rows."""
     from hydracore_tpu_torch.tools import proto_prims as t6
 
     x, xi = t6.inputs(dev)
     library = prim_library(x, xi)
-    plain, lib_ms = {}, {}
+    adversarial = t6.adversarial_inputs(dev)
+    plain = {}
     for k in t6.NAMES:
         out_k = t6.prim(k, x, xi)
-        if not torch.equal(out_k, t6.prim_plain(k, x, xi)):
+        if not torch.equal(bits(out_k), bits(t6.prim_plain(k, x, xi))):
             raise AssertionError(f"phase 12 T6 k{k}: kernel differs from plain")
+        for name, (xa, xia) in adversarial.items():
+            if not torch.equal(bits(t6.prim(k, xa, xia)),
+                               bits(t6.prim_plain(k, xa, xia))):
+                raise AssertionError(f"phase 12 T6 k{k} on {name}: kernel "
+                                     "differs from plain")
         if k in library and not torch.equal(out_k, library[k]()):
             raise AssertionError(f"phase 12 T6 k{k}: the library call differs")
         plain[k] = lab.time_ms(lambda: t6.prim_plain(k, x, xi), 20, dev)
-        lib_ms[k] = (lab.time_ms(library[k], 200, dev, graph=True)
-                     if k in library else None)
-    log("phase 12 T6: the ten probes equal their plain versions and the "
-        f"library calls of k{', k'.join(map(str, library))}; library "
-        + ", ".join(f"k{k} {lib_ms[k] * 1e3:.3f}" for k in library)
-        + f" us a call [{card}]")
+    k8 = {name: float(t6.prim(8, xa, xia)[0, 0])
+          for name, (xa, xia) in adversarial.items()}
+    log("phase 12 T6: the ten probes equal their plain versions bit for bit "
+        f"on the tool's inputs and on {', '.join(adversarial)} (k8 there: "
+        + ", ".join(f"{n} {v!r}" for n, v in k8.items()) + "), and the "
+        f"library calls of k{', k'.join(map(str, library))} [{card}]")
     t6.reset_launch_counts()
     res = t6.main(device=dev)
+    n = t6.prim_launches
+    res.pop("floor")
     if not all(r["ok"] for r in res.values()):
         raise AssertionError("phase 12 T6: a probe failed in main()")
-    n = t6.prim_launches
+    times = {}
+    for k in t6.NAMES:
+        fns = {"kernel": lambda: t6.prim(k, x, xi),
+               "floor": lambda: t6.empty(dev)}
+        if k in library:
+            fns["library"] = library[k]
+        times[k] = tm = interleaved(fns, t6.GRAPH_CALLS, dev)
+        (ms, sp), (fl, _) = tm["kernel"], tm["floor"]
+        line = (f"phase 12 T6 k{k} in turns with the floor"
+                f"{' and its library call' if k in library else ''}, graphs "
+                f"of {t6.GRAPH_CALLS}, 4 times: {us_spread(ms, sp)}, floor "
+                f"{us_spread(fl, tm['floor'][1])}: {ms / fl:.2f}x the floor")
+        if k in library:
+            lms, lsp = tm["library"]
+            within = sp[0] <= lsp[1] and lsp[0] <= sp[1]
+            verdict = ("no slower" if ms <= lms else
+                       "slower, within the spread" if within
+                       else "slower, outside the spread")
+            line += (f"; library {us_spread(lms, lsp)}: {verdict} "
+                     f"(x{ms / lms:.3f})")
+        if k == 8:
+            line += f"; within 2x the floor: {'yes' if ms <= 2 * fl else 'no'}"
+        log(f"{line} [{card}]")
     lines = {1: 35, 2: 45, 3: 54, 4: 64, 5: 73, 6: 83, 7: 93, 8: 116,
              9: 126, 10: 135}
-    return [lab_row(f"T6 probe k{k} ({t6.NAMES[k]}; launches of all ten)",
-                    "lab_prims.cu", f"tools/proto_prims.py:{lines[k]}", n, 0.0,
-                    res[f"k{k}"]["ms"], plain[k],
-                    (res[f"k{k}"]["bound_ms"], res[f"k{k}"]["bound_by"]),
-                    lib_ms[k])
-            for k in t6.NAMES]
+    rows = []
+    for k in t6.NAMES:
+        tm = times[k]
+        row = lab_row(f"T6 probe k{k} ({t6.NAMES[k]}; launches of all ten)",
+                      "lab_prims.cu", f"tools/proto_prims.py:{lines[k]}", n,
+                      0.0, tm["kernel"][0], plain[k],
+                      (res[f"k{k}"]["bound_ms"], res[f"k{k}"]["bound_by"]),
+                      tm["library"][0] if "library" in tm else None)
+        row["launch_floor_ms"] = tm["floor"][0]
+        rows.append(row)
+    return rows
 
 
 def lab_subvisit(card, dev="cuda") -> list:
@@ -3930,9 +4004,11 @@ def lab_proto_cluster(card, dev="cuda") -> list:
     """T2 at the tool's size (262,144 probe rays, C 256): the tool's main()
     with its counter read, then each of its eight jobs' outputs against the
     plain version (out and outi equal bit for bit), the plain version timed
-    on the same inputs; the MXU job without a hit in either; the MXU variant
-    once more with random plane columns in pk, where it must hit and agree
-    too."""
+    on the same inputs, each job's time beside its bound; the MXU job
+    without a hit in either; the MXU variant once more with random plane
+    columns in pk, where it must hit and agree too; then
+    t2.adversarial_inputs in every mode, bit for bit, and the time that the
+    kernel's SASS permits (t2_issue)."""
     from hydracore_tpu_torch.tools import proto_cluster as t2
 
     t2.reset_launch_counts()
@@ -3954,7 +4030,8 @@ def lab_proto_cluster(card, dev="cuda") -> list:
                          if pk is planes else res[name]["out"])
         plain, (out_p, outi_p) = lab.time_ms(lambda: t2.proto_cluster_plain(
             rays[rb], cb, tris, pk, mxu, mode), 1, dev, result=True)
-        if not (torch.equal(out_k, out_p) and torch.equal(outi_k, outi_p)):
+        if not (torch.equal(bits(out_k), bits(out_p))
+                and torch.equal(outi_k, outi_p)):
             raise AssertionError(f"phase 13 T2 {name}: kernel differs from plain")
         hits = [int((o[:, :, 0] >= 0).sum()) for o in (outi_k, outi_p)]
         n_act = out_k[:, 0, 1]
@@ -3970,11 +4047,117 @@ def lab_proto_cluster(card, dev="cuda") -> list:
             raise AssertionError(f"phase 13 T2 {name}: the MXU job hit: {hits}")
         else:
             recs[name] = plain
+    for name in recs:
+        r = res[name]
+        log(f"phase 13 T2 {name}: {r['ms']:.4f} ms against its bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}): "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound [{card}]")
+    for name, (ra, cb, tris, pk, mxu) in t2.adversarial_inputs().items():
+        args = [torch.tensor(x).to(dev) for x in (ra, cb, tris, pk)]
+        for mode in sorted(t2.MODES.values()):
+            out_k, outi_k = t2.proto_cluster(*args, mxu, mode)
+            out_p, outi_p = t2.proto_cluster_plain(*args, mxu, mode)
+            if not (torch.equal(bits(out_k), bits(out_p))
+                    and torch.equal(outi_k, outi_p)):
+                raise AssertionError(f"phase 13 T2 adversarial {name} mode "
+                                     f"{mode}: kernel differs from plain")
+            if mode == 0:
+                hits = int((outi_k[:, :, 0] >= 0).sum())
+                lists = sorted({int(v) for v in out_k[:, 0, 1].tolist()})
+        log(f"phase 13 T2 adversarial {name} (Cp {args[1].shape[1]}, R_BLK "
+            f"{args[0].shape[1]}, mxu {int(mxu)}): kernel equal to the plain "
+            f"version in modes 0-3; lists of {lists}, hits {hits} [{card}]")
+    t2_issue(card, t2, res)
     return [lab_row(f"T2 proto cluster, {name} (launches of all eight jobs)",
                     "lab_cluster.cu", "tools/proto_cluster.py:189",
                     launches, 0.0, res[name]["ms"], recs[name],
                     (res[name]["bound_ms"], res[name]["bound_by"]))
             for name in recs]
+
+
+def inner_loop(code, has) -> list:
+    """The smallest loop of `code` (a backward branch and the instructions
+    from its target to it) whose body holds an instruction for which
+    has(opcode, operands) is true; [] if there is none."""
+    best = []
+    for a, op, rest in code:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op != "BRA" or not m or int(m.group(1), 16) >= a:
+            continue
+        body = [c for c in code if int(m.group(1), 16) <= c[0] <= a]
+        if any(has(o, r) for _, o, r in body) and (not best
+                                                   or len(body) < len(best)):
+            best = body
+    return best
+
+
+def issued(code) -> tuple[list, int]:
+    """The instructions of a loop body that run when no lane takes a slow
+    path: without the ranges that a vote's branch skips (the division's
+    warp-uniform slow path: the first BRA after a VOTE.ANY). Returns
+    (instructions, how many were left out)."""
+    skip = set()
+    for i, (a, op, rest) in enumerate(code):
+        if op == "VOTE" and rest.startswith(".ANY P"):
+            for b, op2, rest2 in code[i + 1:i + 24]:  # its first branch
+                m = re.search(r"0x([0-9a-f]+)", rest2)
+                if op2 == "BRA" and m:
+                    skip.update(c[0] for c in code
+                                if b < c[0] < int(m.group(1), 16))
+                    break
+    kept = [c for c in code if c[0] not in skip]
+    return kept, len(code) - len(kept)
+
+
+def t2_issue(card, t2, res) -> None:
+    """What T2's SASS permits: in each instantiation's code (kernel_code)
+    the innermost loop with FMNMX is stage A's (10 a ray and position), the
+    innermost with a |x| > 1e-12 test stage B's over a group of lanes (one
+    test a lane); the
+    instructions a warp issues there on the path that takes no slow
+    division (issued), for this run's positions and visits, over the card's
+    issue rate (one warp instruction a clock on each of an SM's 4
+    schedulers, at the card's largest SM clock), give the least time at
+    which the code could run; beside the measured time and the bound,
+    which counts f32 operations at the peak that takes an FMA as two."""
+    code = kernel_code("phase 13 T2", "lab_cluster.cu")
+    by_inst = {}
+    for fn, own in code.items():
+        m = re.search(r"proto_cluster_kernelILi(\d+)ELb([01])ELi(\d)E", fn)
+        if m:
+            key = (int(m.group(1)), m.group(2) == "1", int(m.group(3)))
+            by_inst[key] = own
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 4 * clk * 1e6  # warp instructions a second
+    for v, a, mxu, rb in t2.JOBS:
+        if v not in ("full", "novisit"):
+            continue
+        name = t2.job_name(v, a, mxu, rb)
+        own = by_inst[(rb, mxu, t2.MODES[v])]
+        node = inner_loop(own, lambda op, _: op == "FMNMX")
+        pairs = sum(op == "FMNMX" for _, op, _ in node) / 10
+        per_pair = len(node) / max(pairs, 1)
+        leaf, skipped = issued(inner_loop(
+            own, lambda op, rest: op == "FSETP" and "e-13" in rest
+            and rest.startswith(".GT")))
+        lanes = sum(op == "FSETP" and rest.startswith(".GT") and "e-13" in rest
+                    for _, op, rest in leaf)
+        per_lane = len(leaf) / max(lanes, 1)
+        warps = t2.N_RAYS // 32
+        visits = float(res[name]["out"][0][:, 0, 1].sum())  # over blocks
+        stage_a = warps * t2.C * per_pair
+        stage_b = visits * (rb // 32) * t2.K * per_lane if lanes else 0.0
+        permit = (stage_a + stage_b) / rate * 1e3
+        log(f"phase 13 T2 {name}: {per_pair:.2f} instructions a ray and "
+            f"position (stage A), {per_lane if lanes else 0:.2f} a ray and "
+            f"lane (stage B; {skipped} of the body's slow path left out): "
+            f"{permit:.5f} ms at the full issue rate ({sms} SMs x 4 x "
+            f"{clk:.0f} MHz), measured {res[name]['ms']:.4f} ms, bound "
+            f"{res[name]['bound_ms']:.5f} ms [{card}]")
 
 
 # the rays of each set on which T3 and T4 are held against their plain
@@ -4111,6 +4294,29 @@ def kernel_rows(kernels, label, source, replaces, recs, launches) -> list:
     return rows
 
 
+def lab_phases(card, tc, tp) -> list:
+    """Phases 12 and 13, the kernel lab, each tool's kernels at its own
+    size (tc and tp's libraries built); their "kernels" rows."""
+    # ---- phase 12: T7, T6, T5, T1
+    t0 = time.time()
+    lab_rows = (lab_gather(card) + lab_prims(card) + lab_subvisit(card)
+                + lab_cluster_cost(card, tc))
+    if any(r["launches"] <= 0 for r in lab_rows):
+        raise AssertionError("phase 12: a lab kernel was not launched by its "
+                             "tool's main()")
+    log(f"phase 12 kernel lab: {time.time() - t0:.2f} s")
+
+    # ---- phase 13: the lab's traversal prototypes T2, T3, T4 (and B4 on
+    # T3's and T4's rays)
+    t0 = time.time()
+    trav_rows = lab_proto_cluster(card) + lab_packet_walks(card, tp)
+    if any(r["launches"] <= 0 for r in trav_rows):
+        raise AssertionError("phase 13: a lab kernel was not launched by its "
+                             "tool's main()")
+    log(f"phase 13 traversal prototypes: {time.time() - t0:.2f} s")
+    return lab_rows + trav_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4147,6 +4353,10 @@ def main() -> int:
     for tool in (t1, t2, t3, t4, t5, t6, t7):
         tool._kernel_lib()
     log(f"phase 1 build: {time.time() - t0:.2f} s ({', '.join(srcs)})")
+    if sys.argv[1:] == ["--lab"]:  # phases 12 and 13 alone
+        print(json.dumps({"kernels": lab_phases(card, tc, tp)}), flush=True)
+        print(card, flush=True)
+        return 0
 
     # ---- phase 2-5: the flat pool (B1, B2)
     t0 = time.time()
@@ -4320,23 +4530,8 @@ def main() -> int:
         raise AssertionError(f"packet vs cluster route image: {close}")
     log(f"phase 11 packet: {time.time() - t0:.2f} s")
 
-    # ---- phase 12: the kernel lab, each tool's kernels at its own size
-    t0 = time.time()
-    lab_rows = (lab_gather(card) + lab_prims(card) + lab_subvisit(card)
-                + lab_cluster_cost(card, tc))
-    if any(r["launches"] <= 0 for r in lab_rows):
-        raise AssertionError("phase 12: a lab kernel was not launched by its "
-                             "tool's main()")
-    log(f"phase 12 kernel lab: {time.time() - t0:.2f} s")
-
-    # ---- phase 13: the lab's traversal prototypes T2, T3, T4 (and B4 on
-    # T3's and T4's rays)
-    t0 = time.time()
-    trav_rows = lab_proto_cluster(card) + lab_packet_walks(card, tp)
-    if any(r["launches"] <= 0 for r in trav_rows):
-        raise AssertionError("phase 13: a lab kernel was not launched by its "
-                             "tool's main()")
-    log(f"phase 13 traversal prototypes: {time.time() - t0:.2f} s")
+    # ---- phases 12 and 13: the kernel lab
+    lab_rows = lab_phases(card, tc, tp)
 
     # ---- phase 14: textured shading and alpha shadows (B2 over the opaque
     # shadow pool), a scene assembled from a SceneDesc with its files
@@ -4401,7 +4596,7 @@ def main() -> int:
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
             + opaque_rows + gates_rows + schedule_rows + lt_rows + bd_rows
-            + mlt_rows + lab_rows + trav_rows)
+            + mlt_rows + lab_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

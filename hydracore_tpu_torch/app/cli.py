@@ -13,12 +13,14 @@ Usage: python -m hydracore_tpu_torch.app.cli -inputlib <lib> -out z.png
 renders on the card; main([...], device="cpu") runs the plain versions of
 the kernels on the CPU.
 
-The JAX package's process-wide switches are arguments here: -regen is
-render_passes(..., regen=), -double_rt sets settings.double_rt on the
-scene (the traversal layer carries the float64 refinement), and there is
-no compilation cache to configure. The routes are tried in the JAX
-package's order: -method first, then -multichip, then offline_pt, then the
-checkpointed pass loop.
+The JAX package's process-wide switches are arguments here: -regen 1 is
+render_passes(..., regen=True) in every path-tracing call the CLI makes
+(the pass loop, -stat's profile_pass, the viewer's steps; any other value
+leaves it off, as HYDRA_REGEN != "1" does), -double_rt sets
+settings.double_rt on the scene (the traversal layer carries the float64
+refinement), and there is no compilation cache to configure. The routes
+are tried in the JAX package's order: -method first, then -multichip, then
+offline_pt, then the checkpointed pass loop.
 """
 from __future__ import annotations
 
@@ -171,7 +173,7 @@ def _run(args, device) -> int:
             print(f"[config] -{flag} accepted, no-op on the card (OpenCL/host "
                   "knob; the device is the caller's choice, PyTorch owns "
                   "threads and framebuffer placement)")
-    regen = bool(args.regen)
+    regen = args.regen == 1  # the JAX CLI's HYDRA_REGEN == "1"
     if args.spp is None:
         args.spp = args.maxsamples  # input.cpp:193-194: the same knob
     if args.outdir:
@@ -190,7 +192,8 @@ def _run(args, device) -> int:
 
         _, server, stop = run_viewer(
             args.inputlib, args.port, args.width, args.height,
-            (args.method or "pathtracing"), args.seed or 777, device=device)
+            (args.method or "pathtracing"), args.seed or 777, device=device,
+            regen=regen)
         try:
             while True:
                 time.sleep(3600)
@@ -436,7 +439,8 @@ def _pass_loop(args, scene, spp, md, dev, regen) -> np.ndarray:
     if args.stat:
         from hydracore_tpu_torch.utils.stats import profile_pass
 
-        print(profile_pass(scene, max_depth=md, device=dev).summary())
+        print(profile_pass(scene, max_depth=md, device=dev,
+                           regen=regen).summary())
     return img
 
 

@@ -91,12 +91,13 @@ class InteractiveSession:
     camera/method edits resetting it (hrCommit-restarts-accumulation
     semantics, Draw() main_app_window.cpp:181-290). Thread-safe: `step()`
     may run on a worker thread while input arrives on another. Renders on
-    `device` ("cuda" unless asked)."""
+    `device` ("cuda" unless asked); `regen` reaches every path-tracing
+    step's render_passes (the JAX package's process-wide HYDRA_REGEN=1)."""
 
     def __init__(self, scene, cam_desc, method: str = "pathtracing",
                  seed: int = 777, max_depth: int | None = None,
                  move_speed: float = 2.5, mouse_sens: float = 0.1,
-                 device=None):
+                 device=None, regen: bool = False):
         from hydracore_tpu_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
@@ -108,6 +109,7 @@ class InteractiveSession:
             up=np.asarray(cam_desc.up, np.float64).copy(),
             fov=float(cam_desc.fov))
         self.method = method
+        self.regen = bool(regen)
         self.seed = int(seed)
         self.max_depth = int(max_depth or scene.settings.trace_depth)
         self.move_speed = move_speed  # g_input.camMoveSpeed
@@ -205,7 +207,8 @@ class InteractiveSession:
             from hydracore_tpu_torch.integrators.pt import render_passes
 
             img, _ = render_passes(scene, spp, self.seed, n_pass=n_pass,
-                                   max_depth=self.max_depth, device=dev)
+                                   max_depth=self.max_depth, device=dev,
+                                   regen=self.regen)
         elif method == "lighttracing":
             from hydracore_tpu_torch.integrators.lt import lt_pass
 
@@ -342,7 +345,8 @@ def make_server(session: InteractiveSession, port: int = 0):
 
 def run_viewer(inputlib: str, port: int = 8000, width=None, height=None,
                method: str = "pathtracing", seed: int = 777,
-               stop_event: threading.Event | None = None, device=None):
+               stop_event: threading.Event | None = None, device=None,
+               regen: bool = False):
     """Load the scene, start the render thread + HTTP server (the reference's
     window_main, main_app_window.cpp:463). Returns (session, server, stop):
     set `stop` and shut the server down to end both threads."""
@@ -352,7 +356,7 @@ def run_viewer(inputlib: str, port: int = 8000, width=None, height=None,
     desc = load_statefile(inputlib)
     scene = assemble(desc, width, height)
     session = InteractiveSession(scene, desc.camera, method=method, seed=seed,
-                                 device=device)
+                                 device=device, regen=regen)
     server = make_server(session, port)
     stop = stop_event or threading.Event()
 

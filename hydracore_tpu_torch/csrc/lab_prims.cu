@@ -8,22 +8,37 @@
 //   k3  sum(x[3, :8]) broadcast                 (one element of a row sum)
 //   k4  x[xi[0, 2] mod 60]                      (int read -> row index)
 //   k5  sum over k < 8 of x[2, 16 k] broadcast  (reshape (1,128) -> (8,16))
-//   k6  x[(7 * 8) mod 60], the 7 written to and read back from shared memory
-//   k7  15.0: a five-entry stack in shared memory popped in a loop
+//   k6  x[(7 * 8) mod 60] = x[56]               (an SMEM round trip on the TPU)
+//   k7  15.0                                    (an SMEM stack popped in a loop)
 //   k8  sum over r < 8 of max(x[r, :]) broadcast (lane reduction)
 //   k9  float(bits of x[0, :] as int32)          (bitcast)
 //   k10 x[0, 0:128:16] padded with zeros to 128   (strided slice)
 // Sums run in index order, min/max propagate NaN, mod is Python's floor
 // modulo, as in the plain PyTorch versions (tools/proto_prims.py).
 //
-// Bound on the H100: launch latency. A probe reads at most 4 KiB of its
-// inputs (k8; tools/proto_prims.py:NEEDS) and writes 512 bytes, which the
-// card's memory rate covers in under 2 ns; a launch costs microseconds.
+// Bound on the H100: the launch. A probe reads at most 4 KiB of its inputs
+// (k8; tools/proto_prims.py:NEEDS) and writes 512 bytes, which the card's
+// memory rate covers in under 2 ns; a launch costs about a microsecond
+// (hydra_lab_empty, timed as the same CUDA graph, is that floor).
 //
-// Design: one kernel per probe, one CTA of 128 threads, thread j writing
-// out[j]; reductions are done by every thread on its own (at most 1,024
-// reads from L1), so no probe needs a barrier except those whose TPU
-// primitive was a scratch-memory round trip (k6, k7).
+// Design: k8, the lane reduction, is one warp: lane i loads columns
+// 4 i .. 4 i + 3 of the 8 rows as float4s (coalesced), takes each row's
+// NaN-propagating maximum in the lane and then across the warp with xor
+// shuffles, so that every lane holds the 8 row maxima, adds them in index
+// order and stores its four outputs as one float4. The maximum is
+// order-free but for two cases: a NaN (nan_max returns the canonical
+// 0x7fc00000 and the adds after it the card's canonical NaN, whatever NaN
+// the plain version's amax passes on) and a tie of -0.0 with +0.0 (either
+// zero leaves a nonzero sum unchanged, and the closing + 0.0 turns a zero
+// sum of either sign into +0.0): the row's bits match the plain version's
+// in both. The other probes are one CTA of 128 threads, thread j writing
+// out[j], reading their few values as broadcasts and summing in index
+// order: at this size a launch is the whole cost, and this shape launched
+// 7-30 ns faster on the H100 than one warp storing float4s (PERF.md,
+// PR 16). k6 and k7 keep the function and not the TPU mechanism (a scalar
+// written to and read back from SMEM, an SMEM stack popped in a loop): the
+// row index and the popped sum are constants of the probe, so no shared
+// memory and no barrier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,6 +46,7 @@
 namespace {
 
 constexpr int kCols = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -41,50 +57,75 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
+// probe kProbe but k8: thread j writes out[j]
 template <int kProbe>
 __global__ void __launch_bounds__(kCols)
 prim_kernel(const float* __restrict__ x, const int* __restrict__ xi,
             float* __restrict__ out) {
-  __shared__ int sm[16];
   const int j = threadIdx.x;
   float v = 0.0f;
   if (kProbe == 1) {
-    v = x[3 * kCols + 5];
+    v = __ldg(x + 3 * kCols + 5);
   } else if (kProbe == 2) {
     unsigned s = 0;  // int32 sum with wrap-around
-    for (int c = 0; c < 8; ++c) s += (unsigned)(int)x[c];
-    v = x[floor_mod((int)s, 60) * kCols + j];
+    for (int c = 0; c < 8; ++c) s += (unsigned)(int)__ldg(x + c);
+    v = __ldg(x + floor_mod((int)s, 60) * kCols + j);
   } else if (kProbe == 3) {
-    v = x[3 * kCols];
-    for (int c = 1; c < 8; ++c) v = v + x[3 * kCols + c];
+    v = __ldg(x + 3 * kCols);
+    for (int c = 1; c < 8; ++c) v = v + __ldg(x + 3 * kCols + c);
   } else if (kProbe == 4) {
-    v = x[floor_mod(xi[2], 60) * kCols + j];
+    v = __ldg(x + floor_mod(__ldg(xi + 2), 60) * kCols + j);
   } else if (kProbe == 5) {
-    v = x[2 * kCols];
-    for (int k = 1; k < 8; ++k) v = v + x[2 * kCols + 16 * k];
+    v = __ldg(x + 2 * kCols);
+    for (int k = 1; k < 8; ++k) v = v + __ldg(x + 2 * kCols + 16 * k);
   } else if (kProbe == 6) {
-    if (j == 0) sm[3] = 7;
-    __syncthreads();
-    v = x[floor_mod(sm[3] * 8, 60) * kCols + j];
+    v = __ldg(x + (7 * 8 % 60) * kCols + j);
   } else if (kProbe == 7) {
-    if (j == 0) { sm[0] = 5; sm[1] = 2; sm[2] = 3; sm[3] = 4; sm[4] = 1; }
-    __syncthreads();
-    int sp = 5, acc = 0;
-    while (sp > 0) acc += sm[--sp];
-    v = (float)acc;
-  } else if (kProbe == 8) {
-    for (int r = 0; r < 8; ++r) {
-      float m = x[r * kCols];
-      for (int c = 1; c < kCols; ++c) m = nan_max(m, x[r * kCols + c]);
-      v = r == 0 ? m : v + m;
-    }
-    v = v + 0.0f;
+    v = (float)(1 + 4 + 3 + 2 + 5);  // the stack [5, 2, 3, 4, 1] popped
   } else if (kProbe == 9) {
-    v = __int2float_rn(__float_as_int(x[j]));
+    v = __int2float_rn(__float_as_int(__ldg(x + j)));
   } else if (kProbe == 10) {
-    v = j < 8 ? x[16 * j] : 0.0f;
+    v = j < 8 ? __ldg(x + 16 * j) : 0.0f;
   }
   out[j] = v;
+}
+
+// k8: sum over r < 8 of max(x[r, :]), one warp
+__global__ void __launch_bounds__(32)
+lane_reduce_kernel(const float* __restrict__ x, float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const int c0 = 4 * lane;
+  float m[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float4 a =
+        __ldg(reinterpret_cast<const float4*>(x + r * kCols + c0));
+    m[r] = nan_max(nan_max(a.x, a.y), nan_max(a.z, a.w));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      m[r] = nan_max(m[r], __shfl_xor_sync(kFull, m[r], off));
+  }
+  float s = m[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r) s = s + m[r];
+  s = s + 0.0f;
+  reinterpret_cast<float4*>(out)[lane] = make_float4(s, s, s, s);
+}
+
+// The launch floor: a kernel of the probes' launch shape that does nothing.
+__global__ void __launch_bounds__(kCols) empty_kernel() {}
+
+template <int kProbe>
+cudaError_t launch_probe(const float* x, const int* xi, float* out,
+                         cudaStream_t s) {
+  if constexpr (kProbe == 8)
+    lane_reduce_kernel<<<1, 32, 0, s>>>(x, out);
+  else
+    prim_kernel<kProbe><<<1, kCols, 0, s>>>(x, xi, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -92,24 +133,30 @@ prim_kernel(const float* __restrict__ x, const int* __restrict__ xi,
 extern "C" {
 
 // out (1, 128) f32 <- probe `probe` (1 ... 10) of x (64, 128) f32 and xi
-// (64, 128) i32. Launches on `stream`; returns cudaGetLastError() right
-// after the launch (0 on success).
+// (64, 128) i32, x and out 16-byte aligned. Launches on `stream`; returns
+// cudaGetLastError() right after the launch (0 on success).
 int hydra_lab_prim(int probe, const float* x, const int* xi, float* out,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (probe) {
-    case 1: prim_kernel<1><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 2: prim_kernel<2><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 3: prim_kernel<3><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 4: prim_kernel<4><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 5: prim_kernel<5><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 6: prim_kernel<6><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 7: prim_kernel<7><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 8: prim_kernel<8><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 9: prim_kernel<9><<<1, kCols, 0, s>>>(x, xi, out); break;
-    case 10: prim_kernel<10><<<1, kCols, 0, s>>>(x, xi, out); break;
+    case 1: return (int)launch_probe<1>(x, xi, out, s);
+    case 2: return (int)launch_probe<2>(x, xi, out, s);
+    case 3: return (int)launch_probe<3>(x, xi, out, s);
+    case 4: return (int)launch_probe<4>(x, xi, out, s);
+    case 5: return (int)launch_probe<5>(x, xi, out, s);
+    case 6: return (int)launch_probe<6>(x, xi, out, s);
+    case 7: return (int)launch_probe<7>(x, xi, out, s);
+    case 8: return (int)launch_probe<8>(x, xi, out, s);
+    case 9: return (int)launch_probe<9>(x, xi, out, s);
+    case 10: return (int)launch_probe<10>(x, xi, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// One launch of the empty kernel (one CTA of 128 threads) on `stream`: the
+// floor that a probe's time stands beside. Returns cudaGetLastError().
+int hydra_lab_empty(void* stream) {
+  empty_kernel<<<1, kCols, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

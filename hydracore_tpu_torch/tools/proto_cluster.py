@@ -15,6 +15,10 @@ synth() and probe_rays() are the tool's scene and rays, copied: the same
 numpy draws give the same arrays. The tool's synth leaves the plane columns
 of pk at zero, so its MXU job can never hit; with_planes() fills them with
 random values for a check that reaches the Plucker test's hits.
+adversarial_inputs() holds the cases that the tool's inputs do not reach:
+equal t on several lanes of one cluster and in two clusters, a block that
+enters no box, lists of many lengths, Cp 384, R_BLK 1024 with plane
+columns.
 
     python -m hydracore_tpu_torch.tools.proto_cluster [all |
                                           full|novisit|stagea|empty ACT MXU RB]
@@ -131,6 +135,18 @@ def with_planes(pk: np.ndarray, seed: int = 0) -> np.ndarray:
     return out
 
 
+def _put_triangle(tris, pk, c: int, lane: int, v0, e1, e2) -> None:
+    """Lane `lane` of cluster c becomes the triangle (v0, e1, e2), in tris
+    and in pk's edge columns (synth's [o x e, e, 0, 0])."""
+    v0, e1, e2 = (np.asarray(v, np.float32) for v in (v0, e1, e2))
+    tris[c, 0:3, lane], tris[c, 3:6, lane], tris[c, 6:9, lane] = v0, e1, e2
+    v1, v2 = v0 + e1, v0 + e2
+    for k, (a, b) in enumerate(((v0, v1), (v1, v2), (v2, v0))):
+        e = b - a
+        pk[c, :, k * K + lane] = np.concatenate(
+            [np.cross(a, e), e, np.zeros(2, np.float32)])
+
+
 def probe_rays(r_blk: int, n_rays: int = N_RAYS, seed: int = 1) -> np.ndarray:
     """The tool's probe rays: n_rays origins uniform in [-1, 1]^3, normal
     directions, t_lim 1e30, in blocks (n_rays // r_blk, r_blk, 8) f32."""
@@ -147,6 +163,89 @@ def probe_rays(r_blk: int, n_rays: int = N_RAYS, seed: int = 1) -> np.ndarray:
     return rays
 
 
+# the tied triangle of adversarial_inputs: a 1.2-unit right triangle in the
+# plane z = 0.2 across the middle of the ray cloud, in these (cluster,
+# lanes); both clusters are near ones, which every block of the tool's rays
+# visits
+TIE_TRIANGLE = ((-0.5, -0.5, 0.2), (1.2, 0.0, 0.0), (0.0, 1.2, 0.0))
+TIE_LANES = ((2, (3, 40, 126, 127)), (9, (0, 127)))
+
+
+def tie_scene(C: int = C, ACT: int = 16, planes: bool = False):
+    """synth(C, ACT) with TIE_TRIANGLE in TIE_LANES: a ray that hits it has
+    equal t on four lanes of cluster 2 (lane 127 must win) and the same t on
+    two lanes of cluster 9, which must not replace it. With `planes`,
+    with_planes() columns, the same in every tied lane (so their tN, t and
+    ties agree too)."""
+    cb, tris, pk = synth(C, ACT)
+    if planes:
+        pk = with_planes(pk)
+    plane = pk[TIE_LANES[0][0], :, 3 * K + TIE_LANES[0][1][0]].copy()
+    for c, lanes in TIE_LANES:
+        for lane in lanes:
+            _put_triangle(tris, pk, c, lane, *TIE_TRIANGLE)
+            pk[c, :, 3 * K + lane] = plane
+    return cb, tris, pk
+
+
+def _point_rays(origins, t_lims, r_blk: int, seed: int = 2) -> np.ndarray:
+    """One block of r_blk rays a row of `origins`, every ray of a block from
+    its origin, normal directions, t_lim from `t_lims`."""
+    rng = np.random.default_rng(seed)
+    G = len(origins)
+    rays = np.zeros((G, r_blk, 8), np.float32)
+    rd = rng.normal(size=(G, r_blk, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=2, keepdims=True)
+    rays[:, :, 0:3] = np.asarray(origins, np.float32)[:, None, :]
+    rays[:, :, 3:6] = rd
+    rays[:, :, 6] = np.asarray(t_lims, np.float32)[:, None]
+    rays[:, :, 7] = 1.0
+    return rays
+
+
+ADVERSARIAL = ("ties", "ties_mxu", "no_entry", "lists", "lists_mxu", "cp384",
+               "cp384_mxu", "planes_1024")
+
+
+def adversarial_inputs() -> dict:
+    """name -> (rays, cb, tris, pk, use_mxu), numpy f32, the cases that the
+    tool's inputs do not reach (the first 2 blocks of 256 of the tool's
+    rays, or its first block of 1024, where a case takes them):
+      ties, ties_mxu  tie_scene: equal t on several lanes of one cluster
+                      and in a later cluster (Plucker: with plane columns);
+      no_entry        a block of the tool's rays, then one whose rays start
+                      far from every box and point away: an empty list
+                      beside a full one in one launch;
+      lists, lists_mxu  tie_scene, 8 blocks each from one point with a
+                      short t_lim: lists of 0, 1, 2, 6, 11 and 15 entries,
+                      so the stage buffers wrap an odd and an even number
+                      of times;
+      cp384, cp384_mxu  synth(384, 24): Cp 384 (three 128-position tiles);
+      planes_1024     R_BLK 1024 and the Plucker test with plane columns."""
+    rays256 = probe_rays(256)[:2]
+    out = {}
+    for mxu in (False, True):
+        tag = "_mxu" if mxu else ""
+        scene = tie_scene(planes=mxu)
+        out["ties" + tag] = (rays256,) + scene + (mxu,)
+        rng = np.random.default_rng(5)
+        origins = rng.uniform(-0.8, 0.8, (8, 3))
+        lims = [0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 1.0, 1e30]
+        out["lists" + tag] = (_point_rays(origins, lims, 256),) + scene + (mxu,)
+        cb, tris, pk = synth(384, 24)
+        out["cp384" + tag] = (rays256, cb, tris,
+                              with_planes(pk) if mxu else pk, mxu)
+    far = _point_rays([[50.0, 50.0, 50.0]], [1e30], 256)
+    far[..., 0] += np.linspace(0.0, 1.0, 256, dtype=np.float32)
+    far[..., 3:6] = (1.0, 0.0, 0.0)
+    out["no_entry"] = ((np.concatenate([rays256[:1], far]),) + synth(C, 16)
+                       + (False,))
+    cb, tris, pk = synth(C, 16)
+    out["planes_1024"] = (probe_rays(1024)[:1], cb, tris, with_planes(pk),
+                          True)
+    return {k: out[k] for k in ADVERSARIAL}
+
+
 def _check(rays, cb, tris, pk, mode):
     check_tensor("rays", rays, torch.float32, (None, None, 8))
     if rays.shape[1] not in R_BLKS:
@@ -159,6 +258,8 @@ def _check(rays, cb, tris, pk, mode):
     check_tensor("pk", pk, torch.float32, (Cp, 8, 4 * K), rays.device)
     if mode not in MODES.values():
         raise ValueError(f"mode must be 0-3, got {mode}")
+    if rays.is_cuda and any(a.data_ptr() % 16 for a in (rays, cb, tris, pk)):
+        raise ValueError("rays, cb, tris and pk must be 16-byte aligned")
 
 
 def _stage_a(rb, cb):

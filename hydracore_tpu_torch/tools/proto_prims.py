@@ -12,14 +12,19 @@ import.
 
 prints, as the tool does, OK and the first four values of each probe's row
 (FAIL where it disagrees with its plain version), with its time per launch
-(the mean of 1,000 launches replayed from a CUDA graph, so without the
-host's time to issue them) and its bound, beside the card's name and power
-limit. Launch latency, not the bound, sets these times.
+and its bound, beside the card's name and power limit. A time is the mean
+of GRAPH_CALLS launches replayed from a CUDA graph (so without the host's
+time to issue them); the graph is replayed REPS times: the median and the
+spread. The
+launch floor, empty()'s kernel over a graph of the same length, is timed
+first and printed beside every probe: launch latency, not the bytes bound,
+sets these times.
 """
 from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
 from hydracore_tpu_torch.utils.build import CI, VP, launch, load_lib
@@ -41,6 +46,12 @@ NAMES = {
     10: "strided lane slice",
 }
 
+# every time of T6 (probe, library call, floor) is over a CUDA graph of
+# this many calls; main() replays each probe's one graph REPS times, as
+# the first port's tool captured one graph a probe
+GRAPH_CALLS = 1000
+REPS = 3
+
 prim_launches = 0
 
 _lib = None
@@ -55,6 +66,8 @@ def _kernel_lib():
     global _lib
     if _lib is None:
         _lib = load_lib("lab_prims.cu", "hydra_lab_prim", [CI, VP, VP, VP, VP])
+        _lib.hydra_lab_empty.argtypes = [VP]
+        _lib.hydra_lab_empty.restype = CI
     return _lib
 
 
@@ -113,6 +126,8 @@ def prim(k: int, x, xi):
         raise ValueError(f"no probe k{k}: 1 ... 10")
     if not x.is_cuda:
         return prim_plain(k, x, xi)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (k8's float4 loads)")
     out = torch.empty((1, SHAPE[1]), dtype=torch.float32, device=x.device)
     launch(_kernel_lib(), "hydra_lab_prim", f"probe k{k}", x.device, k,
            x.data_ptr(), xi.data_ptr(), out.data_ptr())
@@ -121,11 +136,47 @@ def prim(k: int, x, xi):
     return out
 
 
+def empty(device="cuda") -> None:
+    """One launch of the empty kernel (one CTA of 128 threads, no work) on
+    `device`'s current stream: the launch floor that the probes' times
+    stand beside. Counted nowhere: it replaces no TPU kernel."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the launch floor exists only on the card")
+    launch(_kernel_lib(), "hydra_lab_empty", "empty", dev)
+
+
 def inputs(device="cuda"):
     """The tool's x and xi: arange(64 * 128) as f32 and as i32."""
     x = torch.arange(SHAPE[0] * SHAPE[1], dtype=torch.float32).reshape(SHAPE)
     xi = torch.arange(SHAPE[0] * SHAPE[1], dtype=torch.int32).reshape(SHAPE)
     return x.to(device), xi.to(device)
+
+
+def adversarial_inputs(device="cuda") -> dict:
+    """k8's hard cases, name -> (x, xi): x a seeded normal draw, xi the
+    tool's, and
+      nan       x[2, 77] NaN: the row maxima, and the sum, are NaN;
+      neg_inf   row 5 all -inf: its maximum is -inf, and the sum;
+      zero_tie  rows 0:8 negative but for a -0.0 and a +0.0 (in either
+                order), so every row's maximum is a tie of the two zeros
+                and the sum of the maxima is a zero;
+      zero_row  the same tie in row 4 only, beside nonzero maxima."""
+    rng = np.random.default_rng(16)
+    base = rng.normal(size=SHAPE).astype(np.float32)
+    cases = {k: base.copy() for k in ("nan", "neg_inf", "zero_tie",
+                                      "zero_row")}
+    cases["nan"][2, 77] = np.nan
+    cases["neg_inf"][5] = -np.inf
+    for r in range(8):
+        x = cases["zero_tie"]
+        x[r] = -np.abs(x[r]) - 0.5
+        x[r, 10], x[r, 100] = (-0.0, 0.0) if r % 2 else (0.0, -0.0)
+    x = cases["zero_row"]
+    x[4] = -np.abs(x[4]) - 0.5
+    x[4, 10], x[4, 100] = -0.0, 0.0
+    _, xi = inputs(device)
+    return {k: (torch.tensor(v).to(device), xi) for k, v in cases.items()}
 
 
 # what each probe needs of its inputs: (bytes read, operations done once),
@@ -143,25 +194,42 @@ def prim_bound_ms(k: int) -> tuple[float, str]:
     return bound_ms(n_bytes + SHAPE[1] * 4, n_ops)
 
 
-def main(variant: str = "all", device="cuda", n: int = 1000) -> dict:
-    """Run each chosen probe, check it against its plain version, and time
-    it over n launches (a CUDA graph on the card); returns {"k1": {"ms", "ok", "bound_ms",
-    "bound_by"}, ...}."""
+def main(variant: str = "all", device="cuda", n: int = GRAPH_CALLS) -> dict:
+    """Time the launch floor (empty()), then run each chosen probe, check
+    it against its plain version, and time it; each time over n launches (a
+    CUDA graph on the card), REPS times. Returns {"floor": {"ms", "spread"},
+    "k1": {"ms", "spread", "ok", "bound_ms", "bound_by"}, ...}: ms the
+    median, spread (min, max) of the REPS times."""
     dev = resolve_device(device)
     ks = list(NAMES) if variant == "all" else [int(variant.lstrip("k"))]
     x, xi = inputs(dev)
     label = device_label(dev)
     out = {}
+
+    def median_spread(fn):
+        ts = time_ms(fn, n, dev, graph=True, reps=REPS)
+        return float(np.median(ts)), (min(ts), max(ts))
+
+    if dev.type == "cuda":
+        floor, spread = median_spread(lambda: empty(dev))
+        out["floor"] = {"ms": floor, "spread": spread}
+        print(f"launch floor (empty kernel): {floor * 1e3:.3f} us/launch "
+              f"({spread[0] * 1e3:.3f}-{spread[1] * 1e3:.3f}) [{label}]",
+              flush=True)
     for k in ks:
         r = prim(k, x, xi)
         ok = torch.equal(r.cpu(), prim_plain(k, x.cpu(), xi.cpu()))
-        ms = time_ms(lambda: prim(k, x, xi), n, dev, graph=True)
+        ms, spread = median_spread(lambda: prim(k, x, xi))
         bms, by = prim_bound_ms(k)
         vals = r[0, :4].cpu().numpy()
+        floor = (f", {ms / out['floor']['ms']:.2f}x the floor"
+                 if "floor" in out else "")
         print(f"{'OK  ' if ok else 'FAIL'} {NAMES[k]}: {vals} "
-              f"{ms * 1e3:.3f} us/launch, bound {bms * 1e6:.3f} ns ({by}) "
-              f"[{label}]", flush=True)
-        out[f"k{k}"] = {"ms": ms, "ok": ok, "bound_ms": bms, "bound_by": by}
+              f"{ms * 1e3:.3f} us/launch ({spread[0] * 1e3:.3f}-"
+              f"{spread[1] * 1e3:.3f}){floor}, bound {bms * 1e6:.3f} ns "
+              f"({by}) [{label}]", flush=True)
+        out[f"k{k}"] = {"ms": ms, "spread": spread, "ok": ok, "bound_ms": bms,
+                        "bound_by": by}
     return out
 
 

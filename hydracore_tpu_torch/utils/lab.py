@@ -52,40 +52,46 @@ def device_label(device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int, device, graph: bool = False, result: bool = False):
+def time_ms(fn, n: int, device, graph: bool = False, result: bool = False,
+            reps: int = 1):
     """Mean time of one fn() over n calls, after one warm-up call. On the
     card: CUDA events around n back-to-back calls, or with `graph` around
     the replay of a CUDA graph that holds n calls, so that the host's time
     to issue a call is not in it (fn must then not synchronize; the graph is
     captured once, so a wrapper's launch counter sees n + 1 calls however
-    often it is replayed). On the CPU: the host clock. With `result`,
-    returns (ms, what the warm-up call returned)."""
+    often it is replayed). On the CPU: the host clock. With reps > 1 the n
+    calls (the one graph) run reps times, each timed, and the list of the
+    reps means comes back. With `result`, returns (ms, what the warm-up
+    call returned)."""
     res = fn()
-    if torch.device(device).type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        ms = (time.perf_counter() - t0) * 1e3 / n
-        return (ms, res) if result else ms
+    on_card = torch.device(device).type == "cuda"
 
     def calls():
         for _ in range(n):
             fn()
 
     run = calls
-    if graph:
+    if on_card and graph:
         torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             calls()
         g.replay()
         run = g.replay
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    run()
-    b.record()
-    torch.cuda.synchronize()
-    ms = a.elapsed_time(b) / n
+    out = []
+    for _ in range(reps):
+        if not on_card:
+            t0 = time.perf_counter()
+            run()
+            out.append((time.perf_counter() - t0) * 1e3 / n)
+            continue
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / n)
+    ms = out[0] if reps == 1 else out
     return (ms, res) if result else ms

@@ -46,14 +46,15 @@ N_LO, N_HI = 2, 6
 
 def profile_pass(scene, n_rays: int = 65536, max_depth: int = 5,
                  seed: int = 777, n_timed: int = 4,
-                 device=None) -> MRaysStat:
+                 device=None, regen: bool = False) -> MRaysStat:
     """Measure stage costs on `device` ("cuda" unless asked).
 
     Differential timing throughout (bench.py's design): each probe runs
     the op N_LO and N_HI times back to back, chained (the origins of call
     k + 1 step along the rays by t * 1e-7, so every call traces another
     wavefront), and reports (T_hi - T_lo) / (N_hi - N_lo): the fixed cost
-    of a probe (set-up, the fence) cancels."""
+    of a probe (set-up, the fence) cancels. `regen` reaches both
+    render_passes calls (the JAX package's process-wide HYDRA_REGEN=1)."""
     from hydracore_tpu_torch.integrators.pt import make_eye_rays, render_passes
     from hydracore_tpu_torch.ops import rng as _rng
     from hydracore_tpu_torch.ops.trace_api import any_hit, closest_hit
@@ -96,7 +97,7 @@ def profile_pass(scene, n_rays: int = 65536, max_depth: int = 5,
 
     def run_pass(n):
         render_passes(scene, 100, seed, n_pass=n, max_depth=max_depth,
-                      device=dev)
+                      device=dev, regen=regen)
         fence()
 
     reps = max(n_timed // 2, 1)  # differential repetitions per rep count
@@ -118,7 +119,7 @@ def profile_pass(scene, n_rays: int = 65536, max_depth: int = 5,
     t_sample = diff_time(run_pass)
 
     _, rays = render_passes(scene, 0, seed, n_pass=1, max_depth=max_depth,
-                            device=dev)
+                            device=dev, regen=regen)
     rays = float(rays)
 
     trav_total = (t_trav + t_shadow) * max_depth * (W * H) / R

@@ -602,15 +602,34 @@ def test_lab_gather_kernel_matches_plain(cuda, onehot):
     assert torch.equal(out_k, out_p)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits (torch.equal is false on NaN)."""
+    return t.contiguous().view(torch.int32)
+
+
 def test_lab_prim_kernels_match_plain(cuda):
+    """The ten probes on the tool's x, a normal draw and k8's adversarial
+    inputs (a NaN, a row of -inf, ties of -0.0 and +0.0): bit for bit."""
     x, xi = t6.inputs(cuda)
     rng = np.random.default_rng(2)
     xr = torch.tensor(rng.normal(size=t6.SHAPE).astype(np.float32), device=cuda)
+    cases = [(x, xi), (xr, xi)] + list(t6.adversarial_inputs(cuda).values())
     before = t6.prim_launches
     for k in range(1, 11):
-        for xx in (x, xr):
-            assert torch.equal(t6.prim(k, xx, xi), t6.prim_plain(k, xx, xi)), k
-    assert t6.prim_launches == before + 20
+        for xx, xxi in cases:
+            got, want = t6.prim(k, xx, xxi), t6.prim_plain(k, xx, xxi)
+            assert torch.equal(_bits(got), _bits(want)), k
+    assert t6.prim_launches == before + 10 * len(cases)
+
+
+def test_lab_launch_floor_runs(cuda):
+    """The empty kernel that T6's times stand beside launches, synchronizes
+    and counts as no probe."""
+    before = t6.prim_launches
+    for _ in range(3):
+        t6.empty(cuda)
+    torch.cuda.synchronize()
+    assert t6.prim_launches == before
 
 
 @pytest.mark.parametrize("name", list(t5.VARIANTS))
@@ -666,6 +685,24 @@ def test_lab_proto_cluster_kernel_matches_plain(cuda, r_blk, mode, use_mxu):
     assert torch.equal(out_k, out_p) and torch.equal(outi_k, outi_p)
     hits = int((outi_k[:, :, 0] >= 0).sum())
     assert (hits > 0) if mode == 0 else (hits == 0)
+
+
+@pytest.mark.parametrize("name", t2.ADVERSARIAL)
+def test_lab_proto_cluster_adversarial_matches_plain(cuda, name):
+    """T2 on t2.adversarial_inputs (ties within and across clusters, an
+    empty list beside a full one, lists of 0 to 15 entries, Cp 384, R_BLK
+    1024 with plane columns), every mode: out and outi bit for bit."""
+    rays, cb, tris, pk, use_mxu = t2.adversarial_inputs()[name]
+    args = [torch.tensor(x).to(cuda) for x in (rays, cb, tris, pk)]
+    for mode in sorted(t2.MODES.values()):
+        out_k, outi_k = t2.proto_cluster(*args, use_mxu=use_mxu, mode=mode)
+        out_p, outi_p = t2.proto_cluster_plain(*args, use_mxu=use_mxu,
+                                               mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out_k), _bits(out_p)), mode
+        assert torch.equal(outi_k, outi_p), mode
+        if mode == 0:
+            assert int((outi_k[:, :, 0] >= 0).sum()) > 10
 
 
 @pytest.mark.parametrize("tool", [t3, t4])

@@ -180,12 +180,14 @@ def test_route_image_is_its_integrator(lib, scene, tmp_path, capsys, route,
 
 @pytest.mark.parametrize("flag,settings,kw", [
     (["-regen", "1"], {}, {"regen": True}),
+    (["-regen", "2"], {}, {"regen": False}),
     (["-layer", "direct"], {"render_layer": "direct"}, {}),
     (["-layer", "indirect"], {"render_layer": "indirect"}, {}),
     (["-double_rt", "1"], {"double_rt": True}, {}),
 ])
 def test_pass_loop_switches(lib, scene, tmp_path, capsys, flag, settings, kw):
-    """-regen is render_passes(regen=); -layer and -double_rt set the
+    """-regen 1 is render_passes(regen=True), any other value leaves it off
+    (the JAX CLI's HYDRA_REGEN == "1"); -layer and -double_rt set the
     scene's settings."""
     import dataclasses
 
@@ -254,6 +256,74 @@ def test_evalgbuffer_and_stat(lib, scene, tmp_path, capsys):
     assert f"[gbuffer] saved {base}_normal.png, {base}_depth.png" in text
     assert "[stat] rays/sec(" in text and "trace%(" in text
     assert "[config] -cl_device_id accepted, no-op" in text
+
+
+def _spy_render_passes(monkeypatch):
+    """Wrap pt.render_passes (the CLI, profile_pass and the viewer import
+    it at call time): each call's regen= and the file of its caller."""
+    calls = []
+    real = pt.render_passes
+
+    def spy(*a, **kw):
+        calls.append((sys._getframe(1).f_code.co_filename,
+                      kw.get("regen", False)))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pt, "render_passes", spy)
+    return calls
+
+
+def test_regen_reaches_profile_pass(lib, tmp_path, monkeypatch, capsys):
+    """-regen 1 -stat 1: both of profile_pass's render_passes calls take
+    regen=True, as the JAX package's process-wide HYDRA_REGEN=1 does."""
+    calls = _spy_render_passes(monkeypatch)
+    _run(lib, tmp_path, "-spp", "1", "-regen", "1", "-stat", "1")
+    assert "[stat] rays/sec(" in capsys.readouterr().out
+    stat = [r for f, r in calls if f.endswith("utils/stats.py")]
+    assert len(stat) >= 2 and all(stat)
+    assert all(r for _, r in calls)
+
+
+def test_regen_reaches_viewer_steps(lib, scene, monkeypatch):
+    """InteractiveSession(regen=True): a path-tracing step calls
+    render_passes(regen=True); the default leaves it off."""
+    from hydracore_tpu_torch.app import viewer
+    from hydracore_tpu_torch.scene.statefile import load_statefile
+
+    calls = _spy_render_passes(monkeypatch)
+    desc = load_statefile(lib)
+    for regen in (True, False):
+        kw = {"regen": True} if regen else {}
+        s = viewer.InteractiveSession(scene, desc.camera, device="cpu", **kw)
+        assert s.step(1) == 1
+        assert calls[-1] == (viewer.__file__, regen)
+
+
+def test_cli_passes_regen_to_the_viewer(lib, monkeypatch):
+    """-nowindow 0 -regen 1 hands regen=True to run_viewer."""
+    import threading
+    import time
+
+    from hydracore_tpu_torch.app import viewer
+
+    seen = {}
+
+    class _Server:
+        def shutdown(self):
+            seen["shutdown"] = True
+
+    def fake_run_viewer(*a, **kw):
+        seen.update(kw)
+        return None, _Server(), threading.Event()
+
+    def interrupt(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(viewer, "run_viewer", fake_run_viewer)
+    monkeypatch.setattr(time, "sleep", interrupt)
+    assert cli.main(["-inputlib", lib, "-nowindow", "0", "-regen", "1"],
+                    device="cpu") == 0
+    assert seen["regen"] is True and seen["shutdown"]
 
 
 def test_resume_takes_the_checkpoint_seed(lib, tmp_path, capsys):

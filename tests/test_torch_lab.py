@@ -13,7 +13,10 @@ Tolerances:
   * T7 gathers: bit-equal. Both sum the rows in iteration order from 0;
     the one-hot bf16 matmul with f32 accumulation yields each bf16-rounded
     row exactly, so onehot is bit-equal to the sum of rounded rows.
-  * T6 probes: equal (integer-valued inputs, sums in index order).
+  * T6 probes: equal (integer-valued inputs, sums in index order); k8 on
+    its adversarial inputs (a NaN, a row of -inf, ties of -0.0 and +0.0)
+    equal bit for bit too: NaN, -inf and the closing + 0.0 leave one
+    answer whatever order the maxima are taken in.
   * T5 sub-visits: the winning lane (the low 7 bits of the output word)
     equal on >= 99.9% of rays, the whole word on >= 99%, and t with the
     lane bits cleared within rtol 1e-4 (tests/test_torch_traverse_cluster.py's
@@ -168,6 +171,25 @@ def test_prim_matches_tool(prim_outputs, k):
     out_p = t6.prim(k, x, xi)
     assert out_p.shape == (1, 128) and out_p.dtype == torch.float32
     assert np.array_equal(_bits(out_p.numpy()), _bits(outs[k - 1]))
+
+
+@pytest.mark.parametrize("name", ["nan", "neg_inf", "zero_tie", "zero_row"])
+def test_prim_k8_adversarial_matches_tool(prim_outputs, name, monkeypatch):
+    """The tool's k8 (run through its probe(), pallas_call in interpret
+    mode) on t6.adversarial_inputs: the plain version's row, bit for bit."""
+    mod, _ = prim_outputs
+    x, xi = t6.adversarial_inputs("cpu")[name]
+    rec = _JitRecorder()
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(_PALLAS_CALL, interpret=True))
+    monkeypatch.setattr(jax, "jit", rec.jit)
+    mod.probe(name, mod.k8, jnp.asarray(x.numpy()))
+    (out_j,) = rec.outs
+    out_p = t6.prim(8, x, xi)
+    assert np.array_equal(_bits(out_p.numpy()), _bits(out_j))
+    want = {"nan": np.isnan, "neg_inf": np.isneginf,
+            "zero_tie": lambda v: _bits(v) == 0}.get(name, np.isfinite)
+    assert want(out_p.numpy()).all()
 
 
 # ------------------------------------------------------------- T5 sub-visits

@@ -155,6 +155,47 @@ def test_t2_plucker_hits_with_plane_columns(t2_tool, t2_inputs, monkeypatch):
     assert _t2_compare(out_j, outi_j, out_p, outi_p) > 20
 
 
+@pytest.fixture(scope="module")
+def t2_adversarial():
+    return t2.adversarial_inputs()
+
+
+@pytest.mark.parametrize("name", t2.ADVERSARIAL)
+def test_t2_adversarial_matches_tool(t2_tool, t2_adversarial, name,
+                                     monkeypatch):
+    """t2.adversarial_inputs through the tool and the plain version: the
+    tolerances of the module docstring, and the tied lanes exactly (a ray
+    whose tool slot is a TIE_LANES slot has the same slot in the port: the
+    highest tied lane of the first cluster)."""
+    rays, cb, tris, pk, use_mxu = t2_adversarial[name]
+    monkeypatch.setattr(t2_tool, "R_BLK", rays.shape[1])
+    modes = (0, 1) if name == "no_entry" else (0,)
+    for mode in modes:
+        out_j, outi_j = (np.asarray(x) for x in t2_tool.run(
+            jnp.asarray(rays), jnp.asarray(cb), jnp.asarray(tris),
+            jnp.asarray(pk), use_mxu=use_mxu, mode=mode))
+        out_p, outi_p = t2.proto_cluster(
+            *(torch.tensor(x) for x in (rays, cb, tris, pk)),
+            use_mxu=use_mxu, mode=mode)
+        hits = _t2_compare(out_j, outi_j, out_p, outi_p)
+        n_act = out_p[:, 0, 1].numpy()
+        if mode == 1:
+            assert hits == 0 and not n_act.any()
+            continue
+        assert hits > 10
+        sj, sp = outi_j[..., 0], outi_p.numpy()[..., 0]
+        tied = [c * t2.K + lane for c, lanes in t2.TIE_LANES for lane in lanes]
+        on_tie = np.isin(sj, tied)
+        assert np.array_equal(sp[on_tie], sj[on_tie])
+        if name.startswith("ties"):
+            assert on_tie.sum() > 10
+            assert set(sj[on_tie].tolist()) == {2 * t2.K + 127}
+        if name == "no_entry":
+            assert n_act.tolist() == [16.0, 0.0]
+        if name.startswith("lists"):
+            assert {0, 1, 2}.issubset(set(n_act.tolist())) and n_act.max() > 8
+
+
 # ------------------------------------------------------ T3 and T4 walks
 
 def _shim_bitcast(x, ty):
