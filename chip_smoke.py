@@ -3978,12 +3978,30 @@ def lab_cluster_cost(card, tc, dev="cuda") -> list:
                 else "equal to the plain version")
         log(f"phase 12 T1 {v}: {what}; plain {recs[v][1]:.4f} ms, bound "
             f"{recs[v][2][0]:.5f} ms ({recs[v][2][1]}) [{card}]")
+    for name, (a_rays, a_oct, a_cbl) in t1.adversarial_inputs(dev).items():
+        for v in t1.ALL[:-1]:
+            kind, n = t1.parse(v)
+            out_k, outi_k = t1.cluster_cost(kind, a_rays, a_oct, a_cbl, n)
+            out_p, outi_p = t1.cluster_cost_plain(kind, a_rays, a_oct, a_cbl, n)
+            torch.cuda.synchronize()
+            if not (torch.equal(bits(out_k), bits(out_p))
+                    and torch.equal(outi_k, outi_p)):
+                raise AssertionError(f"phase 12 T1 {v} on adversarial input "
+                                     f"{name}: kernel differs from plain")
+        log(f"phase 12 T1 adversarial {name}: every lab variant equal to the "
+            f"plain version bit for bit")
     t1.reset_launch_counts()
     tc.reset_launch_counts()
     res = t1.main("all", device=dev)
     counts = {"floor": t1.floor_launches, "fm": t1.floor_launches,
               "stagea": t1.stagea_launches, "compact": t1.compact_launches,
               "full": tc.closest_launches}
+    ratio = res["stagea2"]["ms"] / res["stagea1"]["ms"]
+    log(f"phase 12 T1 stagea2 / stagea1: {ratio:.3f} (every repeat a real "
+        f"scan: 1.8-2.2) [{card}]")
+    if not 1.8 <= ratio <= 2.2:
+        raise AssertionError(f"phase 12 T1: stagea2 / stagea1 = {ratio:.3f}")
+    t1_issue(card, t1, res, rays, cbl)
     lines = {"floor": 104, "fm": 228, "stagea": 111, "compact": 168,
              "full": 219}
     whose = {"floor": "the floor kernel: floor, fmN", "fm": "the floor kernel: "
@@ -4109,6 +4127,46 @@ def issued(code) -> tuple[list, int]:
     return kept, len(code) - len(kept)
 
 
+def issue_rate() -> tuple[float, int, float]:
+    """The card's issue rate, one warp instruction a clock on each of an
+    SM's 4 schedulers at its largest SM clock: (warp instructions a second,
+    SMs, MHz)."""
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 4 * clk * 1e6, sms, clk
+
+
+def t1_issue(card, t1, res, rays, cbl) -> None:
+    """What T1's SASS permits: in each scan kernel's code the innermost loop
+    with FMNMX is the scan's (11 a ray and position: the slab test's 10 and
+    max(tn, 0)); its instructions a ray and position, times the tests of
+    this run's live blocks (every block of the lab's rays) and scans, over
+    the card's issue rate (issue_rate), give the least time at which the
+    code could run, beside the measured time and the bound."""
+    code = kernel_code("phase 12 T1", "lab_cluster_cost.cu")
+    rate, sms, clk = issue_rate()
+    n_pos = cbl.shape[2] // 128 * 128
+    live = int((rays[..., 7] > 0).any(dim=1).sum())
+    tests = live * rays.shape[1] * n_pos
+    for fn, own in code.items():
+        m = re.search(r"scan_kernelILi(\d)E", fn)
+        if not m:
+            continue
+        loop = inner_loop(own, lambda op, _: op == "FMNMX")
+        per_test = len(loop) / max(sum(op == "FMNMX" for _, op, _ in loop) / 11, 1)
+        for v in (("stagea1", "stagea2") if m.group(1) == "1"
+                  else ("compact1", "compact2")):
+            kind, n = t1.parse(v)
+            permit = (n if kind == "stagea" else 1) * tests / 32 * per_test / rate * 1e3
+            log(f"phase 12 T1 {v}: {per_test:.2f} instructions a ray and position "
+                f"(the scan's loop): {permit:.5f} ms at the full issue rate "
+                f"({sms} SMs x 4 x {clk:.0f} MHz), measured {res[v]['ms']:.4f} "
+                f"ms, bound {res[v]['bound_ms']:.5f} ms [{card}]")
+
+
 def t2_issue(card, t2, res) -> None:
     """What T2's SASS permits: in each instantiation's code (kernel_code)
     the innermost loop with FMNMX is stage A's (10 a ray and position), the
@@ -4127,12 +4185,7 @@ def t2_issue(card, t2, res) -> None:
         if m:
             key = (int(m.group(1)), m.group(2) == "1", int(m.group(3)))
             by_inst[key] = own
-    clk = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rate = sms * 4 * clk * 1e6  # warp instructions a second
+    rate, sms, clk = issue_rate()
     for v, a, mxu, rb in t2.JOBS:
         if v not in ("full", "novisit"):
             continue
@@ -4158,6 +4211,102 @@ def t2_issue(card, t2, res) -> None:
             f"{permit:.5f} ms at the full issue rate ({sms} SMs x 4 x "
             f"{clk:.0f} MHz), measured {res[name]['ms']:.4f} ms, bound "
             f"{res[name]['bound_ms']:.5f} ms [{card}]")
+
+
+def t4_checks(card, t4, scene, rays, dev) -> None:
+    """T4 beyond its tool's main(): the kernel equal to the plain version bit
+    for bit on t4.adversarial_inputs; on each ray set the profile's counts
+    (packet_traverse(profile=)) and the packet-work bound they give (the
+    entries x P rays x 8 x OPS_BOX a node entry, 8 x OPS_TRI a leaf entry,
+    at the f32 peak), each packet's and each SM's cycles; and the time the
+    kernel's SASS permits at the issue rate (t4_issue)."""
+    for name, (r7, nodes, tris) in t4.adversarial_inputs(dev).items():
+        t0 = time.time()
+        k = t4.unpack(t4.packet_traverse(r7, nodes, tris))
+        p = t4.unpack(t4.packet_traverse_plain(r7, nodes, tris))
+        torch.cuda.synchronize()
+        same = [torch.equal(bits(a) if a.is_floating_point() else a,
+                            bits(b) if b.is_floating_point() else b)
+                for a, b in zip(k, p)]
+        if not all(same):
+            raise AssertionError(f"phase 13 T4 adversarial {name}: kernel "
+                                 f"differs from plain (t, slot, u, v, visits "
+                                 f"equal: {same})")
+        log(f"phase 13 T4 adversarial {name}: kernel equal to the plain "
+            f"version bit for bit; visits per packet {k[4].tolist()}, hits "
+            f"{int((k[1] >= 0).sum())} ({time.time() - t0:.1f} s)")
+    nodes, tris = t4.pack_scene(scene)
+    counts = {}
+    for name, (ro, rd) in rays.items():
+        packed = t4.pack_rays(ro, rd).to(dev)
+        prof = torch.zeros((packed.shape[1] * t4.LANES // t4.P,
+                            len(t4.PROFILE)), dtype=torch.int64, device=dev)
+        t4.packet_traverse(packed, nodes, tris, profile=prof)
+        pr = prof.cpu()
+        counts[name] = pr[:, 3:7].sum(dim=0).tolist()
+        n_node, n_leaf = counts[name][:2]
+        work_ms, by = lab.bound_ms(0, t4.P * 8 * (n_node * OPS_BOX
+                                                  + n_leaf * OPS_TRI))
+        cyc = (pr[:, 1] - pr[:, 0]).double()
+        # each SM's span, from its first packet's start to its last's end
+        # (clock64 counts on each SM's own clock)
+        span = [float(pr[pr[:, 2] == sm, 1].max() - pr[pr[:, 2] == sm, 0].min())
+                for sm in pr[:, 2].unique().tolist()]
+        log(f"phase 13 T4 {name}: {n_node} node and {n_leaf} leaf entries "
+            f"over {pr.shape[0]} packets; packet-work bound {work_ms:.5f} ms "
+            f"({by}); a packet's walk {float(cyc.mean()):.0f} cycles on the "
+            f"mean, {float(cyc.max()):.0f} the most; {len(span)} SMs busy, "
+            f"an SM's span {np.mean(span):.0f} cycles on the mean, "
+            f"{max(span):.0f} the most; slab tests {counts[name][2]}, "
+            f"triangles past the early exit {counts[name][3]} (warps) [{card}]")
+    t4_issue(card, t4, counts)
+
+
+def t4_issue(card, t4, counts) -> None:
+    """What T4's SASS permits. Its profiling build marks the start of each
+    part of the walk (csrc/lab_packet.cu, HYDRA_MARK: PMTRIG in the SASS);
+    a part's size is the median, over its copies in the unrolled code, of
+    the instructions from its marker to the next marker (without the ranges
+    a vote's branch skips: the division's slow path, issued). The profile
+    counts how often a warp runs each part: node and leaf entries, slab
+    tests, triangles up to and past the early exit. Their product, over the
+    card's issue rate, is the least time at which the code could run this
+    run's walk. The sizes are the profiling build's (its counters and
+    markers add a few instructions); the line gives its length and the
+    timed build's, whose node and leaf bodies kernel_code logs. Raises when
+    a marker is missing."""
+    code = kernel_code("phase 13 T4", "lab_packet.cu")
+    own = next(own for fn, own in code.items() if "t4_walk_kernelILb1EE" in fn)
+    timed = next(own for fn, own in code.items() if "t4_walk_kernelILb0EE" in fn)
+    at = [(i, int(re.search(r"(0x[0-9a-f]+|\d+)", rest).group(1), 0))
+          for i, (_, op, rest) in enumerate(own) if op == "PMTRIG"]
+    if any(v % 2 for _, v in at):  # the operand is the event, else 1 << it
+        ids = [v for _, v in at]
+    else:
+        ids = [v.bit_length() - 1 for _, v in at]
+    sizes = {k: [] for k in range(1, 7)}
+    for n, ((i, _), k) in enumerate(zip(at, ids)):
+        j = at[n + 1][0] if n + 1 < len(at) else len(own)
+        if k in sizes:
+            sizes[k].append(len(issued(own[i + 1:j])[0]))
+    if any(not v for v in sizes.values()):
+        raise AssertionError(
+            f"phase 13 T4: the profiling build's markers were not all found "
+            f"({ {k: len(v) for k, v in sizes.items()} })")
+    size = {k: float(np.median(v)) for k, v in sizes.items()}
+    rate, sms, clk = issue_rate()
+    for name, (n_node, n_leaf, n_slab, n_rest) in counts.items():
+        runs = {1: n_node * t4.WARPS, 2: n_slab, 3: n_node * t4.WARPS,
+                4: n_leaf * t4.WARPS, 5: n_leaf * t4.WARPS * 8, 6: n_rest}
+        instr = sum(runs[k] * size[k] for k in runs)
+        log(f"phase 13 T4 {name}: the profiling build issues (a warp) "
+            f"{size[1]:.0f} a node entry, {size[2]:.0f} a slab test, "
+            f"{size[3]:.0f} a vote and push, {size[4]:.0f} a leaf entry, "
+            f"{size[5]:.0f} a triangle to its early exit, {size[6]:.0f} past "
+            f"it (its code {len(own)} instructions, the timed build's "
+            f"{len(timed)}): {instr / 1e6:.1f}M warp instructions, "
+            f"{instr / rate * 1e3:.5f} ms at the full issue rate ({sms} SMs x "
+            f"4 x {clk:.0f} MHz) [{card}]")
 
 
 # the rays of each set on which T3 and T4 are held against their plain
@@ -4218,6 +4367,7 @@ def lab_packet_walks(card, tp, dev="cuda") -> list:
                 f"MAX_VISITS {tool.MAX_VISITS}; plain {plain:.4f} ms on "
                 f"those rays [{card}]")
             recs[tool.TOOL, name] = plain
+    t4_checks(card, t4, scene, rays, dev)
     bounds = {}
     for name, (ro, rd) in rays.items():
         packets, _ = tp._to_packets(torch.tensor(ro).to(dev),

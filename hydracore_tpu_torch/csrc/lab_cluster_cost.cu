@@ -29,16 +29,36 @@
 // (6 mul-sub pairs, 10 min/max, 2 compares), so N * 24 * 256 per block and
 // position against 6 floats of box read by the whole CTA.
 //
-// Design: as B1 (csrc/traverse_cluster.cu), one CTA of 256 threads per ray
-// block, one thread per ray, the octant from oct, and at every cluster
-// position the two __syncthreads_or that B1's scan pays there: the OR of
-// liveness, which ends the scan, and the OR of the box test. The
-// CTA-uniform result goes into a register word that thread 0 stores to
-// shared memory every 16 positions (and where the scan ends; the words are
-// zeroed before each scan). The compaction is
-// warp 0's: a popcount and a warp prefix sum per 32 words place each
-// entered position in a shared list (volatile, so that every sweep writes
-// it).
+// Design. floor / fmN: one CTA of 256 threads per ray block (or mult of
+// them), a float4 copy. stageaN / compactN (scan_kernel, redesigned in the
+// way of csrc/lab_cluster.cu's stage A): one CTA of 256 threads per ray
+// block with the cluster positions on the lanes, not one CTA barrier pair
+// a position.
+//  * The CTA copies the octant's 6 box rows (n_pos of each, row stride Cp)
+//    into shared memory with cp.async, while each thread writes its ray's
+//    [ix iy iz t_lim], [ox*ix oy*iy oz*iz 0] to its warp's table. One
+//    __syncthreads_or of liveness then ends the copy and decides the block:
+//    `live` does not change within a scan, so B1's per-position vote could
+//    only end it at position 0, and a block without a live ray sets no bit.
+//  * Lane l of a warp takes positions 4 l .. 4 l + 3 of each 128-position
+//    tile (6 float4 of box from shared memory) and tests them against the
+//    warp's 32 rays, read back as two float4 broadcasts a ray, OR-ing the
+//    hits in a 4-bit register. Two xor shuffles merge four lanes' nibbles
+//    into one 16-bit occupancy word; one shared atomicOr per word and warp
+//    then sets the block's word. A scan pays two barriers, not 768.
+//  * min and max propagate NaN as torch.minimum / torch.maximum do, by the
+//    PTX min.NaN.f32 / max.NaN.f32 (sm_80 and later): one instruction each,
+//    where a compare-and-select chain took several. The sign of a zero
+//    result may differ from torch's, which no compare of the test can see.
+//  * Every repeat is real work: stageaN zeroes the words, scans and reads
+//    word 0 N times, barriers between (the atomics are side effects the
+//    compiler must keep); compactN's N sweeps write the volatile list.
+// The compaction is warp 0's: a popcount and a warp prefix sum per 32 words
+// place each entered position in a shared list (volatile, so that every
+// sweep writes it).
+//
+// Numerics: no fast math and no FMA contraction (utils/build.py): each
+// t = box * ix - ox * ix is a product, then a subtraction, as in the tool.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,12 +67,20 @@ namespace {
 
 constexpr int kRBlk = 256;
 constexpr int kFloor = 0, kStageA = 1, kCompact = 2;
+// CTAs an SM that scan_kernel's registers are capped for (64 a thread)
+constexpr int kScanCtas = 4;
+constexpr size_t kMaxSmem = 227 * 1024;
 
+// min and max that return NaN when either operand is NaN
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 __device__ __forceinline__ float inv_unsigned_eps(float d) {
@@ -60,82 +88,121 @@ __device__ __forceinline__ float inv_unsigned_eps(float d) {
   return 1.0f / (fabsf(d) < eps ? eps : d);
 }
 
-template <int kVariant>
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
 __global__ void __launch_bounds__(kRBlk)
-cost_kernel(const float* __restrict__ rays, const int* __restrict__ oct,
-            const float* __restrict__ bounds_oct, float* __restrict__ out,
-            int* __restrict__ outi, int Cp, int n_rep, int mult) {
-  extern __shared__ int smem[];
+floor_kernel(const float* __restrict__ rays, float* __restrict__ out,
+             int* __restrict__ outi, int mult) {
   const int tid = threadIdx.x;
-
-  if (kVariant == kFloor) {
-    for (int b = 0; b < mult; ++b) {
-      const size_t ray = ((size_t)blockIdx.x * mult + b) * kRBlk + tid;
-      const float4* src = reinterpret_cast<const float4*>(rays + ray * 8);
-      float4* dst = reinterpret_cast<float4*>(out + ray * 8);
-      int4* dsti = reinterpret_cast<int4*>(outi + ray * 8);
-      dst[0] = __ldg(src);
-      dst[1] = __ldg(src + 1);
-      dsti[0] = make_int4(0, 0, 0, 0);
-      dsti[1] = make_int4(0, 0, 0, 0);
-    }
-    return;
+  for (int b = 0; b < mult; ++b) {
+    const size_t ray = ((size_t)blockIdx.x * mult + b) * kRBlk + tid;
+    const float4* src = reinterpret_cast<const float4*>(rays + ray * 8);
+    float4* dst = reinterpret_cast<float4*>(out + ray * 8);
+    int4* dsti = reinterpret_cast<int4*>(outi + ray * 8);
+    dst[0] = __ldg(src);
+    dst[1] = __ldg(src + 1);
+    dsti[0] = make_int4(0, 0, 0, 0);
+    dsti[1] = make_int4(0, 0, 0, 0);
   }
+}
 
+// bytes of scan_kernel's dynamic shared memory: the ray tables, the box
+// rows, the words, the list and its length
+size_t scan_smem(int n_pos) {
+  return (size_t)(8 * kRBlk + 6 * n_pos + n_pos / 16 + n_pos + 8 + 1) * 4;
+}
+
+template <int kVariant>
+__global__ void __launch_bounds__(kRBlk, kScanCtas)
+scan_kernel(const float* __restrict__ rays, const int* __restrict__ oct,
+            const float* __restrict__ bounds_oct, float* __restrict__ out,
+            int* __restrict__ outi, int Cp, int n_rep) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned for the float4 reads
   const int n_pos = Cp / 128 * 128;
   const int n_words = n_pos / 16;
-  int* words = smem;                                // n_words
-  volatile int* lst = smem + n_words;               // n_pos + 8
-  int* total_s = smem + n_words + n_pos + 8;        // 1
+  float* box = reinterpret_cast<float*>(smem4 + 2 * kRBlk);  // 6 x n_pos
+  int* words = reinterpret_cast<int*>(box + 6 * n_pos);      // n_words
+  volatile int* lst = words + n_words;                       // n_pos + 8
+  int* total_s = words + n_words + n_pos + 8;                // 1
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+
+  const float* bo = bounds_oct + (size_t)__ldg(oct + blockIdx.x) * 8 * Cp;
+  for (int r = 0; r < 6; ++r)
+    for (int q = tid; q < n_pos; q += kRBlk)
+      cp_async4(box + r * n_pos + q, bo + (size_t)r * Cp + q);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   const size_t ray = (size_t)blockIdx.x * kRBlk + tid;
-  const float* r = rays + ray * 8;
-  const float ox = r[0], oy = r[1], oz = r[2];
-  const float ix = inv_unsigned_eps(r[3]);
-  const float iy = inv_unsigned_eps(r[4]);
-  const float iz = inv_unsigned_eps(r[5]);
-  const float t_act = r[6];
-  const bool live = r[7] > 0.0f;
-  const float oxix = ox * ix, oyiy = oy * iy, oziz = oz * iz;
-  const float* bo = bounds_oct + (size_t)__ldg(oct + blockIdx.x) * 8 * Cp;
+  const float4 ra = __ldg(reinterpret_cast<const float4*>(rays + ray * 8));
+  const float4 rb = __ldg(reinterpret_cast<const float4*>(rays + ray * 8) + 1);
+  const float ix = inv_unsigned_eps(ra.w);
+  const float iy = inv_unsigned_eps(rb.x);
+  const float iz = inv_unsigned_eps(rb.y);
+  smem4[2 * tid] = make_float4(ix, iy, iz, rb.z);
+  smem4[2 * tid + 1] = make_float4(ra.x * ix, ra.y * iy, ra.z * iz, 0.0f);
+  for (int w = tid; w < n_words; w += kRBlk) words[w] = 0;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // the rows, the tables and the zeroed words are in; B1's liveness vote
+  const bool live = __syncthreads_or(rb.w > 0.0f) != 0;
 
+  const float4* rt = smem4 + 2 * (tid & ~31);  // the warp's 32 rays
+  const float4* b4 = reinterpret_cast<const float4*>(box);
+  const int row4 = n_pos / 4;
   int acc = 0;
   const int scans = kVariant == kStageA ? n_rep : 1;
   for (int rep = 0; rep < scans; ++rep) {
-    for (int w = tid; w < n_words; w += kRBlk) words[w] = 0;
-    unsigned word = 0u;
-    for (int pos = 0; pos < n_pos; ++pos) {
-      // B1's first barrier (traverse_cluster.cu): the scan ends with the
-      // block's last live ray
-      if (!__syncthreads_or(live)) {
-        if (tid == 0) words[pos >> 4] = (int)word;
-        break;
-      }
-      const float tx0 = __ldg(bo + 0 * Cp + pos) * ix - oxix;
-      const float ty0 = __ldg(bo + 1 * Cp + pos) * iy - oyiy;
-      const float tz0 = __ldg(bo + 2 * Cp + pos) * iz - oziz;
-      const float tx1 = __ldg(bo + 3 * Cp + pos) * ix - oxix;
-      const float ty1 = __ldg(bo + 4 * Cp + pos) * iy - oyiy;
-      const float tz1 = __ldg(bo + 5 * Cp + pos) * iz - oziz;
-      const float tn = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
-                               nan_min(tz0, tz1));
-      const float tf = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
-                               nan_max(tz0, tz1));
-      const bool hit = (tf >= nan_max(tn, 0.0f)) && (tn < t_act);
-      word |= (unsigned)(__syncthreads_or(hit) != 0) << (pos & 15);
-      if ((pos & 15) == 15) {
-        if (tid == 0) words[pos >> 4] = (int)word;
-        word = 0u;
-      }
+    if (rep > 0) {
+      for (int w = tid; w < n_words; w += kRBlk) words[w] = 0;
+      __syncthreads();  // zeroed before any warp's atomicOr
     }
-    __syncthreads();
+    for (int tile = 0; live && tile < n_pos / 128; ++tile) {
+      const int g = tile * 32 + lane;  // positions 4 g .. 4 g + 3
+      const float4 x0 = b4[0 * row4 + g], y0 = b4[1 * row4 + g],
+                   z0 = b4[2 * row4 + g], x1 = b4[3 * row4 + g],
+                   y1 = b4[4 * row4 + g], z1 = b4[5 * row4 + g];
+      const float bx0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float by0[4] = {y0.x, y0.y, y0.z, y0.w};
+      const float bz0[4] = {z0.x, z0.y, z0.z, z0.w};
+      const float bx1[4] = {x1.x, x1.y, x1.z, x1.w};
+      const float by1[4] = {y1.x, y1.y, y1.z, y1.w};
+      const float bz1[4] = {z1.x, z1.y, z1.z, z1.w};
+      unsigned nib = 0u;
+#pragma unroll 4
+      for (int r = 0; r < 32; ++r) {
+        const float4 iv = rt[2 * r], oi = rt[2 * r + 1];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float tx0 = bx0[q] * iv.x - oi.x;
+          const float ty0 = by0[q] * iv.y - oi.y;
+          const float tz0 = bz0[q] * iv.z - oi.z;
+          const float tx1 = bx1[q] * iv.x - oi.x;
+          const float ty1 = by1[q] * iv.y - oi.y;
+          const float tz1 = bz1[q] * iv.z - oi.z;
+          const float tn = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
+                                   nan_min(tz0, tz1));
+          const float tf = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
+                                   nan_max(tz0, tz1));
+          nib |= (tf >= nan_max(tn, 0.0f) && tn < iv.w) ? 1u << q : 0u;
+        }
+      }
+      // four lanes' nibbles make word g / 4: lane g's at bits 4 (g & 3)
+      unsigned w = nib << (4 * (lane & 3));
+      w |= __shfl_xor_sync(0xffffffffu, w, 1);
+      w |= __shfl_xor_sync(0xffffffffu, w, 2);
+      if ((lane & 3) == 0 && w != 0u) atomicOr(words + (g >> 2), (int)w);
+    }
+    __syncthreads();  // every warp's words are in
     acc += words[0];
-    __syncthreads();  // words[0] is read before the next scan rewrites it
+    __syncthreads();  // word 0 is read before the next scan rewrites it
   }
 
   if (kVariant == kCompact) {
     if (tid < 32) {
-      const int lane = tid;
       int total = 0;
       for (int rep = 0; rep < n_rep; ++rep) {
         int n = 0;
@@ -173,6 +240,24 @@ cost_kernel(const float* __restrict__ rays, const int* __restrict__ oct,
   dsti[1] = make_int4(0, 0, 0, 0);
 }
 
+// the box rows take more than the 48 KiB a launch gets by default once
+// Cp passes ~1,500: up to the 227 KiB of an SM, by the kernel's attribute
+template <int kVariant>
+cudaError_t launch_scan(const float* rays, const int* oct,
+                        const float* bounds_oct, float* out, int* outi, int G,
+                        int Cp, int n_rep, cudaStream_t s) {
+  const size_t smem = scan_smem(Cp / 128 * 128);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel<kVariant>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  scan_kernel<kVariant><<<G, kRBlk, smem, s>>>(rays, oct, bounds_oct, out,
+                                               outi, Cp, n_rep);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -189,22 +274,19 @@ int hydra_lab_cluster_cost(const float* rays, const int* oct,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kFloor) {
     if (mult <= 0 || G % mult != 0) return (int)cudaErrorInvalidValue;
-    cost_kernel<kFloor><<<G / mult, kRBlk, 0, s>>>(rays, oct, bounds_oct, out,
-                                                   outi, Cp, n_rep, mult);
+    floor_kernel<<<G / mult, kRBlk, 0, s>>>(rays, out, outi, mult);
     return (int)cudaGetLastError();
   }
   const int n_pos = Cp / 128 * 128;
-  const size_t smem = (size_t)(n_pos / 16 + n_pos + 8 + 1) * sizeof(int);
-  if (n_pos <= 0 || n_rep < 0 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  if (variant == kStageA)
-    cost_kernel<kStageA><<<G, kRBlk, smem, s>>>(rays, oct, bounds_oct, out,
-                                                outi, Cp, n_rep, 1);
-  else if (variant == kCompact)
-    cost_kernel<kCompact><<<G, kRBlk, smem, s>>>(rays, oct, bounds_oct, out,
-                                                 outi, Cp, n_rep, 1);
-  else
+  if (n_pos <= 0 || n_rep < 0 || scan_smem(n_pos) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (variant == kStageA)
+    return (int)launch_scan<kStageA>(rays, oct, bounds_oct, out, outi, G, Cp,
+                                     n_rep, s);
+  if (variant == kCompact)
+    return (int)launch_scan<kCompact>(rays, oct, bounds_oct, out, outi, G, Cp,
+                                      n_rep, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* hydra_cuda_error_string(int err) {

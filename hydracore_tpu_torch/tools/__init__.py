@@ -20,6 +20,6 @@ tool's lines with the card's name and power limit beside every time:
   proto_packet         T3  a 128-ray packet walk of the 8-wide BVH with a
                            shared stack (csrc/lab_packet.cu)
   proto_packet2        T4  the 1024-ray packet walk, the design of B4 in the
-                           JAX package (csrc/lab_packet.cu, a second
-                           instance of T3's template)
+                           JAX package (csrc/lab_packet.cu, its own kernel
+                           beside T3's)
 """

@@ -1,22 +1,24 @@
 """Kernel lab T1: where a cluster kernel's time goes, on the card.
 
 Port of tools/exp_kernel_cost.py. Variants of a cut-down cluster kernel
-(csrc/lab_cluster_cost.cu, B1's shape: one CTA per block of 256 rays, a
-__syncthreads_or per cluster position) run on the eye rays of a 512 x 512
-frame in Morton order, G = 1024 blocks:
+(csrc/lab_cluster_cost.cu: one CTA per block of 256 rays; the scans put the
+cluster positions on the lanes, see its header) run on the eye rays of a
+512 x 512 frame in Morton order, G = 1024 blocks:
 
   floor      copy the rays to out, zeros to outi: I/O only
   fmN        floor with N ray blocks per CTA
-  stageaN    N box scans over the octant's cluster positions, with B1's two
-             CTA-wide barriers at each (liveness, box test), occupancy
-             words in shared memory; out = N * word 0
+  stageaN    N box scans over the octant's cluster positions, ending at
+             once in a block without a live ray as B1's, occupancy words in
+             shared memory; out = N * word 0
   compactN   one scan, then N sweeps that list the entered positions;
              out = N * their count
   full       kernel B1 itself, ops/traverse_cluster.cluster_traverse
 
 cluster_cost() launches the lab kernel on a CUDA tensor and runs the plain
 versions on a CPU tensor; it counts launches in floor_launches (floor and
-fmN), stagea_launches and compact_launches. The scene is the port's
+fmN), stagea_launches and compact_launches. adversarial_inputs() holds the
+cases the tool's rays do not reach (NaN origins, |d| < 1e-12, boxes at
++-1e30, inverted boxes, blocks with no or one live ray, Cp 400). The scene is the port's
 bench_scene at 512 x 512 (a flat pool, Cp 384), standing in for the
 reference's test_224 that the JAX tool loaded.
 
@@ -38,6 +40,7 @@ from __future__ import annotations
 import re
 import sys
 
+import numpy as np
 import torch
 
 from hydracore_tpu_torch.integrators import pt
@@ -180,6 +183,82 @@ def lab_rays(scene, w: int = W):
     oct_ = ((d0[:, 0] > 0).to(torch.int32) + 2 * (d0[:, 1] > 0).to(torch.int32)
             + 4 * (d0[:, 2] > 0).to(torch.int32))
     return rays, oct_
+
+
+# the cases adversarial_inputs() holds, in order
+ADVERSARIAL = ("mixed", "cp400")
+
+
+def _adv_boxes(rng, Cp: int) -> np.ndarray:
+    """(8, 8, Cp) f32: each octant's boxes, random in [-2, 2]^3 (rows 6, 7
+    zero)."""
+    lo = rng.uniform(-2.0, 2.0, (8, 3, Cp))
+    b = np.zeros((8, 8, Cp), np.float32)
+    b[:, 0:3] = lo
+    b[:, 3:6] = lo + rng.uniform(0.05, 1.0, (8, 3, Cp))
+    return b
+
+
+def _adv_rays(rng, n: int) -> np.ndarray:
+    """(n, 8) f32 rays [o d t_lim active]: origins in [-3, 3]^3, normal
+    directions, t_lim 1e30, all active."""
+    r = np.zeros((n, 8), np.float32)
+    r[:, 0:3] = rng.uniform(-3.0, 3.0, (n, 3))
+    r[:, 3:6] = rng.normal(size=(n, 3))
+    r[:, 6] = 1e30
+    r[:, 7] = 1.0
+    return r
+
+
+def adversarial_inputs(device="cpu") -> dict:
+    """name -> (rays (G, 256, 8), oct_ (G,) i32, cbl_oct (8, 8, Cp)) f32 on
+    `device`, the cases the tool's rays do not reach:
+      mixed  Cp 384: each octant's positions 1-4 (word 0, what stageaN
+             returns) and every 37th hold a box of +-1e30, an inverted box
+             (bmin > bmax), a box at 1e30 and a half-space box; 8 blocks:
+             0 no live ray, 1 one live ray, 2 |d| < 1e-12 of both signs and
+             d = -0.0 (the unsigned eps), 3 one NaN origin component a ray,
+             4 origins at +-1e30 (t = inf - inf = NaN for tiny d), 5 t_lim
+             0, -1, NaN and 1e30, 6-7 plain random rays;
+      cp400  Cp 400: 384 positions scanned, positions 384-399 boxes that
+             every ray enters (an unscanned tail), 4 blocks of random rays."""
+    rng = np.random.default_rng(31)
+    big = np.float32(1e30)
+    b = _adv_boxes(rng, 384)
+    for at in list(range(1, 5)) + list(range(37, 384, 37)):
+        kind = at % 4
+        if kind == 1:    # everything
+            b[:, 0:3, at], b[:, 3:6, at] = -big, big
+        elif kind == 2:  # inverted
+            b[:, 0:3, at], b[:, 3:6, at] = b[:, 3:6, at].copy(), b[:, 0:3, at].copy()
+        elif kind == 3:  # far away at 1e30
+            b[:, 0:3, at], b[:, 3:6, at] = big, 2 * big
+        else:            # a half space x >= -1
+            b[:, 0:3, at] = (-1.0, -big, -big)
+            b[:, 3:6, at] = big
+    rays = _adv_rays(rng, 8 * R_BLK).reshape(8, R_BLK, 8)
+    rays[0, :, 7] = 0.0
+    rays[1, :, 7] = 0.0
+    rays[1, 77, 7] = 1.0
+    tiny = np.array([1e-13, -1e-13, 5e-13, -5e-13, -0.0, 0.0, 1e-12, -1e-12],
+                    np.float32)
+    k = np.arange(R_BLK)
+    for axis in range(3):
+        rays[2, :, 3 + axis] = np.where((k >> axis) % 2 == 0, tiny[(k + axis) % 8],
+                                        rays[2, :, 3 + axis])
+    rays[3, k, k % 3] = np.nan
+    rays[4, :, 0:3] = np.where(rng.uniform(size=(R_BLK, 3)) < 0.5, -big, big)
+    rays[4, :, 3:6] = np.where(k[:, None] % 2 == 0, tiny[k % 8][:, None],
+                               rays[4, :, 3:6])
+    rays[5, :, 6] = np.array([0.0, -1.0, np.nan, 1e30], np.float32)[k % 4]
+    oct_ = np.array([0, 1, 2, 3, 4, 5, 6, 7], np.int32)
+    b4 = _adv_boxes(rng, 400)
+    b4[:, 0:3, 384:], b4[:, 3:6, 384:] = -big, big
+    rays4 = _adv_rays(rng, 4 * R_BLK).reshape(4, R_BLK, 8)
+    oct4 = np.array([7, 0, 3, 4], np.int32)
+    cases = {"mixed": (rays, oct_, b), "cp400": (rays4, oct4, b4)}
+    return {k: tuple(torch.tensor(x).to(device) for x in cases[k])
+            for k in ADVERSARIAL}
 
 
 def variant_bound_ms(kind: str, n: int, rays, cbl_oct) -> tuple[float, str]:

@@ -4,9 +4,12 @@ Port of tools/proto_packet2.py, the design that became the JAX package's
 packet kernel (B4): a packet of PKT = 1024 rays (8 x 128 on the TPU) walks
 the 8-wide BVH with one shared stack (STACK_D 256, the stack pointer
 clamped at STACK_D - 1 after each push, MAX_VISITS 16384), node and
-triangle fields read as scalars and broadcast over the packet. It is the
-second instance of proto_packet.py's (T3's) kernel template in
-csrc/lab_packet.cu; packet_walk_plain there is the plain version of both.
+triangle fields read as scalars and broadcast over the packet. Its kernel,
+t4_walk_kernel in csrc/lab_packet.cu beside T3's, holds the design (512
+threads x 2 rays a packet, one barrier a node entry, a stack per warp,
+float4 rows, warp-uniform early exits); packet_walk_plain in proto_packet.py
+is the plain version of both.
+adversarial_inputs() holds the cases the tool's ray sets do not reach.
 
 packet_traverse() launches the kernel on a CUDA tensor and runs
 packet_traverse_plain on a CPU tensor; it counts launches in `launches`.
@@ -29,11 +32,12 @@ import sys
 import numpy as np
 import torch
 
+from hydracore_tpu_torch.bvh.wide import EMPTY_PAYLOAD
 from hydracore_tpu_torch.tools.proto_packet import (N_RAYS, _kernel_lib,
                                                     pack_nodes,
                                                     packet_walk_plain,
                                                     run_main)
-from hydracore_tpu_torch.utils.build import launch
+from hydracore_tpu_torch.utils.build import CI, VP, launch
 from hydracore_tpu_torch.utils.lab import check_tensor
 
 TOOL = 4
@@ -44,6 +48,11 @@ CLAMP = True       # sp = min(sp + push, STACK_D - 1)
 SUM_UV = False     # u, v of the winning triangle
 N_CHECK = 4096
 LANES = 128
+WARPS = 16         # warps a packet in the kernel (512 threads x 2 rays)
+# columns of packet_traverse's profile
+PROFILE = ("clock64 start", "clock64 end", "SM", "node entries",
+           "leaf entries", "slab tests (a warp, a child, a ray a thread)",
+           "triangles past the early exit (a warp)")
 
 launches = 0
 
@@ -79,22 +88,44 @@ def packet_traverse_plain(rays7, nodes, tris):
     return out, slot.reshape(1, rows, LANES)
 
 
-def packet_traverse(rays7, nodes, tris):
+def _t4_lib():
+    """csrc/lab_packet.cu's library with hydra_lab_t4_profile's arguments
+    set."""
+    lib = _kernel_lib()
+    lib.hydra_lab_t4_profile.argtypes = [VP, CI, VP, VP, VP, VP, VP, VP]
+    lib.hydra_lab_t4_profile.restype = CI
+    return lib
+
+
+def packet_traverse(rays7, nodes, tris, profile=None):
     """rays7 (7, R / 128, 128) f32 [ox oy oz dx dy dz tmax], R a multiple of
     1024, nodes (Np, 128), tris (Bp, 128) f32 -> (out (4, R / 128, 128) f32
     = [t, u, v, visits], outi (1, R / 128, 128) i32 = slot): the tool's
     packet_traverse. A CUDA tensor launches the kernel, a CPU tensor runs
-    packet_traverse_plain."""
+    packet_traverse_plain. On the card, `profile`, a zeroed int64 tensor
+    (R / 1024, 7), runs the kernel's profiling build, which fills it per
+    packet (PROFILE)."""
     _check(rays7, nodes, tris)
     if not rays7.is_cuda:
+        if profile is not None:
+            raise ValueError("the profile is the kernel's: a CUDA tensor")
         return packet_traverse_plain(rays7, nodes, tris)
     rows = rays7.shape[1]
     out = torch.empty((4, rows, LANES), dtype=torch.float32, device=rays7.device)
     outi = torch.empty((1, rows, LANES), dtype=torch.int32, device=rays7.device)
-    launch(_kernel_lib(), "hydra_lab_packet_walk", "T4 packet walk",
-           rays7.device, P, STACK_D, MAX_VISITS, int(CLAMP),
-           rays7.data_ptr(), rows * LANES,
-           nodes.data_ptr(), tris.data_ptr(), out.data_ptr(), outi.data_ptr())
+    if profile is None:
+        launch(_kernel_lib(), "hydra_lab_packet_walk", "T4 packet walk",
+               rays7.device, P, STACK_D, MAX_VISITS, int(CLAMP),
+               rays7.data_ptr(), rows * LANES,
+               nodes.data_ptr(), tris.data_ptr(), out.data_ptr(),
+               outi.data_ptr())
+    else:
+        check_tensor("profile", profile, torch.int64,
+                     (rows * LANES // P, len(PROFILE)), rays7.device)
+        launch(_t4_lib(), "hydra_lab_t4_profile", "T4 packet walk (profile)",
+               rays7.device, rays7.data_ptr(), rows * LANES,
+               nodes.data_ptr(), tris.data_ptr(), out.data_ptr(),
+               outi.data_ptr(), profile.data_ptr())
     global launches
     launches += 1
     return out, outi
@@ -121,6 +152,172 @@ def unpack(res):
 def ray_range(rays7, start: int, n: int):
     """Rays [start, start + n) of rays7 (multiples of 128)."""
     return rays7[:, start // LANES:(start + n) // LANES].contiguous()
+
+
+# the cases adversarial_inputs() holds, in order
+ADVERSARIAL = ("edges", "max_visits", "clamp")
+
+
+def _node_row(children) -> np.ndarray:
+    """One node row: children[c] = (bmin, bmax, payload) or None; the other
+    slots empty (NaN box, EMPTY_PAYLOAD), as bvh/wide.py leaves them."""
+    row = np.zeros((8, 16), np.float32)
+    row[:, 0:6] = np.nan
+    row.view(np.int32)[:, 6] = EMPTY_PAYLOAD
+    for c, ch in enumerate(children):
+        if ch is not None:
+            row[c, 0:3], row[c, 3:6] = ch[0], ch[1]
+            row.view(np.int32)[c, 6] = ch[2]
+    return row.reshape(128)
+
+
+def _tri_row(tris) -> np.ndarray:
+    """One leaf row of up to 8 triangles (v0, v1, v2) as [v0 e1 e2 pad]; the
+    other slots far degenerate triangles (v0 at 1e30, no edges)."""
+    row = np.zeros((8, 16), np.float32)
+    row[:, 0:3] = 1e30
+    for k, (v0, v1, v2) in enumerate(tris):
+        v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
+        row[k, 0:3], row[k, 3:6], row[k, 6:9] = v0, v1 - v0, v2 - v0
+    return row.reshape(128)
+
+
+def _rays7(ro, rd, tmax) -> torch.Tensor:
+    r7 = np.concatenate([np.asarray(ro, np.float32).T,
+                         np.asarray(rd, np.float32).T,
+                         np.asarray(tmax, np.float32)[None]])
+    return torch.tensor(np.ascontiguousarray(r7).reshape(7, -1, LANES))
+
+
+def _edges():
+    """Two packets over a hand-made tree: the root holds leaves A and B on
+    the same box [0, 1]^3, a node over leaves C, D (sharing the face x =
+    2.5), leaf E (sharing A's face x = 0) and a flat leaf F (z = 2). A and B
+    hold the same triangle (equal t across leaves), B holds it twice (equal
+    t in a leaf); C, D hold the same triangle on their shared face and A, E
+    one on theirs. Packet 0: rays down from z = 3 with d.x, d.y in {+0.0,
+    -0.0, +1e-13, -1e-13} from origins on the boxes' faces and edges; rays
+    from inside the boxes; rays lying in the faces x = 0, x = 2.5 and z = 2;
+    rays along +x through the shared faces, a quarter with t_max at the
+    distance of a triangle (strict <: no hit there). Packet 1: no ray enters
+    the root's children."""
+    unit = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    t1 = ((0, 0, 0.5), (1, 0, 0.5), (0, 1, 0.5))
+    face0 = ((0, 0, 0), (0, 1, 0), (0, 0, 1))
+    face25 = ((2.5, 0, 0), (2.5, 1, 0), (2.5, 0, 1))
+    tris = np.stack([
+        _tri_row([t1, t1, ((1, 1, 0.5), (0, 1, 0.5), (1, 0, 0.5)), face0]),  # A
+        _tri_row([t1, t1, ((0, 0, 0.25), (1, 0, 0.25), (1, 1, 0.25))]),     # B
+        _tri_row([((2.25, 0, 0), (2.25, 1, 0), (2.25, 0, 1)), face25]),      # C
+        _tri_row([face25, ((2.75, 0, 0), (2.75, 1, 1), (2.75, 0, 1))]),      # D
+        _tri_row([((-0.5, 0, 0), (-0.5, 1, 0), (-0.5, 0, 1)), face0]),       # E
+        _tri_row([((0, 0, 2), (1, 0, 2), (0, 1, 2))]),                       # F
+    ])
+    nodes = np.stack([
+        _node_row([(*unit, -1), (*unit, -2),
+                   ((2.0, 0.0, 0.0), (3.0, 1.0, 1.0), 1), None,
+                   ((-1.0, 0.0, 0.0), (0.0, 1.0, 1.0), -5),
+                   ((0.0, 0.0, 2.0), (1.0, 1.0, 2.0), -6)]),
+        _node_row([((2.0, 0.0, 0.0), (2.5, 1.0, 1.0), -3),
+                   ((2.5, 0.0, 0.0), (3.0, 1.0, 1.0), -4)]),
+    ])
+    rng = np.random.default_rng(17)
+    eps = np.array([0.0, -0.0, 1e-13, -1e-13], np.float32)
+    grid = np.array([-0.5, -0.0, 0.0, 1e-13, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0,
+                     2.25, 2.5, 2.75, 3.0, 3.25, 1.0 - 2.0 ** -24], np.float32)
+    gx, gy = np.meshgrid(grid, grid, indexing="ij")
+    down_o = np.stack([gx.ravel(), gy.ravel(), np.full(256, 3.0)], 1)
+    k = np.arange(256)
+    down_d = np.stack([eps[k % 4], eps[(k // 4) % 4], -np.ones(256)], 1)
+    lo = np.array([[0, 0, 0], [2, 0, 0], [2.5, 0, 0], [-1, 0, 0]], np.float32)
+    inside_o = lo[k % 4] + rng.uniform(0.05, 0.45, (256, 3)) * [1, 2, 2]
+    inside_d = rng.normal(size=(256, 3))
+    plane = np.array([0.0, 2.5, -0.0, 2.0], np.float32)[k % 4]
+    face_o = np.where((k % 4 == 3)[:, None],
+                      np.stack([rng.uniform(0, 1, 256), rng.uniform(0, 1, 256),
+                                plane], 1),
+                      np.stack([plane, rng.uniform(0, 1, 256),
+                                rng.uniform(0, 1, 256)], 1))
+    face_d = rng.normal(size=(256, 3))
+    face_d[k % 4 < 3, 0] = eps[k[k % 4 < 3] // 4 % 4]
+    face_d[k % 4 == 3, 2] = eps[k[k % 4 == 3] // 4 % 4]
+    along_o = np.stack([np.full(256, -3.0), rng.uniform(0, 1, 256),
+                        rng.uniform(0, 1, 256)], 1)
+    along_d = np.stack([np.ones(256), eps[k % 4], eps[(k // 4) % 4]], 1)
+    along_t = np.where(k % 4 == 0, 2.5, 1e30)  # x = -0.5 at exactly t = 2.5
+    far_o = 10.0 + rng.uniform(0, 1, (1024, 3))
+    far_d = np.abs(rng.normal(size=(1024, 3))) + 0.1
+    ro = np.concatenate([down_o, inside_o, face_o, along_o, far_o])
+    rd = np.concatenate([down_d, inside_d, face_d, along_d, far_d])
+    tmax = np.concatenate([np.full(768, 1e30), along_t, np.full(1024, 1e30)])
+    return _rays7(ro, rd, tmax), torch.tensor(nodes), torch.tensor(tris)
+
+
+def _max_visits(levels: int = 5):
+    """One packet over a tree of `levels` node rows in a chain, every row's
+    8 children the next row (the last row's: one leaf block), all on the
+    box [-1, 1]^3 that holds every ray's origin: the walk would pop
+    (8^(levels + 1) - 1) / 7 entries (37,449 for 5), so it stops at
+    MAX_VISITS with entries left on the stack."""
+    box = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    nodes = np.stack([_node_row([(*box, d + 1 if d + 1 < levels else -1)] * 8)
+                      for d in range(levels)])
+    tris = _tri_row([((-1, -1, z), (1, -1, z), (-1, 1, z))
+                     for z in np.linspace(-0.8, 0.8, 8)])[None]
+    rng = np.random.default_rng(23)
+    ro = rng.uniform(-0.9, 0.9, (P, 3))
+    rd = rng.normal(size=(P, 3))
+    return (_rays7(ro, rd, np.full(P, 1e30)), torch.tensor(nodes),
+            torch.tensor(tris))
+
+
+def _clamp(levels: int = 48):
+    """One packet over a chain of `levels` node rows that drives the stack
+    past STACK_D - 1: every child box is [-1, 1]^3, which holds every ray's
+    origin, so each node pushes every child it has (child order c = 0..7);
+    child 7 is the next row and pops first, the others are leaves of one
+    triangle each (z planes in a shuffled order), so each row leaves 6 or 7
+    entries below it and the stack reaches the clamp at about row 37. Odd
+    rows put child 3 on a tiny box far off that no ray hits (a gap in the
+    mask), rows 2 mod 4 leave child 5 empty; the last row holds 8 leaves. At
+    the clamp the tool drops the pushes past STACK_D - 1 (the word there is
+    overwritten, never read) and pops the word below, a leaf of the same
+    row, not the next row; the walk then pops the leaves left on the stack
+    and ends well before MAX_VISITS."""
+    box = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    far = ((100.0, 100.0, 100.0), (100.001, 100.001, 100.001))
+    rows, n_leaf = [], 0
+    for d in range(levels):
+        children = []
+        for c in range(8):
+            if c == 5 and d % 4 == 2:
+                children.append(None)
+            elif c == 7 and d + 1 < levels:
+                children.append((*box, d + 1))
+            else:
+                n_leaf += 1
+                children.append((*(far if c == 3 and d % 2 else box), -n_leaf))
+        rows.append(_node_row(children))
+    order = np.random.default_rng(29).permutation(n_leaf)
+    z = -0.95 + 1.9 * (order + 0.5) / n_leaf
+    tris = np.stack([_tri_row([((-4, -4, zk), (8, -4, zk), (-4, 8, zk))])
+                     for zk in z])
+    rng = np.random.default_rng(31)
+    ro = rng.uniform(-0.9, 0.9, (P, 3))
+    rd = rng.normal(size=(P, 3))
+    return (_rays7(ro, rd, np.full(P, 1e30)), torch.tensor(np.stack(rows)),
+            torch.tensor(tris))
+
+
+def adversarial_inputs(device="cpu") -> dict:
+    """name -> (rays7, nodes, tris) on `device`, the cases the tool's ray
+    sets do not reach: "edges" (_edges: signed zeros and +-1e-13 in d, rays
+    on and in box faces, from inside boxes, equal t in a leaf and across
+    leaves, a t_max at a hit's t, a packet that enters no child of the
+    root), "max_visits" (_max_visits: a packet cut at MAX_VISITS) and
+    "clamp" (_clamp: a stack driven past STACK_D - 1)."""
+    cases = {"edges": _edges(), "max_visits": _max_visits(), "clamp": _clamp()}
+    return {k: tuple(x.to(device) for x in cases[k]) for k in ADVERSARIAL}
 
 
 def main(variant: str = "all", device="cuda", r: int = N_RAYS, n: int = 10,

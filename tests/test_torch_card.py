@@ -10,7 +10,8 @@ the numpy oracle on a scene that lies on the card), bidirectional path
 tracing strategy by strategy, one Metropolis step of PSSMLT and of MMLT
 from a shared chain state, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
-plain versions on the card.
+plain versions on the card (T1, T2, T4 and T6 also on their tools'
+adversarial_inputs; T4 also in its profiling build).
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -726,6 +727,77 @@ def test_lab_packet_walk_kernel_matches_plain(cuda, tool):
     assert 0 < int(out_k[4].min()) and int(out_k[4].max()) < tool.MAX_VISITS
     for k, p in zip(out_k, out_p):
         assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("name", t1.ADVERSARIAL)
+def test_lab_cluster_cost_adversarial_matches_plain(cuda, name):
+    """T1 on t1.adversarial_inputs (a block without a live ray and one with
+    one, |d| < 1e-12 of both signs and -0.0, NaN origins, origins and boxes
+    at +-1e30, inverted boxes, Cp 400), every variant: out and outi bit for
+    bit."""
+    rays, oct_, cbl = t1.adversarial_inputs(cuda)[name]
+    for variant in ("floor", "fm2", "stagea1", "stagea2", "compact1",
+                    "compact2"):
+        kind, n = t1.parse(variant)
+        out_k, outi_k = t1.cluster_cost(kind, rays, oct_, cbl, n)
+        out_p, outi_p = t1.cluster_cost_plain(kind, rays, oct_, cbl, n)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out_k), _bits(out_p)), variant
+        assert torch.equal(outi_k, outi_p), variant
+        if kind in ("stagea", "compact"):
+            assert float(out_k[:, 0, 0].max()) > 0
+
+
+def _t4_equal(k, p) -> bool:
+    return all(torch.equal(_bits(a) if a.is_floating_point() else a,
+                           _bits(b) if b.is_floating_point() else b)
+               for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("name", t4.ADVERSARIAL)
+def test_lab_t4_adversarial_matches_plain(cuda, name):
+    """T4 on t4.adversarial_inputs ("edges": signed zeros and +-1e-13 in d,
+    rays on and in box faces, ties in a leaf and across leaves, a packet
+    that enters nothing; "max_visits": a packet cut at 16,384 pops;
+    "clamp": a stack driven past STACK_D - 1): t, u, v, slot and visits bit
+    for bit."""
+    rays7, nodes, tris = t4.adversarial_inputs(cuda)[name]
+    before = t4.launches
+    out_k = t4.unpack(t4.packet_traverse(rays7, nodes, tris))
+    assert t4.launches == before + 1
+    out_p = t4.unpack(t4.packet_traverse_plain(rays7, nodes, tris))
+    torch.cuda.synchronize()
+    assert _t4_equal(out_k, out_p)
+    if name == "max_visits":
+        assert out_k[4].tolist() == [float(t4.MAX_VISITS)]
+    elif name == "clamp":
+        assert 0 < out_k[4].item() < t4.MAX_VISITS
+    else:
+        assert out_k[4].tolist() == [8.0, 1.0]
+
+
+def test_lab_t4_profile_matches_plain(cuda):
+    """T4's profiling build on 2 packets of random rays over the 350 rects:
+    the plain version's outputs, bit for bit, and a profile whose node and
+    leaf entries sum to the visits."""
+    sc = _rects_scene().to(cuda)
+    nodes, tris = t4.pack_scene(sc)
+    rng = np.random.default_rng(5)
+    ro = rng.uniform(-6, 6, (2 * t4.P, 3)).astype(np.float32)
+    rd = rng.normal(size=(2 * t4.P, 3)).astype(np.float32)
+    rays = t4.pack_rays(ro, rd).to(cuda)
+    out_p = t4.unpack(t4.packet_traverse_plain(rays, nodes, tris))
+    prof = torch.zeros((2, len(t4.PROFILE)), dtype=torch.int64, device=cuda)
+    out_k = t4.unpack(t4.packet_traverse(rays, nodes, tris, profile=prof))
+    torch.cuda.synchronize()
+    assert _t4_equal(out_k, out_p)
+    prof = prof.cpu()
+    assert torch.equal((prof[:, 3] + prof[:, 4]).float(), out_p[4].cpu())
+    assert (prof[:, 1] > prof[:, 0]).all() and (prof[:, 3] > 0).all()
+    assert (prof[:, 5] >= prof[:, 3] * t4.WARPS).all()  # a test a child at least
+    assert (prof[:, 6] <= prof[:, 4] * t4.WARPS * 8).all()
+    with pytest.raises(ValueError, match="profile"):
+        t4.packet_traverse(rays, nodes, tris, profile=prof[:1].to(cuda))
 
 
 def _alpha_scene(size: int = 32, part_cap: int = 1024,

@@ -26,8 +26,11 @@ Tolerances:
     a fifth of the lanes), the port and its kernel round every operation,
     and -ow/dw cancels, so t moves by up to ~1e-5 relative on a few rays.
   * T1 cost variants: floor bit-equal (a copy), the occupancy word and the
-    entered-position counts equal.
+    entered-position counts equal, also on t1.adversarial_inputs (NaN
+    origins, |d| < 1e-12 of both signs and -0.0, boxes at +-1e30, inverted
+    boxes, Cp 400) for every block with a live ray.
 """
+import collections
 import functools
 import importlib.util
 import pathlib
@@ -314,6 +317,51 @@ def test_cluster_cost_scan_ends_without_live_ray():
     out, _ = t1.cluster_cost("compact", rays, oct_, sc.cl_bounds_oct, 2)
     assert float(out[0].abs().max()) == 0.0
     assert float(out[1, 0, 0]) == 2 * int(hit[1].sum())
+
+
+@pytest.fixture(scope="module")
+def cost_adversarial():
+    return t1.adversarial_inputs()
+
+
+@pytest.mark.parametrize("name", t1.ADVERSARIAL)
+def test_cluster_cost_adversarial_matches_tool(cost_scenes, cost_adversarial,
+                                               name, monkeypatch):
+    """t1.adversarial_inputs through the tool's stagea2 and compact2 kernels
+    (each built by the tool's main() for a stand-in scene that carries the
+    case's boxes, then run on the case's blocks) and the plain version: the
+    words and counts equal on every block with a live ray; a block without
+    one (the port's scan ends there, as B1's; the tool's kernel, whose rays
+    are all active, has no such test) is 0 in the port."""
+    js, _ = cost_scenes
+    rays, oct_, cbl = cost_adversarial[name]
+    mod = _load_tool("exp_kernel_cost", monkeypatch)
+    stand_in = collections.namedtuple(
+        "Scene", "camera cl_bounds_oct cl_tris cl_oct_perm")(
+        js.camera, jnp.asarray(cbl.numpy()), js.cl_tris, js.cl_oct_perm)
+    monkeypatch.setattr(mod, "load_scene", lambda *a, **k: stand_in)
+    monkeypatch.setattr(mod, "timeit", lambda f, *a, n=20: 1.0)
+    build = mod.build
+    live = (rays[..., 7] > 0).any(dim=1).numpy()
+    for variant in ("stagea2", "compact2"):
+        kernels = []
+        monkeypatch.setattr(mod, "build", lambda k, *a: kernels.append(k))
+        monkeypatch.setattr(sys, "argv", ["exp_kernel_cost.py", variant])
+        mod.main()
+        out_j = np.asarray(build(kernels[0], rays.shape[0], cbl.shape[2],
+                                 stand_in.cl_bounds_oct, js.cl_tris,
+                                 js.cl_oct_perm)(jnp.asarray(rays.numpy()),
+                                                 jnp.asarray(oct_.numpy())))
+        kind, n = t1.parse(variant)
+        out_p, outi_p = t1.cluster_cost(kind, rays, oct_, cbl, n)
+        out_p = out_p.numpy()
+        assert not outi_p.any()
+        assert np.array_equal(_bits(out_p[live]), _bits(out_j[live]))
+        assert not out_p[~live].any()
+        assert (out_p[live, 0, 0] > 0).sum() >= 3
+    if name == "mixed":
+        assert live.tolist() == [False] + [True] * 7
+        assert out_p[3, 0, 0] == 0.0  # NaN origins: no box entered
 
 
 # ------------------------------------------- the port's entry points, on CPU

@@ -300,6 +300,55 @@ def test_t4_matches_tool(rect_scenes, monkeypatch):
                   out_p[3].reshape(-1, t4.P)[:, 0])
 
 
+@pytest.fixture(scope="module")
+def t4_adversarial():
+    return t4.adversarial_inputs()
+
+
+@pytest.mark.parametrize("name", t4.ADVERSARIAL)
+def test_t4_adversarial_matches_tool(t4_adversarial, name, monkeypatch):
+    """t4.adversarial_inputs through the tool and the plain version: the
+    tolerances of the module docstring and, on these exact inputs, every
+    slot (the ties: the first k in a leaf, the first leaf popped) and visit
+    count equal. "max_visits" runs with MAX_VISITS 96 on both sides, so the
+    cut is met at a size the interpret mode can walk; the card holds the
+    kernel against the plain version at 16,384 (tests/test_torch_card.py).
+    "clamp" walks to its end, and a walk with a stack deep enough not to
+    clamp pops more entries: the clamp was met."""
+    rays7, nodes, tris = t4_adversarial[name]
+    mod = _load_tool("proto_packet2", monkeypatch)
+    if name == "max_visits":
+        monkeypatch.setattr(mod, "MAX_VISITS", 96)
+        monkeypatch.setattr(t4, "MAX_VISITS", 96)
+    nj = nodes.numpy()
+    out_j, outi_j = (np.asarray(x) for x in mod.packet_traverse(
+        jnp.asarray(rays7.numpy()), jnp.asarray(nj),
+        jnp.asarray(nj.view(np.int32)), jnp.asarray(tris.numpy())))
+    out_p, outi_p = (x.numpy() for x in t4.packet_traverse(rays7, nodes, tris))
+    vis_j = out_j[3].reshape(-1, t4.P)
+    vis_p = out_p[3].reshape(-1, t4.P)
+    _walk_compare(out_j[0].reshape(-1), outi_j.reshape(-1),
+                  out_j[1].reshape(-1), out_j[2].reshape(-1), vis_j[:, 0],
+                  out_p[0].reshape(-1), outi_p.reshape(-1),
+                  out_p[1].reshape(-1), out_p[2].reshape(-1), vis_p[:, 0])
+    assert np.array_equal(outi_p, outi_j)
+    assert np.array_equal(vis_p, vis_j)
+    if name == "edges":
+        assert vis_p[:, 0].tolist() == [8.0, 1.0]  # packet 1 enters nothing
+        slots = set(outi_p.reshape(-1).tolist())
+        assert {8, 24, 32} <= slots  # the tie winners: B, D, E
+        assert not {0, 1, 9, 17, 3} & slots  # their equals popped later
+    elif name == "clamp":
+        assert 0 < vis_p[0, 0] < t4.MAX_VISITS
+        r = rays7.reshape(7, -1)
+        deep = t3.packet_walk_plain(r[0:3].T, r[3:6].T, r[6], nodes, tris,
+                                    t4.P, 4 * t4.STACK_D, t4.MAX_VISITS,
+                                    False, False)
+        assert int(deep[4][0]) > vis_p[0, 0]
+    else:
+        assert vis_p[0, 0] == 96
+
+
 def test_t3_t4_rays_agree_with_each_other(rect_scenes):
     """A ray's t does not depend on its packet: the two walks, and their
     triangles but for ties."""
@@ -364,6 +413,11 @@ def test_traverse_lab_wrappers_check_their_inputs(rect_scenes):
     r7 = t4.pack_rays(*_rays(t4.P // 2))
     with pytest.raises(ValueError, match="multiple of 1024"):
         t4.packet_traverse(r7, nodes4, tris4)
+    r7 = t4.pack_rays(*_rays(t4.P))
+    with pytest.raises(ValueError, match="CUDA"):  # the profile is the card's
+        t4.packet_traverse(r7, nodes4, tris4,
+                           profile=torch.zeros((1, len(t4.PROFILE)),
+                                               dtype=torch.int64))
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t2.main(n_rays=2048)
