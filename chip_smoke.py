@@ -52,7 +52,9 @@ sizes and timed with them (T7 also against one embedding_bag call, T6's
 probes where one PyTorch call computes them against that call, each
 probe, the launch floor and the call timed in turns over graphs of the
 same length; T6 also bit for bit on k8's
-adversarial inputs: a NaN, a row of -inf, ties of -0.0 and +0.0), then each
+adversarial inputs: a NaN, a row of -inf, ties of -0.0 and +0.0; T5 every
+output word bit for bit, also on its adversarial inputs, and its profiling
+build's counts and the time its SASS permits at the issue rate), then each
 tool's main() run with its launch counters set to 0 just before and read
 just after; main() times each lab kernel as the mean of a CUDA graph of
 its calls, without the host's issue time (T6 beside the launch floor, an
@@ -70,9 +72,12 @@ position and a lane and the time that they permit at the issue rate;
 T3 and T4 (packets of 128 and 1024 rays) on bench_scene at 512x512 with the
 tools' coherent and incoherent rays, each against its plain version on
 16,384 rays from the middle of the set (t, u, v, slot, visits equal), the
-packets at MAX_VISITS logged; B4 on the same rays against both (hit masks,
-t on hits, slots on >= 99.9%), the three packet sizes timed side by side
-against one bound.
+packets at MAX_VISITS logged; each on its adversarial inputs bit for bit
+(the plain walks of the MAX_VISITS cases on the CPU, in a worker process
+started with phase 12), its profiling build's counts, packet-work bound and
+the time its SASS permits at the issue rate; B4 on the same rays against
+both (hit masks, t on hits, slots on >= 99.9%), the three packet sizes
+timed side by side against one bound.
 Phase 14 is textured shading and alpha shadows: a SceneDesc written with
 its texture files and an IES profile (textured_desc: bench_builder's
 geometry without the right wall, 512 opacity-mapped quads, a tiled 1024^2
@@ -3898,39 +3903,57 @@ def lab_prims(card, dev="cuda") -> list:
 
 
 def lab_subvisit(card, dev="cuda") -> list:
-    """T5 at the tool's size: every variant's kernel against its plain
-    version (output words equal on >= 99.9% of rays, t with the lane bits
-    cleared within rtol 1e-5), timed beside it; then the tool's main()."""
+    """T5 at the tool's size: every variant's kernel equal to its plain
+    version bit for bit (every output word) on the tool's inputs and on
+    t5.adversarial_inputs, timed beside it; the profiling build's counts and
+    the time its SASS permits at the issue rate (t5_issue); then the tool's
+    main()."""
     from hydracore_tpu_torch.tools import proto_subvisit as t5
 
     rays, tris, lst = t5.inputs(device=dev)
-    recs = {}
+    adversarial = t5.adversarial_inputs(dev)
+    recs, profs = {}, {}
     for name, (n_bands, inter) in t5.VARIANTS.items():
         out_k = t5.subvisit(rays, tris, lst, n_bands, inter)
-        out_p = t5.subvisit_plain(rays, tris, lst, n_bands, inter)
+        plain, out_p = lab.time_ms(lambda: t5.subvisit_plain(
+            rays, tris, lst, n_bands, inter), 1, dev, result=True)
+        prof = torch.zeros(len(t5.PROFILE), dtype=torch.int64, device=dev)
+        out_f = t5.subvisit(rays, tris, lst, n_bands, inter, profile=prof)
         torch.cuda.synchronize()
-        wk, wp = out_k.view(torch.int32), out_p.view(torch.int32)
-        same = float((wk == wp).float().mean())
-        clear = lambda w: (w & -128).view(torch.float32)  # noqa: E731
-        err = float((clear(wk) - clear(wp)).abs().max())
-        rel = float(((clear(wk) - clear(wp)).abs() / clear(wp).abs()).max())
+        wk, wp = bits(out_k), bits(out_p)
+        if not torch.equal(wk, wp):
+            bad = int(torch.nonzero(wk != wp)[0, 0])
+            raise AssertionError(
+                f"phase 12 T5 {name}: kernel differs from plain on "
+                f"{int((wk != wp).sum())} rays, first ray {bad}: words "
+                f"{int(wk[bad])} / {int(wp[bad])}")
+        if not torch.equal(bits(out_f), wp):
+            raise AssertionError(f"phase 12 T5 {name}: the profiling build "
+                                 "differs from plain")
+        for case, (ra, ta, la) in adversarial.items():
+            if not torch.equal(bits(t5.subvisit(ra, ta, la, n_bands, inter)),
+                               bits(t5.subvisit_plain(ra, ta, la, n_bands,
+                                                      inter))):
+                raise AssertionError(f"phase 12 T5 {name} on {case}: kernel "
+                                     "differs from plain")
+        walk, kept = prof.tolist()
+        profs[name] = (walk, kept)
         hits = int((out_k < 1e38).sum())
-        plain = lab.time_ms(lambda: t5.subvisit_plain(rays, tris, lst, n_bands,
-                                                      inter), 1, dev)
-        log(f"phase 12 T5 {name}: {hits} of {out_k.numel()} rays hit, words "
-            f"equal on {same:.6f}, t rel err {rel:.3e}; plain {plain:.4f} ms "
-            f"[{card}]")
-        if same < 0.999 or rel > 1e-5:
-            raise AssertionError(f"phase 12 T5 {name}: kernel vs plain")
-        recs[name] = (err, plain)
+        log(f"phase 12 T5 {name}: {hits} of {out_k.numel()} rays hit, every "
+            f"word equal to the plain version's, and on "
+            f"{', '.join(adversarial)}; kept ray-lanes {kept} "
+            f"({kept / (rays.shape[0] * (lst.shape[0] // n_bands) * t5.LANES):.4f}"
+            f"), walk iterations {walk} (warps); plain {plain:.4f} ms [{card}]")
+        recs[name] = plain
     t5.reset_launch_counts()
     res = t5.main(device=dev)
+    t5_issue(card, t5, res, profs, rays.shape[0], lst.shape[0])
     return [lab_row(f"T5 sub-visit, {name} (launches of the "
                     f"{'plain' if name == 'plain' else 'sub'} kernel)",
                     "lab_subvisit.cu",
                     f"tools/proto_subvisit.py:{52 if name == 'plain' else 68}",
                     t5.plain_launches if name == "plain" else t5.sub_launches,
-                    recs[name][0], res[name]["ms"], recs[name][1],
+                    0.0, res[name]["ms"], recs[name],
                     (res[name]["bound_ms"], res[name]["bound_by"]))
             for name in t5.VARIANTS]
 
@@ -4167,6 +4190,38 @@ def t1_issue(card, t1, res, rays, cbl) -> None:
                 f"ms, bound {res[v]['bound_ms']:.5f} ms [{card}]")
 
 
+def t5_issue(card, t5, res, profs, n_rays, n_visits) -> None:
+    """What T5's SASS permits: in each timed instantiation's code
+    (kernel_code) the innermost loop with a VOTE is the tests of 32 lanes
+    (a ballot a lane), four a step; the innermost loop with a MUFU (the
+    division's reciprocal) is one iteration of the walk of kept lanes,
+    which the profiling build counts (profs: a warp's iterations). Their
+    instructions over the card's issue rate give the least time at which
+    the code could run this run's work, beside the measured time and the
+    bound (which counts an FMA as two operations)."""
+    code = kernel_code("phase 12 T5", "lab_subvisit.cu")
+    rate, sms, clk = issue_rate()
+    for name, (n_bands, _) in t5.VARIANTS.items():
+        own = next(own for fn, own in code.items() if re.search(
+            rf"subvisit_kernelILi{n_bands}ELi\dELb0EE", fn))
+        tests = inner_loop(own, lambda op, rest: op == "VOTE")
+        walk = inner_loop(own, lambda op, _: op == "MUFU")
+        per_lane = len(tests) / 32
+        steps = n_visits // n_bands
+        warps = n_rays // 32
+        n_walk, n_kept = profs[name]
+        instr = warps * steps * 4 * len(tests) + n_walk * len(walk)
+        permit = instr / rate * 1e3
+        log(f"phase 12 T5 {name}: {per_lane:.2f} instructions a ray and lane "
+            f"(the tests, {len(tests)} a loop of 32 lanes), {len(walk)} an "
+            f"iteration of the walk ({n_walk} iterations, "
+            f"{n_walk * 32 / max(n_kept, 1):.2f} lanes of the warp a kept "
+            f"ray-lane): {instr / 1e6:.1f}M warp instructions, {permit:.5f} ms "
+            f"at the full issue rate ({sms} SMs x 4 x {clk:.0f} MHz), measured "
+            f"{res[name]['ms']:.4f} ms ({permit / res[name]['ms'] * 100:.1f}% "
+            f"of the rate), bound {res[name]['bound_ms']:.5f} ms [{card}]")
+
+
 def t2_issue(card, t2, res) -> None:
     """What T2's SASS permits: in each instantiation's code (kernel_code)
     the innermost loop with FMNMX is stage A's (10 a ray and position), the
@@ -4213,63 +4268,191 @@ def t2_issue(card, t2, res) -> None:
             f"{res[name]['bound_ms']:.5f} ms [{card}]")
 
 
-def t4_checks(card, t4, scene, rays, dev) -> None:
-    """T4 beyond its tool's main(): the kernel equal to the plain version bit
-    for bit on t4.adversarial_inputs; on each ray set the profile's counts
-    (packet_traverse(profile=)) and the packet-work bound they give (the
-    entries x P rays x 8 x OPS_BOX a node entry, 8 x OPS_TRI a leaf entry,
-    at the f32 peak), each packet's and each SM's cycles; and the time the
-    kernel's SASS permits at the issue rate (t4_issue)."""
-    for name, (r7, nodes, tris) in t4.adversarial_inputs(dev).items():
+# the adversarial walks whose plain version runs on the CPU, in a worker
+# process while the card runs phases 12 and 13 (thousands of small steps:
+# the host's time a step, not the card's)
+CPU_PLAINS = ((3, "max_visits"), (4, "max_visits"))
+
+
+def cpu_walk_plains() -> dict:
+    """The plain walks of CPU_PLAINS on the CPU: (tool, case) -> its
+    unpacked outputs (t, slot, u, v, visits) as int32 numpy bits."""
+    from hydracore_tpu_torch.tools import proto_packet as t3
+    from hydracore_tpu_torch.tools import proto_packet2 as t4
+
+    torch.set_num_threads(2)
+    out = {}
+    for n, case in CPU_PLAINS:
+        tool = {3: t3, 4: t4}[n]
+        args = tool.adversarial_inputs("cpu")[case]
+        res = tool.unpack(tool.packet_traverse_plain(*args))
+        out[n, case] = [x.contiguous().view(torch.int32).numpy()
+                        if x.is_floating_point() else x.numpy() for x in res]
+    return out
+
+
+def walk_adversarial(card, tool, dev, cpu_plains) -> None:
+    """tool (proto_packet or proto_packet2) on its adversarial_inputs: the
+    kernel equal to the plain version bit for bit (t, slot, u, v, visits;
+    the plain version of the cases in CPU_PLAINS from cpu_plains, a future
+    of cpu_walk_plains)."""
+    for name, args in tool.adversarial_inputs(dev).items():
         t0 = time.time()
-        k = t4.unpack(t4.packet_traverse(r7, nodes, tris))
-        p = t4.unpack(t4.packet_traverse_plain(r7, nodes, tris))
+        k = tool.unpack(tool.packet_traverse(*args))
+        if (tool.TOOL, name) in CPU_PLAINS:
+            p = [torch.from_numpy(x) for x in cpu_plains.result()[tool.TOOL, name]]
+            where = "the CPU"
+        else:
+            p = tool.unpack(tool.packet_traverse_plain(*args))
+            where = "the card"
         torch.cuda.synchronize()
-        same = [torch.equal(bits(a) if a.is_floating_point() else a,
-                            bits(b) if b.is_floating_point() else b)
+        same = [torch.equal((bits(a) if a.is_floating_point() else a).cpu(),
+                            (bits(b) if b.is_floating_point() else b).cpu())
                 for a, b in zip(k, p)]
         if not all(same):
-            raise AssertionError(f"phase 13 T4 adversarial {name}: kernel "
-                                 f"differs from plain (t, slot, u, v, visits "
-                                 f"equal: {same})")
-        log(f"phase 13 T4 adversarial {name}: kernel equal to the plain "
-            f"version bit for bit; visits per packet {k[4].tolist()}, hits "
-            f"{int((k[1] >= 0).sum())} ({time.time() - t0:.1f} s)")
-    nodes, tris = t4.pack_scene(scene)
+            raise AssertionError(f"phase 13 T{tool.TOOL} adversarial {name}: "
+                                 f"kernel differs from plain (t, slot, u, v, "
+                                 f"visits equal: {same})")
+        extra = ""
+        if name == "sumuv":
+            extra = (f"; u NaN on {int(torch.isnan(k[2]).sum())} rays, -0.0 on "
+                     f"{int((bits(k[2]) == -2 ** 31).sum())}")
+        log(f"phase 13 T{tool.TOOL} adversarial {name}: kernel equal to the "
+            f"plain version (on {where}) bit for bit; visits per packet "
+            f"{k[4].tolist()[:16]}, hits {int((k[1] >= 0).sum())}{extra} "
+            f"({time.time() - t0:.1f} s) [{card}]")
+
+
+def walk_profile(card, tool, scene, rays, dev) -> dict:
+    """tool's profiling build on each ray set: the packet-work bound its
+    counts give (the entries x P rays x 8 x OPS_BOX a node entry, 8 x
+    OPS_TRI a leaf entry, at the f32 peak), each packet's and each SM's
+    cycles. Returns name -> (the profile's columns from node entries on,
+    summed over packets; the unpacked outputs)."""
+    nodes, tris = tool.pack_scene(scene)
     counts = {}
     for name, (ro, rd) in rays.items():
-        packed = t4.pack_rays(ro, rd).to(dev)
-        prof = torch.zeros((packed.shape[1] * t4.LANES // t4.P,
-                            len(t4.PROFILE)), dtype=torch.int64, device=dev)
-        t4.packet_traverse(packed, nodes, tris, profile=prof)
+        packed = tool.pack_rays(ro, rd).to(dev)
+        n_pk = rd.shape[0] // tool.P
+        prof = torch.zeros((n_pk, len(tool.PROFILE)), dtype=torch.int64,
+                           device=dev)
+        out = tool.unpack(tool.packet_traverse(packed, nodes, tris,
+                                               profile=prof))
         pr = prof.cpu()
-        counts[name] = pr[:, 3:7].sum(dim=0).tolist()
+        counts[name] = pr[:, 3:].sum(dim=0).tolist() + [out]
         n_node, n_leaf = counts[name][:2]
-        work_ms, by = lab.bound_ms(0, t4.P * 8 * (n_node * OPS_BOX
-                                                  + n_leaf * OPS_TRI))
+        work_ms, by = lab.bound_ms(0, tool.P * 8 * (n_node * OPS_BOX
+                                                    + n_leaf * OPS_TRI))
         cyc = (pr[:, 1] - pr[:, 0]).double()
         # each SM's span, from its first packet's start to its last's end
         # (clock64 counts on each SM's own clock)
         span = [float(pr[pr[:, 2] == sm, 1].max() - pr[pr[:, 2] == sm, 0].min())
                 for sm in pr[:, 2].unique().tolist()]
-        log(f"phase 13 T4 {name}: {n_node} node and {n_leaf} leaf entries "
-            f"over {pr.shape[0]} packets; packet-work bound {work_ms:.5f} ms "
-            f"({by}); a packet's walk {float(cyc.mean()):.0f} cycles on the "
-            f"mean, {float(cyc.max()):.0f} the most; {len(span)} SMs busy, "
-            f"an SM's span {np.mean(span):.0f} cycles on the mean, "
-            f"{max(span):.0f} the most; slab tests {counts[name][2]}, "
-            f"triangles past the early exit {counts[name][3]} (warps) [{card}]")
-    t4_issue(card, t4, counts)
+        log(f"phase 13 T{tool.TOOL} {name}: {n_node} node and {n_leaf} leaf "
+            f"entries over {pr.shape[0]} packets; packet-work bound "
+            f"{work_ms:.5f} ms ({by}); a packet's walk {float(cyc.mean()):.0f} "
+            f"cycles on the mean, {float(cyc.max()):.0f} the most (its "
+            f"{int(out[4][int(cyc.argmax())])} pops); {len(span)} SMs busy, an "
+            f"SM's span {np.mean(span):.0f} cycles on the mean, {max(span):.0f}"
+            f" the most; " + ", ".join(
+                f"{c} {v}" for c, v in zip(tool.PROFILE[5:], counts[name][2:-1]))
+            + f" [{card}]")
+    return counts
+
+
+def t4_checks(card, t4, scene, rays, dev, cpu_plains) -> None:
+    """T4 beyond its tool's main(): walk_adversarial, walk_profile and the
+    time the kernel's SASS permits at the issue rate (t4_issue)."""
+    walk_adversarial(card, t4, dev, cpu_plains)
+    counts = walk_profile(card, t4, scene, rays, dev)
+    t4_issue(card, t4, {k: v[:4] for k, v in counts.items()})
+
+
+def t3_checks(card, t3, scene, rays, dev, cpu_plains) -> None:
+    """T3 beyond its tool's main(): walk_adversarial, walk_profile and the
+    time the kernel's SASS permits at the issue rate (t3_issue)."""
+    walk_adversarial(card, t3, dev, cpu_plains)
+    t3_issue(card, t3, walk_profile(card, t3, scene, rays, dev))
+
+
+def marker_sizes(tag, own, marks, loops=()) -> dict:
+    """The size of each part of a profiling build's code that HYDRA_MARK
+    (csrc/lab_packet.cu: PMTRIG in the SASS) starts: the median, over the
+    marker's copies in the unrolled code, of the instructions from it to
+    the next marker, or for a marker in `loops` of the smallest loop that
+    holds it, without the ranges a vote's branch skips (issued). Raises when
+    a marker of `marks` is missing."""
+    at = [(i, int(re.search(r"(0x[0-9a-f]+|\d+)", rest).group(1), 0))
+          for i, (_, op, rest) in enumerate(own) if op == "PMTRIG"]
+    if any(v % 2 for _, v in at):  # the operand is the event, else 1 << it
+        ids = [v for _, v in at]
+    else:
+        ids = [v.bit_length() - 1 for _, v in at]
+    sizes = {k: [] for k in marks}
+    for n, ((i, _), k) in enumerate(zip(at, ids)):
+        if k not in sizes:
+            continue
+        if k in loops:
+            body = []
+            for b, op, rest in own:
+                m = re.search(r"0x([0-9a-f]+)", rest)
+                if (op == "BRA" and m and int(m.group(1), 16) <= own[i][0] <= b
+                        and (not body or b - int(m.group(1), 16)
+                             < body[-1][0] - body[0][0])):
+                    body = [c for c in own if int(m.group(1), 16) <= c[0] <= b]
+            if body:
+                sizes[k].append(len(issued(body)[0]))
+        else:
+            j = at[n + 1][0] if n + 1 < len(at) else len(own)
+            sizes[k].append(len(issued(own[i + 1:j])[0]))
+    if any(not v for v in sizes.values()):
+        raise AssertionError(
+            f"{tag}: the profiling build's markers were not all found "
+            f"({ {k: len(v) for k, v in sizes.items()} })")
+    return {k: float(np.median(v)) for k, v in sizes.items()}
+
+
+def t3_issue(card, t3, counts) -> None:
+    """What T3's SASS permits. Its profiling build marks the start of each
+    part of the walk (HYDRA_MARK: PMTRIG in the SASS): 1 a node entry, 2 a
+    child's test, 3 the node's vote and pushes, 4 a leaf entry, 6 a
+    triangle's first pass, 5 a triangle past it, 7 a triangle of the u and v
+    sum of a ray that won; marker_sizes gives each part's size (5 and 7:
+    the loop that holds the marker). The profile counts how often a warp runs each part: node and leaf
+    entries, children tested (empty ones are not), triangles tested (flat
+    ones are not) and past the first pass; a warp runs the sum's 8
+    triangles when one of its rays won. Their product over the card's issue
+    rate is the least time at which the profiling build's code could run
+    this run's walk."""
+    code = kernel_code("phase 13 T3", "lab_packet.cu")
+    own = next(own for fn, own in code.items() if "t3_walk_kernelILb1EE" in fn)
+    size = marker_sizes("phase 13 T3", own, (1, 2, 3, 4, 5, 6, 7), loops=(5, 7))
+    rate, sms, clk = issue_rate()
+    for name, (n_node, n_leaf, n_child, n_rest, n_tri, out) in counts.items():
+        won = (out[1] >= 0).reshape(-1, t3.RPT, t3.WARPS, 32).any(dim=3)
+        n_sum = int(won.sum()) * 8
+        runs = {1: n_node * t3.WARPS, 2: n_child, 3: n_node * t3.WARPS,
+                4: n_leaf * t3.WARPS, 6: n_tri, 5: n_rest, 7: n_sum}
+        instr = sum(runs[k] * size[k] for k in runs)
+        log(f"phase 13 T3 {name}: the profiling build issues (a warp) "
+            f"{size[1]:.0f} a node entry, {size[2]:.0f} a child's test, "
+            f"{size[3]:.0f} the vote and pushes, {size[4]:.0f} a leaf entry, "
+            f"{size[6]:.0f} a triangle's first pass, {size[5]:.0f} a triangle "
+            f"past it, {size[7]:.0f} a triangle of the u and v sum ({n_child} "
+            f"children, {n_tri} triangles, {n_rest} past the first pass, "
+            f"{n_sum // 8} sums; its code {len(own)} instructions): "
+            f"{instr / 1e6:.1f}M warp instructions, {instr / rate * 1e3:.5f} "
+            f"ms at the full issue rate ({sms} SMs x 4 x {clk:.0f} MHz) "
+            f"[{card}]")
 
 
 def t4_issue(card, t4, counts) -> None:
     """What T4's SASS permits. Its profiling build marks the start of each
-    part of the walk (csrc/lab_packet.cu, HYDRA_MARK: PMTRIG in the SASS);
-    a part's size is the median, over its copies in the unrolled code, of
-    the instructions from its marker to the next marker (without the ranges
-    a vote's branch skips: the division's slow path, issued). The profile
-    counts how often a warp runs each part: node and leaf entries, slab
-    tests, triangles up to and past the early exit. Their product, over the
+    part of the walk (csrc/lab_packet.cu, HYDRA_MARK: PMTRIG in the SASS),
+    and marker_sizes gives each part's size (without the division's slow
+    path behind its vote). The profile counts how often a warp runs each
+    part: node and leaf entries, slab tests, triangles up to and past the
+    early exit. Their product, over the
     card's issue rate, is the least time at which the code could run this
     run's walk. The sizes are the profiling build's (its counters and
     markers add a few instructions); the line gives its length and the
@@ -4278,22 +4461,7 @@ def t4_issue(card, t4, counts) -> None:
     code = kernel_code("phase 13 T4", "lab_packet.cu")
     own = next(own for fn, own in code.items() if "t4_walk_kernelILb1EE" in fn)
     timed = next(own for fn, own in code.items() if "t4_walk_kernelILb0EE" in fn)
-    at = [(i, int(re.search(r"(0x[0-9a-f]+|\d+)", rest).group(1), 0))
-          for i, (_, op, rest) in enumerate(own) if op == "PMTRIG"]
-    if any(v % 2 for _, v in at):  # the operand is the event, else 1 << it
-        ids = [v for _, v in at]
-    else:
-        ids = [v.bit_length() - 1 for _, v in at]
-    sizes = {k: [] for k in range(1, 7)}
-    for n, ((i, _), k) in enumerate(zip(at, ids)):
-        j = at[n + 1][0] if n + 1 < len(at) else len(own)
-        if k in sizes:
-            sizes[k].append(len(issued(own[i + 1:j])[0]))
-    if any(not v for v in sizes.values()):
-        raise AssertionError(
-            f"phase 13 T4: the profiling build's markers were not all found "
-            f"({ {k: len(v) for k, v in sizes.items()} })")
-    size = {k: float(np.median(v)) for k, v in sizes.items()}
+    size = marker_sizes("phase 13 T4", own, range(1, 7))
     rate, sms, clk = issue_rate()
     for name, (n_node, n_leaf, n_slab, n_rest) in counts.items():
         runs = {1: n_node * t4.WARPS, 2: n_slab, 3: n_node * t4.WARPS,
@@ -4317,12 +4485,13 @@ N_PLAIN = 16384
 PLAIN_AT = (262144 - N_PLAIN) // 2
 
 
-def lab_packet_walks(card, tp, dev="cuda") -> list:
+def lab_packet_walks(card, tp, cpu_plains, dev="cuda") -> list:
     """T3 and T4 on bench_scene(512, 512) with the tools' two ray sets of
     262,144 rays: each tool's main() with its counter read, then its
     kernel's outputs against the plain version on N_PLAIN rays from the
     middle of the set (t, u, v, slot and visits equal), the packets at
-    MAX_VISITS logged; then B4 (32-ray packets) on the same rays, held
+    MAX_VISITS logged; t3_checks and t4_checks (cpu_plains: a future of
+    cpu_walk_plains); then B4 (32-ray packets) on the same rays, held
     against both on the packets under their MAX_VISITS (hit masks equal, t
     equal on hits, slots equal on >= 99.9%), the three timed side by side
     against one bound (packet_bound_ms)."""
@@ -4367,7 +4536,8 @@ def lab_packet_walks(card, tp, dev="cuda") -> list:
                 f"MAX_VISITS {tool.MAX_VISITS}; plain {plain:.4f} ms on "
                 f"those rays [{card}]")
             recs[tool.TOOL, name] = plain
-    t4_checks(card, t4, scene, rays, dev)
+    t3_checks(card, t3, scene, rays, dev, cpu_plains)
+    t4_checks(card, t4, scene, rays, dev, cpu_plains)
     bounds = {}
     for name, (ro, rd) in rays.items():
         packets, _ = tp._to_packets(torch.tensor(ro).to(dev),
@@ -4447,23 +4617,30 @@ def kernel_rows(kernels, label, source, replaces, recs, launches) -> list:
 def lab_phases(card, tc, tp) -> list:
     """Phases 12 and 13, the kernel lab, each tool's kernels at its own
     size (tc and tp's libraries built); their "kernels" rows."""
-    # ---- phase 12: T7, T6, T5, T1
-    t0 = time.time()
-    lab_rows = (lab_gather(card) + lab_prims(card) + lab_subvisit(card)
-                + lab_cluster_cost(card, tc))
-    if any(r["launches"] <= 0 for r in lab_rows):
-        raise AssertionError("phase 12: a lab kernel was not launched by its "
-                             "tool's main()")
-    log(f"phase 12 kernel lab: {time.time() - t0:.2f} s")
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
-    # ---- phase 13: the lab's traversal prototypes T2, T3, T4 (and B4 on
-    # T3's and T4's rays)
-    t0 = time.time()
-    trav_rows = lab_proto_cluster(card) + lab_packet_walks(card, tp)
-    if any(r["launches"] <= 0 for r in trav_rows):
-        raise AssertionError("phase 13: a lab kernel was not launched by its "
-                             "tool's main()")
-    log(f"phase 13 traversal prototypes: {time.time() - t0:.2f} s")
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        cpu_plains = ex.submit(cpu_walk_plains)
+        # ---- phase 12: T7, T6, T5, T1
+        t0 = time.time()
+        lab_rows = (lab_gather(card) + lab_prims(card) + lab_subvisit(card)
+                    + lab_cluster_cost(card, tc))
+        if any(r["launches"] <= 0 for r in lab_rows):
+            raise AssertionError("phase 12: a lab kernel was not launched by "
+                                 "its tool's main()")
+        log(f"phase 12 kernel lab: {time.time() - t0:.2f} s")
+
+        # ---- phase 13: the lab's traversal prototypes T2, T3, T4 (and B4
+        # on T3's and T4's rays)
+        t0 = time.time()
+        trav_rows = (lab_proto_cluster(card)
+                     + lab_packet_walks(card, tp, cpu_plains))
+        if any(r["launches"] <= 0 for r in trav_rows):
+            raise AssertionError("phase 13: a lab kernel was not launched by "
+                                 "its tool's main()")
+        log(f"phase 13 traversal prototypes: {time.time() - t0:.2f} s")
     return lab_rows + trav_rows
 
 

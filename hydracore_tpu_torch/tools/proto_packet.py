@@ -5,16 +5,16 @@ walking the 8-wide BVH with one shared stack (STACK_D 192, MAX_VISITS
 4096, no clamp of the stack pointer): a popped node pushes the children
 that some ray of the packet hits, a popped leaf tests its 8 triangles
 against every ray. csrc/lab_packet.cu holds the function and the design,
-with T4's 1024-ray walk (proto_packet2.py) as a second instance of one
-template.
+with T4's 1024-ray walk (proto_packet2.py) beside it.
 
 packet_traverse() launches the kernel on a CUDA tensor and runs
 packet_traverse_plain on a CPU tensor; it counts launches in `launches`.
-The plain version of both walks is packet_walk_plain(), parameterized like
-the kernel's template: every packet steps together with its own stack
-row. A ray's t depends only on the tree; its visit count and, among equal
-t, its triangle on the packet it rides in, so the walks keep the tools'
-packets: rays [i * P, (i + 1) * P) of the flattened order.
+The plain version of both walks is packet_walk_plain(), parameterized by
+the tools' sizes: every packet steps together with its own stack row. A
+ray's t depends only on the tree; its visit count and, among equal t, its
+triangle on the packet it rides in, so the walks keep the tools' packets:
+rays [i * P, (i + 1) * P) of the flattened order. adversarial_inputs()
+holds the cases the tool's ray sets do not reach.
 
 The tool's pltpu.bitcast of a 0-d payload does not trace (interpret mode
 raises "Not implemented: bitcast 1D"); the function meant is the payload's
@@ -54,6 +54,13 @@ MAX_VISITS = 4096
 CLAMP = False     # no clamp of the stack pointer
 SUM_UV = True     # u, v as the sum over k of winf[k] * u[k]
 N_CHECK = 2048    # rays held against traverse_wide in main()
+RPT = 1           # rays a thread in the kernel (128 threads a packet)
+WARPS = P // RPT // 32  # warps a packet in the kernel
+# columns of packet_traverse's profile
+PROFILE = ("clock64 start", "clock64 end", "SM", "node entries",
+           "leaf entries", "children tested (a warp, a ray a thread)",
+           "triangles past the first pass (a warp)",
+           "triangles tested, not flat (a warp)")
 N_RAYS = 262144
 W = 512
 # the coherent rays' eye: bench_scene's camera, for the tool's (0, 10, 25)
@@ -78,6 +85,8 @@ def _kernel_lib():
     if _lib is None:
         _lib = load_lib("lab_packet.cu", "hydra_lab_packet_walk",
                         [CI, CI, CI, CI, VP, CI, VP, VP, VP, VP, VP])
+        _lib.hydra_lab_t3_profile.argtypes = [VP, CI, VP, VP, VP, VP, VP]
+        _lib.hydra_lab_t3_profile.restype = CI
     return _lib
 
 
@@ -243,20 +252,31 @@ def packet_traverse_plain(rays8, nodes128, tris128):
     return out
 
 
-def packet_traverse(rays8, nodes128, tris128):
+def packet_traverse(rays8, nodes128, tris128, profile=None):
     """rays8 (8, R) f32 [ox oy oz tmax dx dy dz pad], R a multiple of 128,
     nodes128 (N, 128), tris128 (B, 128) f32 -> (8, R) f32 = [t, slot bits,
     u, v, visits, 0, 0, 0]: the tool's packet_traverse. A CUDA tensor
-    launches the kernel, a CPU tensor runs packet_traverse_plain."""
+    launches the kernel, a CPU tensor runs packet_traverse_plain. On the
+    card, `profile`, a zeroed int64 tensor (R / 128, 8), runs the kernel's
+    profiling build, which fills it per packet (PROFILE)."""
     _check(rays8, nodes128, tris128)
     if not rays8.is_cuda:
+        if profile is not None:
+            raise ValueError("the profile is the kernel's: a CUDA tensor")
         return packet_traverse_plain(rays8, nodes128, tris128)
     R = rays8.shape[1]
     out = torch.empty((8, R), dtype=torch.float32, device=rays8.device)
-    launch(_kernel_lib(), "hydra_lab_packet_walk", "T3 packet walk",
-           rays8.device, P, STACK_D, MAX_VISITS, int(CLAMP),
-           rays8.data_ptr(), R, nodes128.data_ptr(),
-           tris128.data_ptr(), out.data_ptr(), None)
+    if profile is None:
+        launch(_kernel_lib(), "hydra_lab_packet_walk", "T3 packet walk",
+               rays8.device, P, STACK_D, MAX_VISITS, int(CLAMP),
+               rays8.data_ptr(), R, nodes128.data_ptr(),
+               tris128.data_ptr(), out.data_ptr(), None)
+    else:
+        check_tensor("profile", profile, torch.int64, (R // P, len(PROFILE)),
+                     rays8.device)
+        launch(_kernel_lib(), "hydra_lab_t3_profile", "T3 packet walk (profile)",
+               rays8.device, rays8.data_ptr(), R, nodes128.data_ptr(),
+               tris128.data_ptr(), out.data_ptr(), profile.data_ptr())
     global launches
     launches += 1
     return out
@@ -300,6 +320,134 @@ def tool_rays(r: int = N_RAYS) -> dict:
     rd_i = rng.normal(size=(r, 3)).astype(np.float32)
     rd_i /= np.linalg.norm(rd_i, axis=1, keepdims=True)
     return {"coherent": (ro_c, rd_c), "incoherent": (ro_i, rd_i)}
+
+
+def node_row(children) -> np.ndarray:
+    """One node row: children[c] = (bmin, bmax, payload) or None; the other
+    slots empty (NaN box, EMPTY_PAYLOAD), as bvh/wide.py leaves them."""
+    row = np.zeros((8, 16), np.float32)
+    row[:, 0:6] = np.nan
+    row.view(np.int32)[:, 6] = EMPTY_PAYLOAD
+    for c, ch in enumerate(children):
+        if ch is not None:
+            row[c, 0:3], row[c, 3:6] = ch[0], ch[1]
+            row.view(np.int32)[c, 6] = ch[2]
+    return row.reshape(128)
+
+
+def tri_row(tris) -> np.ndarray:
+    """One leaf row of up to 8 triangles (v0, v1, v2) as [v0 e1 e2 pad]; the
+    other slots far degenerate triangles (v0 at 1e30, no edges)."""
+    row = np.zeros((8, 16), np.float32)
+    row[:, 0:3] = 1e30
+    for k, (v0, v1, v2) in enumerate(tris):
+        v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
+        row[k, 0:3], row[k, 3:6], row[k, 6:9] = v0, v1 - v0, v2 - v0
+    return row.reshape(128)
+
+
+def _tri_edges(tris) -> np.ndarray:
+    """One leaf row of up to 8 triangles given as (v0, e1, e2) directly (an
+    edge too small to survive v1 - v0 at a far v0); the other slots far
+    degenerate triangles, as tri_row leaves them."""
+    row = tri_row([]).reshape(8, 16)
+    for k, (v0, e1, e2) in enumerate(tris):
+        row[k, 0:3], row[k, 3:6], row[k, 6:9] = v0, e1, e2
+    return row.reshape(128)
+
+
+def _rays8(ro, rd, tmax) -> torch.Tensor:
+    r8 = np.zeros((8, len(ro)), np.float32)
+    r8[0:3] = np.asarray(ro, np.float32).T
+    r8[3] = tmax
+    r8[4:7] = np.asarray(rd, np.float32).T
+    return torch.tensor(r8)
+
+
+# the cases adversarial_inputs() holds, in order
+ADVERSARIAL = ("edges", "max_visits", "sumuv")
+
+
+def _edges():
+    """T4's "edges" (proto_packet2._edges: signed zeros and +-1e-13 in d,
+    rays on and in box faces and from inside boxes, equal t in a leaf and
+    across leaves, a t_max at a hit's t, rays that enter no child of the
+    root) in 16 packets of 128."""
+    from hydracore_tpu_torch.tools import proto_packet2
+
+    rays7, nodes, tris = proto_packet2.adversarial_inputs()["edges"]
+    r = rays7.reshape(7, -1).numpy()
+    return _rays8(r[0:3].T, r[3:6].T, r[6]), nodes, tris
+
+
+def max_visits_case(p: int, levels: int = 5):
+    """One packet of p rays over a tree of `levels` node rows in a chain,
+    every row's 8 children the next row (the last row's: one leaf block),
+    all on the box [-1, 1]^3 that holds every ray's origin: the walk would
+    pop (8^(levels + 1) - 1) / 7 entries (37,449 for 5), so it stops at
+    MAX_VISITS with entries left on the stack (at most 7 * levels + 1).
+    Returns (ro, rd, nodes, tris) numpy."""
+    box = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    nodes = np.stack([node_row([(*box, d + 1 if d + 1 < levels else -1)] * 8)
+                      for d in range(levels)])
+    tris = tri_row([((-1, -1, z), (1, -1, z), (-1, 1, z))
+                    for z in np.linspace(-0.8, 0.8, 8)])[None]
+    rng = np.random.default_rng(23)
+    ro = rng.uniform(-0.9, 0.9, (p, 3))
+    rd = rng.normal(size=(p, 3))
+    return ro, rd, nodes, tris
+
+
+def _max_visits():
+    """max_visits_case for one T3 packet."""
+    ro, rd, nodes, tris = max_visits_case(P)
+    return _rays8(ro, rd, 1e30), torch.tensor(nodes), torch.tensor(tris)
+
+
+def _sumuv():
+    """Two packets of rays along +-z onto three leaves whose winner is the
+    unit right triangle at x = 0, 10 and 20 (u = x, v = y there), the rays
+    on its edges (u or v +-0: -0.0 where det < 0), inside it and off it;
+    the losers beside the winner: leaf A's give u = NaN (an edge of zeros
+    at a far vertex: inv 0 times an infinite dot), u = inf (|det| just
+    above 1e-12) and v = -inf, so the tool's sum is NaN; leaf B's have u <
+    0 and the far degenerate slots (u = -0.0, v = +0.0), so a winner's u =
+    -0.0 stays -0.0 in the sum and its v = -0.0 becomes +0.0; leaf C's
+    have u > 0, so a winner's u = -0.0 becomes +0.0."""
+    unit = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    leaf_a = _tri_edges([
+        ((0.0, 0.0, 0.0), *unit),
+        ((1e30, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1e10, 0.0)),
+        ((-1e30, 0.0, 0.0), (-2e-22, 0.0, 0.0), (0.0, 1e10, 0.0)),
+        ((0.0, 1e30, 0.0), (-1e10, 0.0, 0.0), (0.0, 1.0, 0.0))])
+    leaf_b = _tri_edges([((10.0, 0.0, 0.0), *unit),
+                         ((20.0, 0.0, 5.0), *unit)])
+    leaf_c = _tri_edges([((20.0, 0.0, 0.0), *unit),
+                         ((15.0, 0.0, 5.0), *unit)])
+    nodes = node_row([((-0.5, -0.5, -0.5), (1.5, 1.5, 0.5), -1),
+                      ((9.5, -0.5, -0.5), (11.5, 1.5, 5.5), -2),
+                      ((19.5, -0.5, -0.5), (21.5, 1.5, 5.5), -3)])[None]
+    xy = np.array([0.0, -0.0, 0.25, 0.5, 1.0, 1e-13, 0.75, 1.5], np.float32)
+    k = np.arange(P)
+    ro = np.stack([xy[k % 8] + 10.0 * (k // 8 % 3), xy[k // 24 % 8],
+                   np.full(P, -1.0)], 1)
+    ro[k // 8 % 3 == 0, 0] = xy[k[k // 8 % 3 == 0] % 8]  # keep -0.0 at x = 0
+    rd = np.stack([np.where(k % 2, 0.0, -0.0), np.where(k % 3, 0.0, -0.0),
+                   np.ones(P)], 1)
+    ro2, rd2 = ro.copy(), rd.copy()
+    ro2[:, 2], rd2[:, 2] = 1.0, -1.0  # from above: det > 0
+    rays = _rays8(np.concatenate([ro, ro2]), np.concatenate([rd, rd2]), 1e30)
+    return rays, torch.tensor(nodes), torch.tensor(np.stack([leaf_a, leaf_b,
+                                                            leaf_c]))
+
+
+def adversarial_inputs(device="cpu") -> dict:
+    """name -> (rays8, nodes, tris) on `device`, the cases the tool's ray
+    sets do not reach: "edges" (_edges), "max_visits" (_max_visits: a
+    packet cut at MAX_VISITS) and "sumuv" (_sumuv: the tool's u and v sums
+    where a loser's term is NaN and where the zeros' signs decide)."""
+    cases = {"edges": _edges(), "max_visits": _max_visits(), "sumuv": _sumuv()}
+    return {k: tuple(x.to(device) for x in cases[k]) for k in ADVERSARIAL}
 
 
 def run_main(tool, variant: str, device, r: int, n: int, scene) -> dict:

@@ -32,11 +32,11 @@ import sys
 import numpy as np
 import torch
 
-from hydracore_tpu_torch.bvh.wide import EMPTY_PAYLOAD
 from hydracore_tpu_torch.tools.proto_packet import (N_RAYS, _kernel_lib,
+                                                    max_visits_case, node_row,
                                                     pack_nodes,
                                                     packet_walk_plain,
-                                                    run_main)
+                                                    run_main, tri_row)
 from hydracore_tpu_torch.utils.build import CI, VP, launch
 from hydracore_tpu_torch.utils.lab import check_tensor
 
@@ -158,30 +158,6 @@ def ray_range(rays7, start: int, n: int):
 ADVERSARIAL = ("edges", "max_visits", "clamp")
 
 
-def _node_row(children) -> np.ndarray:
-    """One node row: children[c] = (bmin, bmax, payload) or None; the other
-    slots empty (NaN box, EMPTY_PAYLOAD), as bvh/wide.py leaves them."""
-    row = np.zeros((8, 16), np.float32)
-    row[:, 0:6] = np.nan
-    row.view(np.int32)[:, 6] = EMPTY_PAYLOAD
-    for c, ch in enumerate(children):
-        if ch is not None:
-            row[c, 0:3], row[c, 3:6] = ch[0], ch[1]
-            row.view(np.int32)[c, 6] = ch[2]
-    return row.reshape(128)
-
-
-def _tri_row(tris) -> np.ndarray:
-    """One leaf row of up to 8 triangles (v0, v1, v2) as [v0 e1 e2 pad]; the
-    other slots far degenerate triangles (v0 at 1e30, no edges)."""
-    row = np.zeros((8, 16), np.float32)
-    row[:, 0:3] = 1e30
-    for k, (v0, v1, v2) in enumerate(tris):
-        v0, v1, v2 = (np.asarray(v, np.float32) for v in (v0, v1, v2))
-        row[k, 0:3], row[k, 3:6], row[k, 6:9] = v0, v1 - v0, v2 - v0
-    return row.reshape(128)
-
-
 def _rays7(ro, rd, tmax) -> torch.Tensor:
     r7 = np.concatenate([np.asarray(ro, np.float32).T,
                          np.asarray(rd, np.float32).T,
@@ -206,19 +182,19 @@ def _edges():
     face0 = ((0, 0, 0), (0, 1, 0), (0, 0, 1))
     face25 = ((2.5, 0, 0), (2.5, 1, 0), (2.5, 0, 1))
     tris = np.stack([
-        _tri_row([t1, t1, ((1, 1, 0.5), (0, 1, 0.5), (1, 0, 0.5)), face0]),  # A
-        _tri_row([t1, t1, ((0, 0, 0.25), (1, 0, 0.25), (1, 1, 0.25))]),     # B
-        _tri_row([((2.25, 0, 0), (2.25, 1, 0), (2.25, 0, 1)), face25]),      # C
-        _tri_row([face25, ((2.75, 0, 0), (2.75, 1, 1), (2.75, 0, 1))]),      # D
-        _tri_row([((-0.5, 0, 0), (-0.5, 1, 0), (-0.5, 0, 1)), face0]),       # E
-        _tri_row([((0, 0, 2), (1, 0, 2), (0, 1, 2))]),                       # F
+        tri_row([t1, t1, ((1, 1, 0.5), (0, 1, 0.5), (1, 0, 0.5)), face0]),  # A
+        tri_row([t1, t1, ((0, 0, 0.25), (1, 0, 0.25), (1, 1, 0.25))]),     # B
+        tri_row([((2.25, 0, 0), (2.25, 1, 0), (2.25, 0, 1)), face25]),      # C
+        tri_row([face25, ((2.75, 0, 0), (2.75, 1, 1), (2.75, 0, 1))]),      # D
+        tri_row([((-0.5, 0, 0), (-0.5, 1, 0), (-0.5, 0, 1)), face0]),       # E
+        tri_row([((0, 0, 2), (1, 0, 2), (0, 1, 2))]),                       # F
     ])
     nodes = np.stack([
-        _node_row([(*unit, -1), (*unit, -2),
+        node_row([(*unit, -1), (*unit, -2),
                    ((2.0, 0.0, 0.0), (3.0, 1.0, 1.0), 1), None,
                    ((-1.0, 0.0, 0.0), (0.0, 1.0, 1.0), -5),
                    ((0.0, 0.0, 2.0), (1.0, 1.0, 2.0), -6)]),
-        _node_row([((2.0, 0.0, 0.0), (2.5, 1.0, 1.0), -3),
+        node_row([((2.0, 0.0, 0.0), (2.5, 1.0, 1.0), -3),
                    ((2.5, 0.0, 0.0), (3.0, 1.0, 1.0), -4)]),
     ])
     rng = np.random.default_rng(17)
@@ -253,20 +229,9 @@ def _edges():
     return _rays7(ro, rd, tmax), torch.tensor(nodes), torch.tensor(tris)
 
 
-def _max_visits(levels: int = 5):
-    """One packet over a tree of `levels` node rows in a chain, every row's
-    8 children the next row (the last row's: one leaf block), all on the
-    box [-1, 1]^3 that holds every ray's origin: the walk would pop
-    (8^(levels + 1) - 1) / 7 entries (37,449 for 5), so it stops at
-    MAX_VISITS with entries left on the stack."""
-    box = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
-    nodes = np.stack([_node_row([(*box, d + 1 if d + 1 < levels else -1)] * 8)
-                      for d in range(levels)])
-    tris = _tri_row([((-1, -1, z), (1, -1, z), (-1, 1, z))
-                     for z in np.linspace(-0.8, 0.8, 8)])[None]
-    rng = np.random.default_rng(23)
-    ro = rng.uniform(-0.9, 0.9, (P, 3))
-    rd = rng.normal(size=(P, 3))
+def _max_visits():
+    """proto_packet.max_visits_case for one T4 packet."""
+    ro, rd, nodes, tris = max_visits_case(P)
     return (_rays7(ro, rd, np.full(P, 1e30)), torch.tensor(nodes),
             torch.tensor(tris))
 
@@ -297,10 +262,10 @@ def _clamp(levels: int = 48):
             else:
                 n_leaf += 1
                 children.append((*(far if c == 3 and d % 2 else box), -n_leaf))
-        rows.append(_node_row(children))
+        rows.append(node_row(children))
     order = np.random.default_rng(29).permutation(n_leaf)
     z = -0.95 + 1.9 * (order + 0.5) / n_leaf
-    tris = np.stack([_tri_row([((-4, -4, zk), (8, -4, zk), (-4, 8, zk))])
+    tris = np.stack([tri_row([((-4, -4, zk), (8, -4, zk), (-4, 8, zk))])
                      for zk in z])
     rng = np.random.default_rng(31)
     ro = rng.uniform(-0.9, 0.9, (P, 3))

@@ -10,8 +10,8 @@ the numpy oracle on a scene that lies on the card), bidirectional path
 tracing strategy by strategy, one Metropolis step of PSSMLT and of MMLT
 from a shared chain state, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
-plain versions on the card (T1, T2, T4 and T6 also on their tools'
-adversarial_inputs; T4 also in its profiling build).
+plain versions on the card (T1-T6 also on their tools' adversarial_inputs;
+T3, T4 and T5 also in their profiling builds).
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -646,6 +646,42 @@ def test_lab_subvisit_kernel_matches_plain(cuda, name):
     assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
 
 
+@pytest.mark.parametrize("name", t5.ADVERSARIAL)
+def test_lab_subvisit_adversarial_matches_plain(cuda, name):
+    """T5 on t5.adversarial_inputs (dw = +-0 with ow = 0 and ow != 0, -0.0
+    in rays and rows, subnormal dw and ow, t at 1e-5 and at the tagged
+    t_cur, ties across lanes, steps with no candidate, misses on every
+    lane), every variant, the timed build and the profiling build: every
+    word bit for bit."""
+    rays, tris, lst = t5.adversarial_inputs(cuda)[name]
+    for variant, (n_bands, interleave) in t5.VARIANTS.items():
+        want = t5.subvisit_plain(rays, tris, lst, n_bands, interleave)
+        got = t5.subvisit(rays, tris, lst, n_bands, interleave)
+        prof = torch.zeros(len(t5.PROFILE), dtype=torch.int64, device=cuda)
+        got_p = t5.subvisit(rays, tris, lst, n_bands, interleave, profile=prof)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), variant
+        assert torch.equal(_bits(got_p), _bits(want)), variant
+        walk, kept = prof.tolist()
+        assert 0 < walk <= kept <= 32 * walk, variant
+
+
+def test_lab_subvisit_profile_counts(cuda):
+    """The profiling build on the tool's draws: its output the plain
+    version's, and its counts those of a kept set that holds every
+    candidate (t in (1e-5, t_cur)) of the steps."""
+    rays, tris, lst = t5.inputs(4, 16, 8, seed=1, device=cuda)
+    prof = torch.zeros(len(t5.PROFILE), dtype=torch.int64, device=cuda)
+    got = t5.subvisit(rays, tris, lst, 1, False, profile=prof)
+    want = t5.subvisit_plain(rays, tris, lst, 1, False)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    walk, kept = prof.tolist()
+    assert 0 < walk <= kept <= rays.shape[0] * 16 * t5.LANES
+    with pytest.raises(ValueError, match="profile"):
+        t5.subvisit(rays, tris, lst, profile=prof[:1])
+
+
 @pytest.mark.parametrize("variant", ["floor", "fm4", "stagea1", "stagea3",
                                      "compact1", "compact2"])
 def test_lab_cluster_cost_kernel_matches_plain(cuda, variant):
@@ -752,6 +788,55 @@ def _t4_equal(k, p) -> bool:
     return all(torch.equal(_bits(a) if a.is_floating_point() else a,
                            _bits(b) if b.is_floating_point() else b)
                for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("name", t3.ADVERSARIAL)
+def test_lab_t3_adversarial_matches_plain(cuda, name):
+    """T3 on t3.adversarial_inputs ("edges": T4's case in packets of 128;
+    "max_visits": a packet cut at 4,096 pops; "sumuv": the tool's u and v
+    sums where a loser's term is NaN and where the zeros' signs decide): t,
+    slot bits, u, v, visits and the zero rows bit for bit."""
+    rays8, nodes, tris = t3.adversarial_inputs(cuda)[name]
+    before = t3.launches
+    out_k = t3.packet_traverse(rays8, nodes, tris)
+    assert t3.launches == before + 1
+    out_p = t3.packet_traverse_plain(rays8, nodes, tris)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out_k), _bits(out_p))
+    vis = out_k[4].reshape(-1, t3.P)[:, 0]
+    if name == "max_visits":
+        assert vis.tolist() == [float(t3.MAX_VISITS)]
+    elif name == "sumuv":
+        assert torch.isnan(out_k[2]).any() and torch.isnan(out_k[3]).any()
+        assert (_bits(out_k[2]) == -2 ** 31).any()  # a -0.0 winner kept
+    else:
+        assert vis[8:].tolist() == [1.0] * 8
+
+
+def test_lab_t3_profile_matches_plain(cuda):
+    """T3's profiling build on 2 packets of random rays over the 350 rects:
+    the plain version's outputs, bit for bit, and a profile whose node and
+    leaf entries sum to the visits."""
+    sc = _rects_scene().to(cuda)
+    nodes, tris = t3.pack_scene(sc)
+    rng = np.random.default_rng(5)
+    ro = rng.uniform(-6, 6, (2 * t3.P, 3)).astype(np.float32)
+    rd = rng.normal(size=(2 * t3.P, 3)).astype(np.float32)
+    rays = t3.pack_rays(ro, rd).to(cuda)
+    out_p = t3.packet_traverse_plain(rays, nodes, tris)
+    prof = torch.zeros((2, len(t3.PROFILE)), dtype=torch.int64, device=cuda)
+    out_k = t3.packet_traverse(rays, nodes, tris, profile=prof)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out_k), _bits(out_p))
+    prof = prof.cpu()
+    vis = out_p[4].reshape(2, t3.P)[:, 0].cpu()
+    assert torch.equal((prof[:, 3] + prof[:, 4]).float(), vis)
+    assert (prof[:, 1] > prof[:, 0]).all() and (prof[:, 3] > 0).all()
+    assert (prof[:, 5] <= prof[:, 3] * t3.WARPS * 8).all()  # live children
+    assert (prof[:, 6] <= prof[:, 7]).all()  # past the first pass: tested
+    assert (prof[:, 7] <= prof[:, 4] * t3.WARPS * 8).all()
+    with pytest.raises(ValueError, match="profile"):
+        t3.packet_traverse(rays, nodes, tris, profile=prof[:1].to(cuda))
 
 
 @pytest.mark.parametrize("name", t4.ADVERSARIAL)

@@ -25,6 +25,11 @@ Tolerances:
     ox*bx + oy*by + oz*bz + bc differs from the separate f32 operations in
     a fifth of the lanes), the port and its kernel round every operation,
     and -ow/dw cancels, so t moves by up to ~1e-5 relative on a few rays.
+    On t5.adversarial_inputs (axis rays against rows of small dyadic values,
+    where every order of rounding agrees) the words are equal bit for bit;
+    XLA:CPU flushes subnormals to zero, so the "subnormal" case is held
+    against the plain version of its inputs with their subnormals flushed
+    to signed zeros (the case makes no subnormal from normal values).
   * T1 cost variants: floor bit-equal (a copy), the occupancy word and the
     entered-position counts equal, also on t1.adversarial_inputs (NaN
     origins, |d| < 1e-12 of both signs and -0.0, boxes at +-1e30, inverted
@@ -238,6 +243,46 @@ def test_subvisit_matches_tool(subvisit_inputs, name, monkeypatch):
     np.testing.assert_allclose(clear(wp), clear(wj), rtol=1e-4)
 
 
+def _flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """x with every subnormal replaced by a zero of its sign."""
+    small = (x != 0) & (x.abs() < 2.0 ** -126)
+    return torch.where(small, torch.copysign(torch.zeros_like(x), x), x)
+
+
+@pytest.mark.parametrize("name", t5.ADVERSARIAL)
+def test_subvisit_adversarial_matches_tool(name, monkeypatch):
+    """t5.adversarial_inputs through the tool and the plain version, every
+    variant: the tolerances of the module docstring and, on these exact
+    inputs, every word equal; "subnormal" against the plain version of the
+    flushed inputs, which the unflushed one is not (the tool's machine
+    flushes subnormals)."""
+    rays, tris, lst = t5.adversarial_inputs()[name]
+    mod = _load_tool("proto_subvisit", monkeypatch)
+    for variant, (n_bands, interleave) in t5.VARIANTS.items():
+        kern = (mod.make_plain(t5.ADV_V) if n_bands == 1
+                else mod.make_sub(t5.ADV_V // n_bands, n_bands, interleave))
+        rec = _JitRecorder()
+        with pytest.MonkeyPatch.context() as jit:
+            jit.setattr(jax, "jit", rec.jit)
+            mod.run(kern, t5.ADV_G, jnp.asarray(rays.numpy()),
+                    jnp.asarray(tris.numpy()), jnp.asarray(lst.numpy()))
+        (out_j,) = rec.outs
+        args = ((_flush_subnormals(rays), _flush_subnormals(tris))
+                if name == "subnormal" else (rays, tris))
+        out_p = t5.subvisit(*args, lst, n_bands, interleave).numpy()
+        wp, wj = _bits(out_p), _bits(out_j)
+        assert ((wp & 127) == (wj & 127)).mean() >= 0.999, variant
+        assert (wp == wj).mean() >= 0.99, variant
+        clear = lambda w: (w & np.int32(-128)).view(np.float32)  # noqa: E731
+        np.testing.assert_allclose(clear(wp), clear(wj), rtol=1e-4)
+        assert np.array_equal(wp, wj), variant
+        hit = out_p < 1e38
+        assert 0 < hit.sum() < hit.size, variant
+        if name == "subnormal":
+            raw = _bits(t5.subvisit(rays, tris, lst, n_bands, interleave).numpy())
+            assert not np.array_equal(raw, wj), variant
+
+
 def test_subvisit_repeat_and_concat_differ(subvisit_inputs):
     """pltpu.repeat tiles the stacked rows, so its groups interleave: the
     two operand builds of the tool are two functions."""
@@ -393,6 +438,9 @@ def test_lab_wrappers_check_their_inputs():
         t5.subvisit(rays, tris, lst, 4)
     with pytest.raises(ValueError, match="multiple"):
         t5.subvisit(rays[:100], tris, lst[:4], 4)
+    with pytest.raises(ValueError, match="profile"):
+        t5.subvisit(rays, tris, lst[:4], 4,
+                    profile=torch.zeros(len(t5.PROFILE), dtype=torch.int64))
     blocks = torch.zeros((4, 256, 8))
     with pytest.raises(ValueError, match="multiple of 3"):
         t1.cluster_cost("fm", blocks, torch.zeros(4, dtype=torch.int32),

@@ -21,7 +21,11 @@ port rounds every operation and sums in index order, so against the tools
   * T3, T4: hit masks equal, t within rtol 1e-4, slots equal on >= 99.9%
     of hits, u and v within atol 1e-4 where the slots agree, visit counts
     within 2% per packet (equal is expected; an FMA-contracted t can move
-    a push).
+    a push). On their adversarial_inputs (exact values) t, slots and visits
+    equal bit for bit; T3's "sumuv" meets a rewrite of XLA's: the tool's
+    one-hot times u is taken as a select, so a loser's 0 * inf is not NaN
+    there and a -0.0 winner sums to +0.0, and the test holds the tool to
+    that form (test_t3_adversarial_matches_tool).
 The packers' arrays and T2's synthetic scene and rays are the tools' bit
 for bit.
 """
@@ -263,6 +267,68 @@ def test_t3_matches_tool(rect_scenes, monkeypatch):
                   out_p[4].reshape(-1, t3.P)[:, 0])
 
 
+@pytest.fixture(scope="module")
+def t3_adversarial():
+    return t3.adversarial_inputs()
+
+
+@pytest.mark.parametrize("name", t3.ADVERSARIAL)
+def test_t3_adversarial_matches_tool(t3_adversarial, name, monkeypatch):
+    """t3.adversarial_inputs through the tool (shimmed) and the plain
+    version: the tolerances of the module docstring and, on these exact
+    inputs, t, every slot and visit count equal bit for bit. "max_visits"
+    runs with MAX_VISITS 96 on both sides, as T4's case does. "sumuv": the
+    plain version sums winf[k] * u[k] as the tool's source writes it, so a
+    loser's 0 * inf makes u NaN and a -0.0 winner beside a loser of
+    positive u sums to +0.0; XLA:CPU rewrites the product of the one-hot
+    and u into a select (0 for a loser, whatever its u), so the tool gives
+    the winner's own u and v with -0.0 summed to +0.0. The test holds the
+    tool to that form of the plain walk's winners bit for bit, and the
+    plain version to the tool wherever the two forms agree."""
+    rays8, nodes, tris = t3_adversarial[name]
+    monkeypatch.setattr(pltpu, "bitcast", _shim_bitcast)
+    mod = _load_tool("proto_packet", monkeypatch)
+    if name == "max_visits":
+        monkeypatch.setattr(mod, "MAX_VISITS", 96)
+        monkeypatch.setattr(t3, "MAX_VISITS", 96)
+    out_j = np.asarray(mod.packet_traverse(
+        jnp.asarray(rays8.numpy()), jnp.asarray(nodes.numpy()),
+        jnp.asarray(tris.numpy()), interpret=True))
+    out_p = t3.packet_traverse(rays8, nodes, tris).numpy()
+    vis_j = out_j[4].reshape(-1, t3.P)
+    vis_p = out_p[4].reshape(-1, t3.P)
+    assert np.array_equal(_bits(out_p[0]), _bits(out_j[0]))
+    assert np.array_equal(_bits(out_p[1]), _bits(out_j[1]))
+    assert np.array_equal(vis_p, vis_j)
+    if name != "sumuv":
+        _walk_compare(out_j[0], _bits(out_j[1]), out_j[2], out_j[3],
+                      vis_j[:, 0], out_p[0], _bits(out_p[1]), out_p[2],
+                      out_p[3], vis_p[:, 0])
+    if name == "edges":
+        assert vis_p[8:, 0].tolist() == [1.0] * 8  # enter no child of the root
+        assert {8, 24, 32} <= set(_bits(out_p[1]).tolist())  # tie winners
+    elif name == "max_visits":
+        assert vis_p[0, 0] == 96
+    else:
+        r = rays8
+        own = t3.packet_walk_plain(r[0:3].T, r[4:7].T, r[3], nodes, tris, t3.P,
+                                   t3.STACK_D, t3.MAX_VISITS, False, False)
+        for row, own_row in ((2, own[2].numpy()), (3, own[3].numpy())):
+            select = own_row + np.float32(0.0)  # the select form: -0.0 + 0.0
+            assert np.array_equal(_bits(out_j[row]), _bits(select))
+            agree = _bits(select) == _bits(out_p[row])
+            assert np.array_equal(_bits(out_p[row])[agree],
+                                  _bits(out_j[row])[agree])
+            assert np.isnan(out_p[row][~agree]).any()  # a loser's 0 * inf
+            assert not np.isnan(out_j[row]).any()
+            # a -0.0 winner: +0.0 beside a loser of positive term, in both
+            assert ((_bits(own_row) == np.int32(-2 ** 31))
+                    & (_bits(out_p[row]) == 0)).any()
+        # a -0.0 winner whose losers' terms are all -0.0 stays -0.0 here
+        kept = _bits(out_p[2]) == np.int32(-2 ** 31)
+        assert kept.any() and (_bits(out_j[2])[kept] == 0).all()
+
+
 def test_t3_tool_does_not_trace_unshimmed(rect_scenes, monkeypatch):
     """Why the shim: the tool's pltpu.bitcast of a 0-d payload raises."""
     js, _ = rect_scenes
@@ -409,6 +475,10 @@ def test_traverse_lab_wrappers_check_their_inputs(rect_scenes):
         t3.packet_traverse(r8[:, :100].contiguous(), nodes, tris3)
     with pytest.raises(TypeError):
         t3.packet_traverse(r8.double(), nodes, tris3)
+    with pytest.raises(ValueError, match="CUDA"):  # the profile is the card's
+        t3.packet_traverse(r8, nodes, tris3,
+                           profile=torch.zeros((1, len(t3.PROFILE)),
+                                               dtype=torch.int64))
     nodes4, tris4 = t4.pack_scene(ps)
     r7 = t4.pack_rays(*_rays(t4.P // 2))
     with pytest.raises(ValueError, match="multiple of 1024"):
