@@ -44,7 +44,9 @@ routes run too: the wide-BVH loop on the packet path's scene at 256x256 and
 the dense route on the golden cornell box, each card against CPU. One pass
 of each kernel path runs under torch.profiler.
 Phase 12 is the kernel lab (hydracore_tpu_torch/tools/): the kernels of
-tools T7 (row gathers, S 4096, R 262,144, 16 iterations), T6 (ten probes
+tools T7 (row gathers, S 4096, R 262,144, 16 iterations; the window path
+and the direct kernel, also bit for bit on T7's adversarial inputs, any NaN
+matching any NaN), T6 (ten probes
 on (64, 128)), T5 (sub-visits, G 512, V 64, C 384) and T1 (the cluster
 kernel's cost split on bench_scene at 512x512, every variant and B1 as
 "full") held against their plain versions on the card at the tools' own
@@ -3749,21 +3751,41 @@ def lab_row(name, src, replaces, launches, err, ms, plain_ms, bound,
 
 
 def lab_gather(card, dev="cuda") -> list:
-    """T7 at the tool's size: both kernels equal to their plain versions,
-    timed beside them and beside embedding_bag over the same (R, 16) index
-    matrix (built outside the timed call); then the tool's main()."""
+    """T7 at the tool's size: gather() (the window path there) and the
+    direct kernel, both variants, bit for bit against the plain version (any
+    NaN matching any NaN) on the tool's inputs and on t7.adversarial_inputs,
+    which launch both paths and the window path's wrapping rows; timed
+    beside the plain version and beside embedding_bag over the same (R, 16)
+    index matrix (built outside the timed call); then the tool's main()."""
     from hydracore_tpu_torch.tools import bench_pallas_gather as t7
 
     pool, idx = t7.inputs(device=dev)
     S = pool.shape[0]
     idx16 = (idx.long() + torch.arange(t7.ITERS, device=idx.device)) % S
+    adversarial = t7.adversarial_inputs(dev)
     recs = {}
     for name, onehot in t7.VARIANTS.items():
+        t7.reset_launch_counts()
         out_k = t7.gather(pool, idx, onehot=onehot)
+        out_d = t7.gather_direct(pool, idx, onehot=onehot)
         out_p = t7.gather_plain(pool, idx, onehot=onehot)
         torch.cuda.synchronize()
-        if not torch.equal(out_k, out_p):
+        if not (t7.same_bits(out_k, out_p) and t7.same_bits(out_d, out_p)):
             raise AssertionError(f"phase 12 T7 {name}: kernel differs from plain")
+        wrapping = 0
+        for case, (p, i, iters) in adversarial.items():
+            got = t7.gather(p, i, iters, onehot)
+            direct = t7.gather_direct(p, i, iters, onehot)
+            want = t7.gather_plain(p, i, iters, onehot)
+            if not (t7.same_bits(got, want) and t7.same_bits(direct, want)):
+                raise AssertionError(f"phase 12 T7 {name} on {case}: kernel "
+                                     "differs from plain")
+            if t7.uses_window(i.shape[0], p.shape[0], iters):
+                wrapping += t7.wrapping_rows(i, p.shape[0], iters)
+        paths = {path: t7.launches[(name, path)] for path in t7.PATHS}
+        if min(paths.values()) == 0 or wrapping == 0:
+            raise AssertionError(f"phase 12 T7 {name}: launches by path "
+                                 f"{paths}, wrapping rows {wrapping}")
         rows = pool.to(torch.bfloat16).to(torch.float32) if onehot else pool
         lib = torch.nn.functional.embedding_bag(idx16, rows, mode="sum")
         lib_err = float((lib - out_k).abs().max())
@@ -3771,20 +3793,30 @@ def lab_gather(card, dev="cuda") -> list:
                             3, dev)
         lib_ms = lab.time_ms(lambda: torch.nn.functional.embedding_bag(
             idx16, rows, mode="sum"), 5, dev)
-        log(f"phase 12 T7 {name}: equal to the plain version; plain "
-            f"{plain:.4f} ms, embedding_bag {lib_ms:.4f} ms (max abs diff "
-            f"{lib_err:.3e}: another summation order) [{card}]")
+        log(f"phase 12 T7 {name}: both paths equal to the plain version, "
+            f"also on {', '.join(adversarial)} (launches by path {paths}, "
+            f"{wrapping} wrapping rows summed directly); plain {plain:.4f} "
+            f"ms, embedding_bag {lib_ms:.4f} ms (max abs diff {lib_err:.3e}: "
+            f"another summation order) [{card}]")
         recs[name] = (plain, lib_ms)
     t7.reset_launch_counts()
     res = t7.main(device=dev)
-    counts = {"taa": t7.gather_launches, "onehot": t7.onehot_launches}
     at = "tools/bench_pallas_gather.py"
-    return [lab_row(f"T7 row gather, {name}", "lab_gather.cu",
-                    f"{at}:{32 if name == 'taa' else 43}", counts[name], 0.0,
-                    res[name]["ms"], recs[name][0],
-                    (res[name]["bound_ms"], res[name]["bound_by"]),
-                    recs[name][1])
-            for name in t7.VARIANTS]
+    kernels = []
+    for name in t7.VARIANTS:
+        replaces = f"{at}:{32 if name == 'taa' else 43}"
+        bound = (res[name]["bound_ms"], res[name]["bound_by"])
+        kernels += [lab_row(f"T7 row gather, {name} (gather(): "
+                            f"{res[name]['path']} path)", "lab_gather.cu",
+                            replaces, t7.launches[(name, res[name]["path"])],
+                            0.0, res[name]["ms"], recs[name][0], bound,
+                            recs[name][1]),
+                    lab_row(f"T7 row gather, {name} (direct kernel)",
+                            "lab_gather.cu", replaces,
+                            t7.launches[(name, "direct")], 0.0,
+                            res[f"{name} direct"]["ms"], recs[name][0],
+                            bound, recs[name][1])]
+    return kernels
 
 
 def prim_library(x, xi) -> dict:
@@ -3810,19 +3842,6 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 def us_spread(ms: float, spread) -> str:
     return f"{ms * 1e3:.3f} us ({spread[0] * 1e3:.3f}-{spread[1] * 1e3:.3f})"
-
-
-def interleaved(fns: dict, n: int, device, reps: int = 4) -> dict:
-    """Each fn timed as a CUDA graph of n calls, reps times, in turns
-    (forward, then backward: A B C C B A ...), so that a drift of the card
-    over the run falls on all alike; name -> (median ms, (min, max))."""
-    ts = {name: [] for name in fns}
-    names = list(fns)
-    for rep in range(reps):
-        for name in (names if rep % 2 == 0 else names[::-1]):
-            ts[name].append(lab.time_ms(fns[name], n, device, graph=True))
-    return {name: (float(np.median(v)), (min(v), max(v)))
-            for name, v in ts.items()}
 
 
 def lab_prims(card, dev="cuda") -> list:
@@ -3870,7 +3889,7 @@ def lab_prims(card, dev="cuda") -> list:
                "floor": lambda: t6.empty(dev)}
         if k in library:
             fns["library"] = library[k]
-        times[k] = tm = interleaved(fns, t6.GRAPH_CALLS, dev)
+        times[k] = tm = lab.interleaved(fns, t6.GRAPH_CALLS, dev)
         (ms, sp), (fl, _) = tm["kernel"], tm["floor"]
         line = (f"phase 12 T6 k{k} in turns with the floor"
                 f"{' and its library call' if k in library else ''}, graphs "

@@ -1,6 +1,7 @@
 """What the kernel lab's tools (hydracore_tpu_torch/tools/) and
 chip_smoke.py share: the card's peak rates and the bound they give,
-input checks, timing, and the label that every printed time stands beside.
+input checks, timing (alone and in turns), and the label that every
+printed time stands beside.
 
 Times on the card come from CUDA events; on the CPU the tools run the
 plain versions, timed on the host's clock and labelled as such, never as a
@@ -9,6 +10,7 @@ device number.
 from __future__ import annotations
 
 import subprocess
+import statistics
 import time
 
 import torch
@@ -95,3 +97,16 @@ def time_ms(fn, n: int, device, graph: bool = False, result: bool = False,
         out.append(a.elapsed_time(b) / n)
     ms = out[0] if reps == 1 else out
     return (ms, res) if result else ms
+
+
+def interleaved(fns: dict, n: int, device, reps: int = 4) -> dict:
+    """Each fn timed as a CUDA graph of n calls, reps times, in turns
+    (forward, then backward: A B C C B A ...), so that a drift of the card
+    over the run falls on all alike; name -> (median ms, (min, max))."""
+    ts = {name: [] for name in fns}
+    names = list(fns)
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            ts[name].append(time_ms(fns[name], n, device, graph=True))
+    return {name: (statistics.median(v), (min(v), max(v)))
+            for name, v in ts.items()}

@@ -10,7 +10,7 @@ the numpy oracle on a scene that lies on the card), bidirectional path
 tracing strategy by strategy, one Metropolis step of PSSMLT and of MMLT
 from a shared chain state, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
-plain versions on the card (T1-T6 also on their tools' adversarial_inputs;
+plain versions on the card (T1-T7 also on their tools' adversarial_inputs;
 T3, T4 and T5 also in their profiling builds).
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
@@ -592,15 +592,49 @@ def test_instanced_render_on_card(cuda):
 
 @pytest.mark.parametrize("onehot", [False, True])
 def test_lab_gather_kernel_matches_plain(cuda, onehot):
-    pool, idx = t7.inputs(2000, 512, device=cuda)  # 2000 rows: 250 CTAs
-    before = (t7.gather_launches, t7.onehot_launches)
-    out_k = t7.gather(pool, idx, onehot=onehot)
-    after = (t7.gather_launches, t7.onehot_launches)
-    out_p = t7.gather_plain(pool, idx, onehot=onehot)
+    """The tool's inputs at 2,000 rows: S 512 takes the window path, S
+    16,384 the direct kernel (t7.uses_window); the direct kernel on both.
+    Each equal to the plain version, and counted on its path."""
+    name = "onehot" if onehot else "taa"
+    for s, path in ((512, "window"), (16384, "direct")):
+        pool, idx = t7.inputs(2000, s, device=cuda)  # 2000 rows: 250 CTAs
+        before = dict(t7.launches)
+        out_k = t7.gather(pool, idx, onehot=onehot)
+        out_d = t7.gather_direct(pool, idx, onehot=onehot)
+        after = dict(t7.launches)
+        out_p = t7.gather_plain(pool, idx, onehot=onehot)
+        torch.cuda.synchronize()
+        grown = {k: after[k] - before[k] for k in after}
+        want = {k: 0 for k in after}
+        want[(name, path)] += 1
+        want[(name, "direct")] += 1
+        assert grown == want, s
+        assert torch.equal(out_k, out_p) and torch.equal(out_d, out_p), s
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+@pytest.mark.parametrize("name", t7.ADVERSARIAL)
+def test_lab_gather_adversarial_matches_plain(cuda, name, onehot):
+    """T7 on t7.adversarial_inputs (idx at the int32 ends and rows whose
+    idx + it wraps at S 3000 and S 5, non-finite pools, bf16 ties,
+    subnormals, overflowing sums, 0 and 1 iterations, S > R): gather() on
+    the path its shapes choose and the direct kernel, bit for bit against
+    the plain version, any NaN matching any NaN."""
+    pool, idx, iters = t7.adversarial_inputs(cuda)[name]
+    path = ("window" if t7.uses_window(idx.shape[0], pool.shape[0], iters)
+            else "direct")
+    key = ("onehot" if onehot else "taa", path)
+    before = t7.launches[key]
+    out_k = t7.gather(pool, idx, iters, onehot)
+    assert t7.launches[key] == before + 1
+    out_d = t7.gather_direct(pool, idx, iters, onehot)
+    out_p = t7.gather_plain(pool, idx, iters, onehot)
     torch.cuda.synchronize()
-    assert after[int(onehot)] == before[int(onehot)] + 1
-    assert after[1 - int(onehot)] == before[1 - int(onehot)]
-    assert torch.equal(out_k, out_p)
+    assert t7.same_bits(out_k, out_p)
+    assert t7.same_bits(out_d, out_p)
+    if name in ("wrap_3000", "small_pool"):  # the window path's direct rows
+        assert path == "window"
+        assert t7.wrapping_rows(idx, pool.shape[0], iters) > 0
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
