@@ -1,0 +1,8 @@
+"""wavefront.span_ms_per_step: device ms a step of the operations launched
+inside a bounce span (`pt.bounce` / `lt.bounce` and their phases) but in no
+`trace.*` span, in the span pass's run of the traced steps."""
+from h100_bench import spans_pass
+
+
+def read(run):
+    return spans_pass.ms_per_step(run, "wavefront", "device_s")

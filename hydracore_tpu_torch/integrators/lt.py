@@ -16,6 +16,10 @@ package. The splat is a scatter-add with duplicates (many vertices land in
 one pixel): index_add_, never fb[flat] += x, which would keep one of them.
 The streams are keyed as the JAX package keys them (u32 arithmetic in
 int64, ops/rng.py), so both trace the same paths.
+
+With spans recording (utils/spans.py) a pass is the span `lt.pass`:
+`lt.emit`, then one `lt.bounce` a depth, cut into `lt.shade`,
+`lt.connect`, `lt.splat` and `lt.next`.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from hydracore_tpu_torch.lights.sampling import sample_light_fwd, select_light
 from hydracore_tpu_torch.ops import rng
 from hydracore_tpu_torch.ops.trace_api import any_hit, closest_hit
 from hydracore_tpu_torch.scene.scene import check_supported
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.utils.device import resolve_device
 from hydracore_tpu_torch.utils.math3d import dot3, offs_ray_pos, sqrt
 
@@ -43,10 +48,12 @@ def _world_to_view(cam, p):
     return p @ m[:3, :3].T + m[:3, 3]
 
 
+@spans.spanned("lt.pass")
 def _lt_pass(scene, pass_idx: int, seed: int, n_paths: int,
              max_depth: int) -> torch.Tensor:
     """lt_pass on a scene already on its device: the (H, W, 3) splat image
     of this pass."""
+    spans.phase("lt.emit", within="lt.pass")
     cam = scene.camera
     W, H = cam.width, cam.height
     dev = scene.tri_attr.device
@@ -75,7 +82,9 @@ def _lt_pass(scene, pass_idx: int, seed: int, n_paths: int,
     # x_{d+1}->cam = d+2) stay within the budget PT covers (its NEE at
     # depth d yields d+2 segments and stops at max_depth-2 too)
     for depth in range(max_depth - 1):
+        spans.phase("lt.bounce", within="lt.pass", depth=depth)
         t, tri, u, v = closest_hit(scene, ray_o, ray_d, active=alive)
+        spans.phase("lt.shade", within="lt.bounce")
         alive = alive & (tri >= 0)
         pos, n, ng, uv, mat_id, _, tang = compute_hit(scene, tri, u, v,
                                                       ray_o, ray_d, t)
@@ -88,6 +97,7 @@ def _lt_pass(scene, pass_idx: int, seed: int, n_paths: int,
         ng = torch.where(dot3(ng, -ray_d)[:, None] >= 0.0, ng, -ng)
 
         # ---- connect to eye (ConnectToEyeKernel semantics)
+        spans.phase("lt.connect", within="lt.bounce")
         to_cam = cam.pos - pos
         dist2 = torch.clamp(dot3(to_cam, to_cam), min=1e-12)
         dist = sqrt(dist2)
@@ -116,6 +126,7 @@ def _lt_pass(scene, pass_idx: int, seed: int, n_paths: int,
         contrib = T * f_adj * (factor / n_paths)[:, None]
         contrib = torch.where((can & ~occluded)[:, None], contrib, 0.0)
         # off-screen and dead lanes (NaN coordinates too) add 0 to pixel 0
+        spans.phase("lt.splat", within="lt.bounce")
         px = torch.where(can, fx, 0.0).to(torch.int64)
         py = torch.where(can, fy, 0.0).to(torch.int64)
         fb.index_add_(0, py * W + px, contrib)
@@ -124,6 +135,7 @@ def _lt_pass(scene, pass_idx: int, seed: int, n_paths: int,
             break
 
         # ---- next bounce
+        spans.phase("lt.next", within="lt.bounce")
         r_b = rng.rand4(sample_idx, depth, DG_LT_BSDF, seed)
         bs = sample_bsdf(p, -ray_d, n, r_b, feats)
         T = T * bs.weight

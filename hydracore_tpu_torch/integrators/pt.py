@@ -66,6 +66,7 @@ from hydracore_tpu_torch.ops.trace_api import (alpha_layer_hit, any_hit,
 from hydracore_tpu_torch.scene import materials as MC
 from hydracore_tpu_torch.scene.lights import LIGHT_SKY
 from hydracore_tpu_torch.scene.scene import check_supported
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.utils.device import resolve_device
 from hydracore_tpu_torch.utils.math3d import (cross3, dot3,
                                               make_orthonormal_basis,
@@ -327,7 +328,9 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     probes (has_proc_ao) and the layer split (render_layer). Returns
     (radiance (R,3) in caller order, rays_traced (int64 scalar tensor)):
     the ray counter feeds the Mrays/s metric (MRaysStat analogue) and
-    counts the AO probes too.
+    counts the AO probes too. Inside a `pt.tile` span (utils/spans.py)
+    each depth is a phase `pt.bounce` cut into `pt.sort`, `pt.shade`,
+    `pt.nee` and `pt.next`, and the unsort opens `pt.resolve`.
 
     With rand_fn(depth, group) -> (R, 4) uniforms the JAX package's legacy
     mode runs instead (PSSMLT's positional random provider, integrators/
@@ -413,9 +416,11 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
     multi_light = scene.light_attr.shape[0] > 1
 
     for depth in range(max_depth):
+        spans.phase("pt.bounce", within="pt.tile", depth=depth)
         if sorted_mode and depth > 0:
             # permute the whole live state into (octant, origin-Morton)
             # coherence order: one sort + one row gather per state tensor
+            spans.phase("pt.sort", within="pt.bounce")
             perm = coherence_order(scene, ray_o, ray_d, alive)
             ray_o, ray_d = ray_o[perm], ray_d[perm]
             throughput, acc = throughput[perm], acc[perm]
@@ -432,6 +437,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
                 med_sig_a, med_g = med_sig_a[perm], med_g[perm]
             if has_fog:
                 fog_state = fog_state[perm]
+            spans.phase(None, within="pt.bounce")
 
         rays_traced = rays_traced + alive.sum()
         if legacy and depth > 0:  # sort, trace, unsort inside the call
@@ -441,6 +447,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             t, tri, u, v = closest_hit(
                 scene, ray_o, ray_d, active=alive,
                 kind="primary" if depth == 0 else "bounce")
+        spans.phase("pt.shade", within="pt.bounce")
         hit = alive & (tri >= 0)
         miss = alive & ~hit
 
@@ -566,6 +573,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
 
         # ---- NEE (ShadePass: LightSample -> ShadowTrace -> Shade); shade
         # with the viewer-oriented normal (two-sided reflection)
+        spans.phase("pt.nee", within="pt.bounce")
         ns = torch.where(dot3(n, wo)[:, None] >= 0.0, n, -n)
         ngs = torch.where(dot3(ng, wo)[:, None] >= 0.0, ng, -ng)
         ls = sample_light_rev(scene, l_idx, r_l[:, :3], pos, rows=rows_nee)
@@ -599,6 +607,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
         acc = acc + torch.where((need_sh & ~occluded)[:, None], contrib, 0.0)
 
         # ---- next bounce (NextBounce: BSDF sample, RR, flags)
+        spans.phase("pt.next", within="pt.bounce")
         bs = sample_bsdf(p, wo, ns, rand(sidx, depth, DG_BSDF), feats)
         wi, weight, prev_pdf, prev_spec = bs.wi, bs.weight, bs.pdf, bs.is_specular
         through = bs.is_transmission  # the ray goes on through the surface
@@ -685,6 +694,7 @@ def pt_trace(scene, ray_o, ray_d, sample_idx, seed, max_depth: int = 5,
             prev_pdf = torch.where(scat, 0.0, prev_pdf)
         ray_d = wi
 
+    spans.phase("pt.resolve", within="pt.tile")
     if not sorted_mode:
         return acc, rays_traced
     out = torch.empty_like(acc)  # restore caller ray order (one scatter)
@@ -848,10 +858,14 @@ def _production_rays(scene, pix_ids, pass_base: int, seed: int,
     return eye_rays(scene.camera, pix, samp, seed)
 
 
+@spans.spanned("pt.tile")
 def _tile_production(scene, pix_ids, pass_base: int, seed: int,
                      k_samples: int, max_depth: int):
     """render_tile_production on a scene already on its device, with the
-    rays traced (int64 scalar tensor)."""
+    rays traced (int64 scalar tensor). The span `pt.tile`: `pt.eye_rays`,
+    pt_trace's `pt.bounce` a depth, `pt.resolve` (the unsort, clamp and
+    mean)."""
+    spans.phase("pt.eye_rays", within="pt.tile")
     ray_o, ray_d, sample_idx = _production_rays(scene, pix_ids, pass_base,
                                                 seed, k_samples)
     color, rays = pt_trace(scene, ray_o, ray_d, sample_idx, seed,

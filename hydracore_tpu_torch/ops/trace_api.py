@@ -30,6 +30,10 @@ Secondary wavefronts of the cluster path are sorted by (direction octant,
 origin Morton) before traversal so that a ray block shares an octant and a
 small box, the coherence its block kernels prune with. The other paths take
 the rays as they come (wants_sorted_rays).
+
+closest_hit and any_hit are the spans `trace.closest` and `trace.any`
+(utils/spans.py), with the route's name, and count the live rays they are
+handed in `trace.live_rays`, whenever spans are recording.
 """
 from __future__ import annotations
 
@@ -42,9 +46,11 @@ from hydracore_tpu_torch.ops import (traverse_cluster, traverse_dense,
                                      traverse_packet, traverse_wide)
 from hydracore_tpu_torch.ops.intersect import ray_args, want_double
 from hydracore_tpu_torch.ops.rng import M32
+from hydracore_tpu_torch.utils import spans
 
 _BY_NAME = {"dense": traverse_dense, "cluster": traverse_cluster,
             "packet": traverse_packet, "wide": traverse_wide}
+_ROUTE = {mod: name for name, mod in _BY_NAME.items()}
 
 
 def _pick(scene):
@@ -62,13 +68,20 @@ def _pick(scene):
 def closest_hit(scene, ray_o, ray_d, t_max=1e30, active=None,
                 kind: str = "primary"):
     mod = _pick(scene)
-    if mod is traverse_cluster:  # per-wavefront-kind ray-block size
-        return mod.closest_hit(scene, ray_o, ray_d, t_max, active, kind)
-    return mod.closest_hit(scene, ray_o, ray_d, t_max, active)
+    with spans.span("trace.closest", route=_ROUTE[mod]):
+        spans.count("trace.live_rays",
+                    ray_o.shape[0] if active is None else active)
+        if mod is traverse_cluster:  # per-wavefront-kind ray-block size
+            return mod.closest_hit(scene, ray_o, ray_d, t_max, active, kind)
+        return mod.closest_hit(scene, ray_o, ray_d, t_max, active)
 
 
 def any_hit(scene, ray_o, ray_d, t_max, active=None):
-    return _pick(scene).any_hit(scene, ray_o, ray_d, t_max, active)
+    mod = _pick(scene)
+    with spans.span("trace.any", route=_ROUTE[mod]):
+        spans.count("trace.live_rays",
+                    ray_o.shape[0] if active is None else active)
+        return mod.any_hit(scene, ray_o, ray_d, t_max, active)
 
 
 def wants_sorted_rays(scene) -> bool:

@@ -19,16 +19,16 @@ cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 the same contract. It counts kernel launches in closest_launches /
 any_launches (B1/B2), opaque_any_launches (B2 over the opaque shadow pool
 of an alpha scene), ao_any_launches (B2 on the path tracer's AO probes)
-and inst_closest_launches / inst_any_launches (B3).
+and inst_closest_launches / inst_any_launches (B3): module attributes
+read from the always-counted counters of utils/spans.py.
 """
 from __future__ import annotations
-
-import sys
 
 import torch
 
 from hydracore_tpu_torch.ops.intersect import (mt_refine, safe_inv,
                                                 want_double)
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.utils.build import CI, VP, launch, load_lib
 
 BIG = 3.0e38
@@ -39,24 +39,21 @@ LANES = 128
 R_BLK = 256
 R_BLK_BOUNCE = 128
 
-closest_launches = 0
-any_launches = 0
-inst_closest_launches = 0
-inst_any_launches = 0
-opaque_any_launches = 0
-ao_any_launches = 0
+LAUNCH_COUNTERS = ("closest_launches", "any_launches",
+                   "inst_closest_launches", "inst_any_launches",
+                   "opaque_any_launches", "ao_any_launches")
 
 _lib = None
 
 
+def __getattr__(name):
+    if name in LAUNCH_COUNTERS:
+        return spans.value("traverse_cluster." + name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launch_counts() -> None:
-    this = sys.modules[__name__]
-    this.closest_launches = 0
-    this.any_launches = 0
-    this.inst_closest_launches = 0
-    this.inst_any_launches = 0
-    this.opaque_any_launches = 0
-    this.ao_any_launches = 0
+    spans.reset(*("traverse_cluster." + k for k in LAUNCH_COUNTERS))
 
 
 # the upper level of the two-level walk, in the order the kernel takes it:
@@ -203,11 +200,10 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
            rays.device, *(None if x is None else x.data_ptr() for x in args),
            t.data_ptr(), slot.data_ptr(), G * r_blk, r_blk,
            lvl_members.shape[1], lvl_bounds.shape[1], int(any_hit_mode))
-    this = sys.modules[__name__]
-    name = ("inst_" if inst else "opaque_" if opaque_pool
-            else "ao_" if ao_probes else "") \
-        + ("any" if any_hit_mode else "closest") + "_launches"
-    setattr(this, name, getattr(this, name) + 1)
+    pool = ("inst_" if inst else "opaque_" if opaque_pool
+            else "ao_" if ao_probes else "")
+    hit = "any" if any_hit_mode else "closest"
+    spans.bump(f"traverse_cluster.{pool}{hit}_launches")
     return t, slot
 
 

@@ -18,20 +18,21 @@ one vote at the offsets push_positions gives.
 packet_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs packet_traverse_plain, the twin with
 the same contract, walk order and packet size. It counts kernel launches in
-closest_launches / any_launches. A check that wants every launch's visit
-counts (MAX_VISITS means a walk was cut short) sets visits_hook; the wrapper
-itself adds nothing to the launch.
+closest_launches / any_launches (module attributes read from the
+always-counted counters of utils/spans.py). A check that wants every
+launch's visit counts (MAX_VISITS means a walk was cut short) sets
+visits_hook; the wrapper itself adds nothing to the launch.
 """
 from __future__ import annotations
 
 import ctypes
-import sys
 
 import numpy as np
 import torch
 
 from hydracore_tpu_torch.bvh.wide import EMPTY_PAYLOAD
 from hydracore_tpu_torch.ops.intersect import safe_inv
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.utils.build import CI, VP, launch, load_lib
 
 PKT = 32            # rays per packet: one warp
@@ -41,8 +42,7 @@ BIG = 3.0e38
 # traverse_packet.cu's name for the text of a CUDA error
 ERR_FN = "hydra_packet_error_string"
 
-closest_launches = 0
-any_launches = 0
+LAUNCH_COUNTERS = ("closest_launches", "any_launches")
 
 # for checks: a callable given the (G,) visit counts of every kernel launch
 visits_hook = None
@@ -50,10 +50,14 @@ visits_hook = None
 _lib = None
 
 
+def __getattr__(name):
+    if name in LAUNCH_COUNTERS:
+        return spans.value("traverse_packet." + name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launch_counts() -> None:
-    this = sys.modules[__name__]
-    this.closest_launches = 0
-    this.any_launches = 0
+    spans.reset(*("traverse_packet." + k for k in LAUNCH_COUNTERS))
 
 
 def _kernel_lib():
@@ -148,11 +152,8 @@ def packet_traverse(rays, nodes, tris, any_hit_mode: bool = False,
            u.data_ptr(), v.data_ptr(), slot.data_ptr(), visits.data_ptr(),
            None if profile is None else profile.data_ptr(), G * PKT,
            int(any_hit_mode), err_fn=ERR_FN)
-    this = sys.modules[__name__]
-    if any_hit_mode:
-        this.any_launches += 1
-    else:
-        this.closest_launches += 1
+    spans.bump("traverse_packet." + ("any" if any_hit_mode else "closest")
+               + "_launches")
     if visits_hook is not None:
         visits_hook(visits)
     return t, u, v, slot, visits

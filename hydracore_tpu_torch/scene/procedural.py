@@ -30,6 +30,7 @@ from hydracore_tpu_torch.scene.scene import (SceneData, build_mesh_light_tables,
                                              check_traversal, finalize_scene,
                                              part_cap_for, wide_pools)
 from hydracore_tpu_torch.scene.statefile import CameraDesc, RenderSettings
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.lights.envmap import build_env_pdf
 
 
@@ -190,6 +191,7 @@ class SceneBuilder:
         self.add_rect([h, 0, 0], ey, ez, mat_right, flip=True)  # right, n=-x
 
     # ---- finalize
+    @spans.spanned("scene.build")
     def build(self, cam_pos, cam_lookat, fov=45.0, width=64, height=64,
               trace_depth=5, lens_radius=0.0,
               part_cap: int = CL_PART_CAP,
@@ -197,7 +199,8 @@ class SceneBuilder:
         """Compile the recipe. A pool of more than `part_cap` clusters is
         partitioned into chunks of that many (bvh/clusters.py). `traversal`
         is the scene's static choice of traversal (ops/trace_api.py);
-        "packet" and "wide" keep the cluster pool flat."""
+        "packet" and "wide" keep the cluster pool flat. The span
+        `scene.build` (utils/spans.py), with a child a stage."""
         check_traversal(traversal, False)
         T = max(len(self.tris), 1)
         if not self.tris:
@@ -211,12 +214,14 @@ class SceneBuilder:
         v0 = np.stack([t[0] for t in self.tris]).astype(np.float32)
         v1 = np.stack([t[1] for t in self.tris]).astype(np.float32)
         v2 = np.stack([t[2] for t in self.tris]).astype(np.float32)
-        bvh = build_bvh_auto(v0, v1, v2)
+        with spans.span("scene.bvh"):
+            bvh = build_bvh_auto(v0, v1, v2)
         p = bvh.perm
-        pools = wide_pools(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p])
-        cl = maybe_partition(
-            cut_clusters(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p]),
-            part_cap_for(traversal, part_cap))
+        with spans.span("scene.layout"):
+            pools = wide_pools(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p])
+            cl = maybe_partition(
+                cut_clusters(bvh, v0[p], (v1 - v0)[p], (v2 - v0)[p]),
+                part_cap_for(traversal, part_cap))
 
         pts = np.concatenate([v0, v1, v2], 0)
         wb_min = pts.min(0).astype(np.float32)
@@ -234,19 +239,21 @@ class SceneBuilder:
         lights = _stack_lights(self.light_recs)
 
         tri_light_arr = np.asarray(g(10), np.int32)
-        lights, ml_cdf, ml_tri = build_mesh_light_tables(
-            lights, tri_light_arr, v0[p], (v1 - v0)[p], (v2 - v0)[p])
+        with spans.span("scene.lights"):
+            lights, ml_cdf, ml_tri = build_mesh_light_tables(
+                lights, tri_light_arr, v0[p], (v1 - v0)[p], (v2 - v0)[p])
 
-        cam = build_camera(
-            CameraDesc(
-                fov=fov,
-                position=np.asarray(cam_pos, np.float32),
-                look_at=np.asarray(cam_lookat, np.float32),
-                enable_dof=lens_radius > 0,
-                dof_lens_radius=lens_radius,
-            ),
-            width, height,
-        )
+        with spans.span("scene.camera"):
+            cam = build_camera(
+                CameraDesc(
+                    fov=fov,
+                    position=np.asarray(cam_pos, np.float32),
+                    look_at=np.asarray(cam_lookat, np.float32),
+                    enable_dof=lens_radius > 0,
+                    dof_lens_radius=lens_radius,
+                ),
+                width, height,
+            )
         settings = RenderSettings(
             width=width, height=height, trace_depth=trace_depth,
             has_alpha=any(r["opacity_tex"] != 0 for r in self.mat_recs),

@@ -45,6 +45,7 @@ from hydracore_tpu_torch.scene.statefile import (RenderSettings, SceneDesc,
                                                  load_statefile, parse_floats)
 from hydracore_tpu_torch.scene.textures import (build_texture_storage,
                                                 load_texture_array)
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.utils.device import resolve_device, tree_to
 
 
@@ -306,6 +307,7 @@ def _should_instance(desc, keep, flat, instancing: str) -> bool:
     return flat_tris > INSTANCING_AUTO_TRIS and stored < 0.6 * flat_tris
 
 
+@spans.spanned("scene.build")
 def assemble(desc: SceneDesc, width: int | None = None, height: int | None = None,
              instancing: str = "auto", part_cap: int = CL_PART_CAP,
              traversal: str = "auto") -> SceneData:
@@ -316,7 +318,8 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
     `part_cap` clusters is partitioned into chunks of that many. traversal:
     the scene's static choice of traversal (ops/trace_api.py); 'packet' and
     'wide' keep the cluster pool flat, and an instanced scene takes only
-    'auto' or 'cluster'."""
+    'auto' or 'cluster'. The span `scene.build` (utils/spans.py), a flat
+    layout's stages its children."""
     if instancing not in ("auto", "force", "off"):
         raise ValueError(f"instancing must be auto, force or off, "
                          f"got {instancing!r}")
@@ -419,7 +422,8 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
         tri_light = np.full(1, -1, np.int32)
         tri_inst = np.zeros(1, np.int32)
 
-    bvh = build_bvh_auto(tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2)
+    with spans.span("scene.bvh"):
+        bvh = build_bvh_auto(tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2)
     p = bvh.perm if bvh.perm.size else np.zeros(0, np.int32)
     if p.size:
         tri_v0, tri_e1, tri_e2 = tri_v0[p], tri_e1[p], tri_e2[p]
@@ -428,18 +432,21 @@ def assemble(desc: SceneDesc, width: int | None = None, height: int | None = Non
         uv0, uv1, uv2 = uv0[p], uv1[p], uv2[p]
         tri_mat, tri_light, tri_inst = tri_mat[p], tri_light[p], tri_inst[p]
 
-    pools = wide_pools(bvh, tri_v0, tri_e1, tri_e2)
-    cl = maybe_partition(cut_clusters(bvh, tri_v0, tri_e1, tri_e2),
-                         part_cap_for(traversal, part_cap))
+    with spans.span("scene.layout"):
+        pools = wide_pools(bvh, tri_v0, tri_e1, tri_e2)
+        cl = maybe_partition(cut_clusters(bvh, tri_v0, tri_e1, tri_e2),
+                             part_cap_for(traversal, part_cap))
 
     pts = np.concatenate([tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2], 0)
     wb_min = pts.min(0).astype(np.float32)
     wb_ext = np.maximum(pts.max(0) - pts.min(0), 1e-6).astype(np.float32)
 
-    cam = build_camera(desc.camera, W, H)
+    with spans.span("scene.camera"):
+        cam = build_camera(desc.camera, W, H)
 
-    lights, ml_cdf, ml_tri = build_mesh_light_tables(
-        lights, tri_light, tri_v0, tri_e1, tri_e2)
+    with spans.span("scene.lights"):
+        lights, ml_cdf, ml_tri = build_mesh_light_tables(
+            lights, tri_light, tri_v0, tri_e1, tri_e2)
 
     # env fallback: sky light color if present else black; build env
     # importance tables from the sky texture (constant-sky fallback table)

@@ -11,7 +11,9 @@ tracing strategy by strategy, one Metropolis step of PSSMLT and of MMLT
 from a shared chain state, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
 plain versions on the card (T1-T7 also on their tools' adversarial_inputs;
-T3, T4 and T5 also in their profiling builds).
+T3, T4 and T5 also in their profiling builds), and the spans of
+utils/spans.py on the profiler's clock (a kernel's launch inside its span,
+a sync counted at its line).
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
@@ -1357,3 +1359,59 @@ def test_mesh_world_of_one_on_card(cuda, tmp_path):
     assert not dist.is_initialized()
     cpu = pm.render_distributed(sc, 4, seed=777, device="cpu")
     assert _close_share(card.cpu(), cpu) >= 0.99
+
+
+def test_span_holds_its_kernels_launch_on_the_profilers_clock(cuda):
+    """Five spans, each around one torch.cuda._sleep launch with host
+    sleeps of 5 ms between them: each holds its launch's runtime event on
+    the profiler's clock, and spans.attribute puts each kernel on its
+    span."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydracore_tpu_torch.utils import spans
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with spans.recording():
+            for k in range(5):
+                time.sleep(0.005)
+                with spans.span(f"sleep{k}"):
+                    torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+    got = spans.take()
+    ops, launches = spans.device_events(prof)
+    kernels = sorted(ops, key=lambda o: -o[2])[:5]
+    assert [s.name for s in got.spans] == [f"sleep{k}" for k in range(5)]
+    table = spans.attribute(got.spans, ops, launches)
+    for s, kernel in zip(got.spans, sorted(kernels, key=lambda o: o[1])):
+        t = launches[kernel[3]]
+        print(f"{s.name}: launch {(t - s.start) / 1e3:.1f} us after the "
+              f"span's start, {(s.end - t) / 1e3:.1f} us before its end")
+        assert s.start <= t < s.end
+        assert table[s.name]["ops"] == 1
+        assert table[s.name]["device_s"] == pytest.approx(kernel[2] / 1e9)
+
+
+def test_one_nonzero_in_a_span_is_one_sync_at_its_line(cuda, tmp_path):
+    """torch's sync debug mode, as recording sets it: one x.nonzero() from
+    a frame of the port counts once, at its line and under its span; the
+    test's own synchronize counts nothing."""
+    import os
+
+    from hydracore_tpu_torch.utils import spans
+
+    x = torch.arange(8, device=cuda) % 2
+    where = os.path.join(os.path.dirname(spans.__file__), "sync_probe.py")
+    code = compile("\n\ny = x.nonzero()\n", where, "exec")
+    with spans.recording():
+        with spans.span("probe"):
+            exec(code, {"x": x})
+        torch.cuda.synchronize()
+    got = spans.take()
+    site = os.path.relpath(where, os.path.dirname(os.path.dirname(
+        os.path.dirname(spans.__file__))))
+    assert got.syncs == {(f"{site}:3", "probe"): 1}
+    assert torch.cuda.get_sync_debug_mode() == 0
