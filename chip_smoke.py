@@ -39,9 +39,13 @@ flat and the instanced scene are also rendered at 64x64, 8 spp on the card
 against the flattened assembly of the same SceneDesc; the chunked kernels
 also against the flat-pool kernels on the same clusters; B4 also against
 the chunked B1/B2 on the very rays those got; the flat scene also through
-B4 against the CPU twins and the cluster route's image. The two plain
-routes run too: the wide-BVH loop on the packet path's scene at 256x256 and
-the dense route on the golden cornell box, each card against CPU. One pass
+B4 against the CPU twins and the cluster route's image. The two other
+routes run too: the wide-BVH loop (plain PyTorch) on the packet path's
+scene at 256x256 and the dense route (csrc/traverse_dense.cu) on the golden
+cornell box, each card against CPU; the dense kernel also against its
+plain version on the card, every word equal in float32 and float64, on
+the main path's 2^20-ray wavefronts over the benchmark's Cornell box (88
+slots), both timed ("kernels" rows D). One pass
 of each kernel path runs under torch.profiler.
 Phase 12 is the kernel lab (hydracore_tpu_torch/tools/): the kernels of
 tools T7 (row gathers, S 4096, R 262,144, 16 iterations; the window path
@@ -581,16 +585,31 @@ def group_sizes(tag, tc, scene, cases, card, sizes=(8, 16, 32)) -> None:
 
 TC_COUNTERS = ("closest_launches", "any_launches", "opaque_any_launches",
                "ao_any_launches", "inst_closest_launches", "inst_any_launches")
-COUNTERS = TC_COUNTERS + ("pkt_closest_launches", "pkt_any_launches")
+COUNTERS = TC_COUNTERS + ("pkt_closest_launches", "pkt_any_launches",
+                          "dense_closest_launches", "dense_any_launches")
 
 
 def launch_counts(tc, tp) -> dict:
     """Every wrapper's launch count: B1, B2, B2 over the opaque shadow pool,
-    B2 on the AO probes, B3 (closest, any), B4 (closest, any)."""
+    B2 on the AO probes, B3 (closest, any), B4 (closest, any), the dense
+    kernel (closest, any)."""
+    from hydracore_tpu_torch.ops import traverse_dense as td
+
     out = {k: getattr(tc, k) for k in TC_COUNTERS}
     out.update(pkt_closest_launches=tp.closest_launches,
-               pkt_any_launches=tp.any_launches)
+               pkt_any_launches=tp.any_launches,
+               dense_closest_launches=td.closest_launches,
+               dense_any_launches=td.any_launches)
     return out
+
+
+def reset_launch_counts(tc, tp) -> None:
+    """Every counter of launch_counts set to 0."""
+    from hydracore_tpu_torch.ops import traverse_dense as td
+
+    tc.reset_launch_counts()
+    tp.reset_launch_counts()
+    td.reset_launch_counts()
 
 
 def timed_call(tag, tc, tp, run, card, expect: dict, warm=None) -> tuple:
@@ -603,8 +622,7 @@ def timed_call(tag, tc, tp, run, card, expect: dict, warm=None) -> tuple:
     dev = torch.device("cuda")
     (warm or run)()
     torch.cuda.synchronize()
-    tc.reset_launch_counts()
-    tp.reset_launch_counts()
+    reset_launch_counts(tc, tp)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     t0 = time.time()
@@ -1413,8 +1431,7 @@ def textured_phase(card, pt, tc, tp, trace_api, dev) -> list:
         log(f"phase 14 main paths: {time.time() - t0:.2f} s")
         card_vs_cpu("phase 14 cluster", pt, assemble(desc, 64, 64))
         small_pkt = assemble(desc, 64, 64, traversal="packet")
-        tc.reset_launch_counts()
-        tp.reset_launch_counts()
+        reset_launch_counts(tc, tp)
         card_vs_cpu("phase 14 packet", pt, small_pkt)
         pkt = launch_counts(tc, tp)
         log(f"phase 14 packet 64x64: launches {pkt}")
@@ -1636,8 +1653,7 @@ def gates_phase(card, pt, tc, tp, trace_api, dev) -> list:
         log(f"phase 15 main path and layers: {time.time() - t0:.2f} s")
         t0 = time.time()
         card_vs_cpu("phase 15 cluster", pt, assemble(desc, 64, 64), spp=4)
-        tc.reset_launch_counts()
-        tp.reset_launch_counts()
+        reset_launch_counts(tc, tp)
         card_vs_cpu("phase 15 packet", pt,
                     assemble(desc, 64, 64, traversal="packet"), spp=4)
         pkt = launch_counts(tc, tp)
@@ -1743,8 +1759,7 @@ def compare_schedules(tag, pt, regen, tc, tp, scene, card, expect: set,
                                     regen=use_regen)
         run()
         torch.cuda.synchronize()
-        tc.reset_launch_counts()
-        tp.reset_launch_counts()
+        reset_launch_counts(tc, tp)
         stats = {}
         t0 = time.time()
         if use_regen:
@@ -1813,8 +1828,7 @@ def production_tile(pt, tc, tp, scene, card) -> tuple:
     dev = scene.tri_attr.device
     W, H = scene.camera.width, scene.camera.height
     spp = 16
-    tc.reset_launch_counts()
-    tp.reset_launch_counts()
+    reset_launch_counts(tc, tp)
     stats = {}
     t0 = time.time()
     prod = pt.render_production(scene, spp, seed=SEED, max_depth=DEPTH,
@@ -1846,8 +1860,7 @@ def production_tile(pt, tc, tp, scene, card) -> tuple:
 
     pt.render_tile_production(scene, ids, 0, SEED, 64, DEPTH)  # warm-up
     torch.cuda.synchronize()
-    tc.reset_launch_counts()
-    tp.reset_launch_counts()
+    reset_launch_counts(tc, tp)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     t0 = time.time()
@@ -1868,8 +1881,7 @@ def production_tile(pt, tc, tp, scene, card) -> tuple:
     # the same tile through B4, whose packet queue then takes 2^15 packets
     from hydracore_tpu_torch.scene.procedural import bench_scene
     pkt_scene = bench_scene(W, H, DEPTH, traversal="packet").to(dev)
-    tc.reset_launch_counts()
-    tp.reset_launch_counts()
+    reset_launch_counts(tc, tp)
     t0 = time.time()
     tile_pkt = pt.render_tile_production(pkt_scene, ids, 0, SEED, 64, DEPTH)
     torch.cuda.synchronize()
@@ -1902,8 +1914,7 @@ def wide_tile(tag, pt, tc, tp, scene, card, expect: set) -> None:
     n = TILE_PIXELS
     ids = torch.arange(TILE * n, (TILE + 1) * n, device=dev)
     torch.cuda.synchronize()
-    tc.reset_launch_counts()
-    tp.reset_launch_counts()
+    reset_launch_counts(tc, tp)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     t0 = time.time()
@@ -3351,8 +3362,7 @@ def run_cli(tag, tc, tp, argv, expect: set, device=None) -> tuple:
 
     from hydracore_tpu_torch.app import cli
 
-    tc.reset_launch_counts()
-    tp.reset_launch_counts()
+    reset_launch_counts(tc, tp)
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
@@ -3599,8 +3609,7 @@ def front_viewer(tag, tc, tp, pkt, card) -> None:
         if warm:
             run()
         torch.cuda.synchronize()
-        tc.reset_launch_counts()
-        tp.reset_launch_counts()
+        reset_launch_counts(tc, tp)
         t0 = time.time()
         out = run()
         torch.cuda.synchronize()
@@ -3736,6 +3745,7 @@ def front_ends_phase(card, pt, tc, tp, dev) -> None:
 
 CLUSTER_CU = "hydracore_tpu_torch/csrc/traverse_cluster.cu"
 PACKET_CU = "hydracore_tpu_torch/csrc/traverse_packet.cu"
+DENSE_CU = "hydracore_tpu_torch/csrc/traverse_dense.cu"
 LAB_SRCS = ["lab_gather.cu", "lab_prims.cu", "lab_subvisit.cu",
             "lab_cluster_cost.cu", "lab_cluster.cu", "lab_packet.cu"]
 
@@ -4633,6 +4643,69 @@ def kernel_rows(kernels, label, source, replaces, recs, launches) -> list:
     return rows
 
 
+def check_dense(tag, pt, td, trace_api, card, launches) -> list:
+    """The dense kernel at the cells' shape: the benchmark's Cornell box
+    (tests/dense_cases.py:cornell_box, 32 triangles in 88 slots) at
+    1024^2, the main path's three wavefronts of 2^20 rays (wavefronts() on
+    every primary ray, unsorted, as the path tracer sends them to the
+    dense route), each through the kernel and through its plain version on
+    the card, in float32 and float64: every output word equal. Both timed;
+    the bound is live rays x slots x OPS_TRI operations against 28 bytes in
+    and 16 (closest) or 1 (any) out a ray. `launches` are the main path's
+    (closest, any) counts. Returns the "kernels" rows of D."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from dense_cases import cornell_box, same_words
+
+    from hydracore_tpu_torch.ops.intersect import ray_args
+
+    dev = torch.device("cuda")
+    scene = cornell_box(WIDTH, HEIGHT).to(dev)
+    tri9f, slot_tri = scene.wbvh_tri9f, scene.wbvh_slot_tri
+    S = slot_tri.shape[0]
+    if trace_api._pick(scene) is not td or S != 88:
+        raise AssertionError(f"{tag}: {S} slots, route {trace_api._pick(scene)}")
+    ray_o, ray_d, _, _ = pt.primary_rays(scene, [0], SEED)
+    waves = wavefronts(pt, scene, sort=False, rays=(ray_o, ray_d))
+    recs = {f64: {"closest": [], "any": []} for f64 in (False, True)}
+    for name, o, d, t_max, act, any_hit in waves:
+        R = o.shape[0]
+        tm, act_all = ray_args(o, t_max, act)
+        live = int(act_all.sum())
+        for f64 in (False, True):
+            def kernel():
+                return td.traverse_dense(tri9f, slot_tri, o, d, t_max, act,
+                                         f64=f64, any_hit_mode=any_hit)
+
+            def plain():
+                out = td.traverse_dense_plain(tri9f, slot_tri, o, d, tm,
+                                              act_all, f64)
+                return out[1] >= 0 if any_hit else out
+
+            ms, got = lab.time_ms(kernel, 20, dev, result=True)
+            plain_ms, want = lab.time_ms(plain, 3, dev, result=True)
+            pairs = [(got, want)] if any_hit else list(zip(got, want))
+            if not all(same_words(a, b) for a, b in pairs):
+                raise AssertionError(f"{tag} {name} f64={f64}: the kernel's "
+                                     "words differ from the plain version's")
+            hits = int((want if any_hit else want[1] >= 0).sum())
+            if hits == 0:
+                raise AssertionError(f"{tag} {name}: no ray hit anything")
+            bms, by = lab.bound_ms(R * (28 + (1 if any_hit else 16)),
+                                   live * S * OPS_TRI)
+            prec = "float64" if f64 else "float32"
+            log(f"{tag} {name} {prec}: {R} rays ({live} live, {hits} hits) x "
+                f"{S} slots, every word equal to the plain version's; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+                f"({by}) [{card}]")
+            recs[f64]["any" if any_hit else "closest"].append(
+                (name, ms, plain_ms, bms, by, 0.0))
+    kernels = ("D dense traversal", "D dense traversal")
+    return [row for f64 in (False, True) for row in kernel_rows(
+        kernels, f"Cornell box 88 slots, {'float64' if f64 else 'float32'}",
+        DENSE_CU, "hydracore_tpu/ops/traverse_dense.py:54", recs[f64],
+        launches)]
+
+
 def lab_phases(card, tc, tp) -> list:
     """Phases 12 and 13, the kernel lab, each tool's kernels at its own
     size (tc and tp's libraries built); their "kernels" rows."""
@@ -4687,15 +4760,20 @@ def main() -> int:
     card = lab.device_label(dev)
     t_start = time.time()
 
+    def counted(counts, prefix=""):
+        return (counts[prefix + "closest_launches"],
+                counts[prefix + "any_launches"])
+
     # ---- phase 1: build every native source, compilers in parallel
     t0 = time.time()
-    srcs = ["traverse_cluster.cu", "traverse_packet.cu", "bvh_builder.cpp",
-            *LAB_SRCS]
+    srcs = ["traverse_cluster.cu", "traverse_packet.cu", "traverse_dense.cu",
+            "bvh_builder.cpp", *LAB_SRCS]
     started = {s: build.start_build(s) for s in srcs}
     for s in srcs:
         build.finish_build(s, started[s])
     tc._kernel_lib()
     tp._kernel_lib()
+    td._kernel_lib()
     for tool in (t1, t2, t3, t4, t5, t6, t7):
         tool._kernel_lib()
     log(f"phase 1 build: {time.time() - t0:.2f} s ({', '.join(srcs)})")
@@ -4851,15 +4929,19 @@ def main() -> int:
                 max_depth=CHECK_DEPTH)
     log(f"phase 9 wide: {time.time() - t0:.2f} s")
 
-    # ---- phase 10: the dense route (plain PyTorch) on a golden recipe
+    # ---- phase 10: the dense route (its kernel) on a golden recipe, and
+    # the kernel against its plain version on the benchmark's Cornell box
     t0 = time.time()
     host_dense = golden_cornell(WIDTH, HEIGHT)
     if trace_api._pick(host_dense) is not td:
         raise AssertionError("auto did not pick the dense route for 12 triangles")
     dense_scene = host_dense.to(dev)
-    drive_main_path("phase 10 dense", pt, tc, tp, dense_scene, card, set(),
-                    n_pass=1)
+    dense_counts = drive_main_path(
+        "phase 10 dense", pt, tc, tp, dense_scene, card,
+        {"dense_closest_launches", "dense_any_launches"}, n_pass=1)
     del dense_scene
+    dense_rows = check_dense("phase 10 Cornell box", pt, td, trace_api, card,
+                             counted(dense_counts, "dense_"))
     card_vs_cpu("phase 10 dense", pt, golden_cornell(64, 64))
     log(f"phase 10 dense: {time.time() - t0:.2f} s")
 
@@ -4926,10 +5008,6 @@ def main() -> int:
     b3 = ("B3 cluster traversal", "B3 cluster traversal")
     b4 = ("B4 packet traversal", "B4 packet traversal")
 
-    def counted(counts, prefix=""):
-        return (counts[prefix + "closest_launches"],
-                counts[prefix + "any_launches"])
-
     rows = (kernel_rows(b12, "flat pool Cp 384", CLUSTER_CU, f"{at}:576",
                         flat_recs, counted(flat_counts))
             + kernel_rows(b3, f"instanced Ci {host_inst.cl_map.shape[1]}",
@@ -4941,8 +5019,8 @@ def main() -> int:
                           "unsorted rays", PACKET_CU,
                           "hydracore_tpu/ops/traverse_packet.py:204", pkt_recs,
                           counted(pkt_counts, "pkt_"))
-            + opaque_rows + gates_rows + schedule_rows + lt_rows + bd_rows
-            + mlt_rows + lab_rows)
+            + dense_rows + opaque_rows + gates_rows + schedule_rows + lt_rows
+            + bd_rows + mlt_rows + lab_rows)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

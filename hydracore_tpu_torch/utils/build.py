@@ -5,6 +5,7 @@ at import time:
   * csrc/bvh_builder.cpp    -> _build/libbvh_builder.so   (g++, host)
   * csrc/traverse_cluster.cu -> _build/libtraverse_cluster.so (nvcc, sm_90a)
   * csrc/traverse_packet.cu -> _build/libtraverse_packet.so (nvcc, sm_90a)
+  * csrc/traverse_dense.cu  -> _build/libtraverse_dense.so  (nvcc, sm_90a)
 and the kernel lab's (hydracore_tpu_torch/tools/), nvcc for sm_90a each:
   * csrc/lab_gather.cu, csrc/lab_prims.cu, csrc/lab_subvisit.cu,
     csrc/lab_cluster_cost.cu, csrc/lab_cluster.cu, csrc/lab_packet.cu

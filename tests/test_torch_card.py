@@ -11,16 +11,19 @@ tracing strategy by strategy, one Metropolis step of PSSMLT and of MMLT
 from a shared chain state, and the
 kernel lab's kernels T1-T7 (hydracore_tpu_torch/tools/) against their
 plain versions on the card (T1-T7 also on their tools' adversarial_inputs;
-T3, T4 and T5 also in their profiling builds), and the spans of
+T3, T4 and T5 also in their profiling builds), the spans of
 utils/spans.py on the profiler's clock (a kernel's launch inside its span,
-a sync counted at its line).
+a sync counted at its line), and the dense route's kernel
+(csrc/traverse_dense.cu) against its plain version in float32 and float64
+on tests/dense_cases.py's adversarial case, the benchmark's Cornell
+box and a scene above BLOCK_SLOTS, one launch and no host sync a call.
 
 Each test skips without CUDA. The file imports nothing of the JAX package,
 so it runs on a machine with the card:
 
     python -m pytest tests/test_torch_card.py -q
 
-Tolerances: kernel and twin share their arithmetic (no fast math, no FMA
+Tolerances: kernel and twin (or plain version) share their arithmetic (no fast math, no FMA
 contraction) and, for B4, their packet size and walk order, so t, u, v,
 slots, occlusion and visit counts must be equal; the card's image must
 agree with the CPU twins' image within 1e-3 on >= 99% of pixels. The lab
@@ -1415,3 +1418,159 @@ def test_one_nonzero_in_a_span_is_one_sync_at_its_line(cuda, tmp_path):
         os.path.dirname(spans.__file__))))
     assert got.syncs == {(f"{site}:3", "probe"): 1}
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ---- the dense route's kernel (csrc/traverse_dense.cu) against its plain
+# version on the card, every output word equal
+
+def _dense_pair(case, dev, f64, any_hit, t_max=None, active=None):
+    """(kernel, plain) outputs of one call on the card; t_max None takes
+    the case's per-ray tensor."""
+    from hydracore_tpu_torch.ops import traverse_dense as td
+    from hydracore_tpu_torch.ops.intersect import ray_args
+
+    tri9f, slot_tri, ro, rd, tm = (x.to(dev) for x in case)
+    if t_max is not None:
+        tm = t_max.to(dev) if isinstance(t_max, torch.Tensor) else t_max
+    act = None if active is None else active.to(dev)
+    got = td.traverse_dense(tri9f, slot_tri, ro, rd, tm, act, f64=f64,
+                            any_hit_mode=any_hit)
+    tm_all, act_all = ray_args(ro, tm, act)
+    want = td.traverse_dense_plain(tri9f, slot_tri, ro, rd, tm_all, act_all,
+                                   f64)
+    return (got, want[1] >= 0) if any_hit else (got, want)
+
+
+def _dense_equal(got, want) -> bool:
+    from dense_cases import same_words
+
+    if isinstance(got, torch.Tensor):
+        return same_words(got, want)
+    return all(same_words(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("t_max", ["scalar", "tensor", "broadcast"])
+@pytest.mark.parametrize("active", ["all", "none", "random"])
+def test_dense_kernel_matches_plain(cuda, f64, any_hit, t_max, active):
+    """The synthetic case of tests/dense_cases.py: equal-t ties in
+    three leaves, padding and degenerate slots, rays parallel to a
+    triangle, inf, NaN and zero components, adversarial t_max values per
+    ray (or one value: a number, a 0-d tensor); 1,000 rays (not a multiple
+    of the block)."""
+    from dense_cases import active_mask, dense_case
+
+    case = dense_case(21)
+    tm = {"scalar": 1.5, "tensor": None, "broadcast": torch.tensor(1.5)}
+    got, want = _dense_pair(case, cuda, f64, any_hit, tm[t_max],
+                            active_mask(active, case[2].shape[0]))
+    assert _dense_equal(got, want)
+    if active != "none":
+        assert bool((want if any_hit else want[1] >= 0).any())
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("R", [0, 1, 257])
+def test_dense_kernel_matches_plain_on_few_rays(cuda, f64, R):
+    from dense_cases import dense_case
+
+    case = tuple(x[:R] if k >= 2 else x
+                 for k, x in enumerate(dense_case(22)))
+    for any_hit in (False, True):
+        got, want = _dense_pair(case, cuda, f64, any_hit)
+        assert _dense_equal(got, want)
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_dense_kernel_matches_plain_on_the_cornell_cell(cuda, f64, any_hit):
+    """2^20 rays from inside the box in every direction, 3/4 of them live,
+    t_max per ray: the cell's scene and wavefront size."""
+    from dense_cases import active_mask, cornell_box
+
+    scene = cornell_box()
+    assert scene.wbvh_tri9f.shape[0] * 8 == 88
+    R = 1 << 20
+    g = torch.Generator().manual_seed(5)
+    lo, hi = scene.world_bmin.float(), scene.world_bmin + scene.world_bext
+    ro = lo + torch.rand((R, 3), generator=g) * (hi - lo)
+    rd = torch.randn((R, 3), generator=g)
+    tm = torch.where(torch.rand(R, generator=g) < 0.5, 1e30,
+                     torch.rand(R, generator=g) * 0.6)
+    case = (scene.wbvh_tri9f, scene.wbvh_slot_tri, ro, rd, tm)
+    act = active_mask("random", R) | (torch.arange(R) % 4 != 0)
+    got, want = _dense_pair(case, cuda, f64, any_hit, active=act)
+    assert _dense_equal(got, want)
+    hit = want if any_hit else want[1] >= 0
+    assert float(hit.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_dense_kernel_matches_plain_above_block_slots(cuda, f64, any_hit):
+    """2,104 slots: the plain version's two blocks of BLOCK_SLOTS (its
+    float32 rounding of the running best at the first block's end under
+    f64), the kernel's three chunks."""
+    from hydracore_tpu_torch.ops import traverse_dense as td
+    from dense_cases import active_mask, dense_case
+
+    case = dense_case(23, n_slots=2104, n_rays=4099)
+    assert case[1].shape[0] > td.BLOCK_SLOTS
+    got, want = _dense_pair(case, cuda, f64, any_hit,
+                            active=active_mask("random", 4099))
+    assert _dense_equal(got, want)
+
+
+def test_dense_route_named_on_a_scene_above_block_slots(cuda):
+    """traversal="dense" named on a scene of more than 2,048 slots: the
+    dispatcher's calls on the card equal the plain version's."""
+    from hydracore_tpu_torch.ops import trace_api
+    from hydracore_tpu_torch.ops import traverse_dense as td
+    from hydracore_tpu_torch.ops.intersect import ray_args
+
+    scene = _rects_scene(n=420, traversal="dense").to(cuda)
+    assert scene.wbvh_tri9f.shape[0] * 8 > td.BLOCK_SLOTS
+    g = torch.Generator().manual_seed(9)
+    ro = (torch.rand((65536, 3), generator=g) * 10 - 5).to(cuda)
+    rd = torch.randn((65536, 3), generator=g).to(cuda)
+    t, tri, u, v = trace_api.closest_hit(scene, ro, rd)
+    occ = trace_api.any_hit(scene, ro, rd, 3.0)
+    tm, act = ray_args(ro, 1e30, None)
+    want = td.traverse_dense_plain(scene.wbvh_tri9f, scene.wbvh_slot_tri, ro,
+                                   rd, tm, act)
+    assert _dense_equal((t, tri, u, v), want)
+    tm, _ = ray_args(ro, 3.0, None)
+    _, tri3, _, _ = td.traverse_dense_plain(scene.wbvh_tri9f,
+                                            scene.wbvh_slot_tri, ro, rd, tm,
+                                            act)
+    assert torch.equal(occ, tri3 >= 0) and bool(occ.any())
+
+
+@pytest.mark.parametrize("t_max", ["scalar", "tensor"])
+def test_dense_call_is_one_launch_and_no_host_sync(cuda, t_max):
+    """Under torch's sync debug mode "error" the dispatcher's closest and
+    any hit on the Cornell cell's scene raise nothing, and each moves its
+    launch counter by exactly 1."""
+    from dense_cases import cornell_box
+
+    from hydracore_tpu_torch.ops import trace_api
+    from hydracore_tpu_torch.ops import traverse_dense as td
+
+    scene = cornell_box().to(cuda)
+    R = 4096
+    ro = torch.full((R, 3), 0.25, device=cuda)
+    rd = torch.randn((R, 3), device=cuda)
+    tm = 1e30 if t_max == "scalar" else torch.full((R,), 1e30, device=cuda)
+    act = torch.arange(R, device=cuda) % 3 != 0
+    torch.cuda.synchronize()
+    td.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t, tri, _, _ = trace_api.closest_hit(scene, ro, rd, tm, act)
+        assert (td.closest_launches, td.any_launches) == (1, 0)
+        occ = trace_api.any_hit(scene, ro, rd, tm, act)
+        assert (td.closest_launches, td.any_launches) == (1, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(occ, tri >= 0) and bool(occ.any())

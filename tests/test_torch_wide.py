@@ -202,6 +202,23 @@ def test_traverse_dense_matches_jax(scenes, rays, name, f64):
     assert (out_p[0].numpy()[h] < tm[h]).all()
 
 
+@pytest.mark.parametrize("f64", [False, True])
+def test_traverse_dense_matches_jax_at_infinite_t_max(scenes, rays, f64):
+    """t_max = +inf, above the float32 3e38 at which both hold a miss: a
+    ray that hits nothing stays a miss, in float64 too."""
+    js, ps = scenes
+    ro, rd = rays
+    tm = np.full(ro.shape[0], np.inf, np.float32)
+    act = np.ones(ro.shape[0], bool)
+    out_j = jtd._traverse_dense(js.wbvh_tri9f, js.wbvh_slot_tri, jnp.asarray(ro),
+                                jnp.asarray(rd), jnp.asarray(tm),
+                                jnp.asarray(act), f64=f64)
+    out_p = ptd.traverse_dense(ps.wbvh_tri9f, ps.wbvh_slot_tri, torch.tensor(ro),
+                               torch.tensor(rd), torch.tensor(tm),
+                               torch.tensor(act), f64=f64)
+    _same_hits(out_p, out_j)
+
+
 def test_traverse_dense_entry_points_read_double_rt(scenes, rays):
     """closest_hit / any_hit take f64 from settings.double_rt and agree with
     the float32 run; occlusion agrees with the wide traversal."""
