@@ -67,6 +67,7 @@ from hydracore_tpu_torch.scene.lights import (LIGHT_AREA_DISK,
                                               LIGHT_CYLINDER, LIGHT_MESH,
                                               LIGHT_SKY, LIGHT_SPHERE)
 from hydracore_tpu_torch.scene.scene import check_supported
+from hydracore_tpu_torch.utils import spans
 from hydracore_tpu_torch.utils.device import resolve_device
 from hydracore_tpu_torch.utils.math3d import dot3, offs_ray_pos, sqrt
 
@@ -188,6 +189,7 @@ def trace_camera_subpath(scene, ray_o, ray_d, rand_fn, n_surf: int,
     pdf_w_prev = cam_pdf_w(cam, ray_d)
 
     for i in range(n_surf):
+        spans.phase("bdpt.camera", within="bdpt.pass", depth=i)
         if n_lane is not None:
             alive = alive & (i < n_lane)
         trace = closest_hit if i == 0 else closest_hit_sorted
@@ -247,6 +249,7 @@ def trace_light_subpath(scene, rand_fn, n_surf: int, feats=None,
     known), is_env / env_dir / beta_dir / pdf_a_far (sky lanes), hittable
     (area-class light or sky — s'=0 strategies exist), valid."""
     feats = FEATS_ALL if feats is None else feats
+    spans.phase("bdpt.light", within="bdpt.pass", depth=0)
     r_e = rand_fn(0, DG_BD_LGT_EMIT)
     l_idx, pick_prob = select_light(scene.lights, r_e[:, 3])
     ls = sample_light_fwd(scene, l_idx, r_e)
@@ -292,6 +295,8 @@ def trace_light_subpath(scene, rand_fn, n_surf: int, feats=None,
     pdf_w_prev = ls.pdf_w
 
     for j in range(n_surf):
+        if j:
+            spans.phase("bdpt.light", within="bdpt.pass", depth=j)
         if n_lane is not None:  # per-lane depth cap (merged MMLT groups)
             alive = alive & (j < n_lane)
         t, tri, u, v = closest_hit_sorted(scene, ray_o, ray_d, active=alive)
@@ -488,6 +493,7 @@ def _bdpt_core(scene, ray_o, ray_d, rand_fn, own_pix, n_splat: float,
     zs = trace_camera_subpath(scene, ray_o, ray_d, rand_fn, NC, feats,
                               n_lane=nl_c)
     y0, ys = trace_light_subpath(scene, rand_fn, NL, feats, n_lane=nl_l)
+    spans.phase("bdpt.connect", within="bdpt.pass")
     fzero = torch.zeros((R,), dtype=torch.bool, device=dev)
 
     out = []
@@ -715,6 +721,7 @@ def _eye_wavefront(scene, passes, seed: int):
     int64 pixel ids, lane_pass (P*R,) int64 index of the lane's pass in
     `passes`). Every lane is keyed as the JAX package keys one pass's:
     sample_idx = pix * 0x9E3779B9 ^ pass * 0x85EBCA6B."""
+    spans.phase("bdpt.eye", within="bdpt.pass")
     cam = scene.camera
     W, H = cam.width, cam.height
     dev = scene.tri_attr.device
@@ -750,16 +757,21 @@ def _splats(scene, passes, seed: int, max_depth: int, strategies: str):
 def _passes_image(scene, passes, seed: int, max_depth: int,
                   strategies: str) -> torch.Tensor:
     """The sum of the (H, W, 3) images of the passes `passes`, each pass
-    splatted and clamped to [0, 1e6] on its own, as bdpt_pass_impl's."""
-    W, H = scene.camera.width, scene.camera.height
-    R = W * H
-    img = torch.zeros((len(passes) * R, 3), dtype=torch.float32,
-                      device=scene.tri_attr.device)
-    out, lane_pass = _splats(scene, passes, seed, max_depth, strategies)
-    for _, flat, amt in out:  # each pass into its own image
-        img.index_add_(0, lane_pass * R + flat, amt)
-    img = torch.clamp(img, 0.0, 1e6).reshape(len(passes), H, W, 3)
-    return img.sum(dim=0) if len(passes) > 1 else img[0]
+    splatted and clamped to [0, 1e6] on its own, as bdpt_pass_impl's. The
+    span `bdpt.pass` (utils/spans.py), with the phases bdpt.eye, bdpt.camera
+    and bdpt.light (one a depth), bdpt.connect (the strategies, their
+    shadow and camera tests) and bdpt.splat."""
+    with spans.span("bdpt.pass", strategies=strategies):
+        W, H = scene.camera.width, scene.camera.height
+        R = W * H
+        img = torch.zeros((len(passes) * R, 3), dtype=torch.float32,
+                          device=scene.tri_attr.device)
+        out, lane_pass = _splats(scene, passes, seed, max_depth, strategies)
+        spans.phase("bdpt.splat", within="bdpt.pass")
+        for _, flat, amt in out:  # each pass into its own image
+            img.index_add_(0, lane_pass * R + flat, amt)
+        img = torch.clamp(img, 0.0, 1e6).reshape(len(passes), H, W, 3)
+        return img.sum(dim=0) if len(passes) > 1 else img[0]
 
 
 def bdpt_pass_impl(scene, pass_idx: int, seed: int, max_depth: int = 5,

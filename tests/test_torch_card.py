@@ -288,6 +288,82 @@ def test_instanced_kernel_matches_twin(cuda, any_hit_mode, r_blk):
         assert float(hit[inside].float().mean()) > 0.5
 
 
+@pytest.fixture(scope="module")
+def sphereflake():
+    """The benchmark's sphereflake at size factor 4 (7,381 spheres, one
+    mesh instanced, and the floor), built from its configuration by
+    tests/sphereflake_case.py and assembled by the port's own rules
+    (CPU)."""
+    from sphereflake_case import sphereflake_scene
+
+    return sphereflake_scene()
+
+
+def _flake_wavefront(sc, kind: str):
+    """2^16 rays of the sphereflake: every 16th primary ray of pass 0 (in
+    Morton order), or a bounce from their hits (a direction drawn about the
+    geometric normal, sorted into coherence order as the port sorts its
+    bounces; missed rays inactive). Returns (o, d, active, r_blk)."""
+    from hydracore_tpu_torch.ops import trace_api
+    from hydracore_tpu_torch.utils.math3d import offs_ray_pos
+
+    o, d, _, _, _ = bdpt._eye_wavefront(sc, [0], 2**31 + 3)
+    o, d = o[::16].contiguous(), d[::16].contiguous()
+    if kind == "primary":
+        return o, d, None, tc.R_BLK
+    t, tri, u, v = trace_api.closest_hit(sc, o, d)
+    hit = tri >= 0
+    pos, _, ng, *_ = pt.compute_hit(sc, tri, u, v, o, d, t)
+    ng = torch.where(((ng * d).sum(-1) > 0)[:, None], -ng, ng)
+    g = torch.Generator(device=o.device).manual_seed(7)
+    w = torch.randn(o.shape, generator=g, device=o.device)
+    w = w / w.norm(dim=1, keepdim=True)
+    w = torch.where(((w * ng).sum(-1) < 0)[:, None], -w, w)
+    o = torch.where(hit[:, None], offs_ray_pos(pos, ng, w), 0.0)
+    order = trace_api.coherence_order(sc, o, w, hit)
+    return o[order], w[order], hit[order], tc.R_BLK_BOUNCE
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("kind", ["primary", "bounce"])
+def test_b3_on_the_sphereflake_equals_its_twin(cuda, sphereflake, kind,
+                                               any_hit_mode):
+    """B3 at the benchmark's size (7,382 instances, about 59,000
+    instance-clusters) on a primary and a bounce wavefront of 2^16 rays
+    against the twin, which tests every instance-cluster: every t word
+    equal, and every slot word in closest hit (in any hit the slot names
+    whichever occluder the walk met first, so only its sign is the
+    answer)."""
+    sc = sphereflake.to(cuda)
+    assert sc.inst_woop.shape[0] == 7382 and sc.cl_map.shape[1] > 59_000
+    o, d, active, r_blk = _flake_wavefront(sc, kind)
+    assert o.shape[0] == 1 << 16
+    # any hit: primary rays reach the near half of the flake, bounce rays
+    # their neighbours
+    t_max = (3.0 if kind == "primary" else 0.3) if any_hit_mode else 1e30
+    blocks, _ = tc._to_blocks(o, d, t_max, active, r_blk)
+    pool = tc.scene_pool(sc)
+    twin = {k: v for k, v in pool.items() if k not in tc.LEVEL_TABLES}
+    before = tc.inst_any_launches if any_hit_mode else \
+        tc.inst_closest_launches
+    t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode, **pool)
+    t_t, s_t = tc.cluster_traverse_plain(blocks, any_hit_mode=any_hit_mode,
+                                         **twin)
+    torch.cuda.synchronize()
+    after = tc.inst_any_launches if any_hit_mode else \
+        tc.inst_closest_launches
+    assert after == before + 1
+    hits = int((s_k >= 0).sum())
+    assert 1000 < hits <= o.shape[0]
+    assert any_hit_mode or kind == "bounce" or hits == o.shape[0]
+    assert torch.equal(t_k, t_t)
+    if any_hit_mode:
+        assert hits < o.shape[0]
+        assert torch.equal(s_k >= 0, s_t >= 0)
+    else:
+        assert torch.equal(s_k, s_t)
+
+
 def test_instanced_kernel_needs_the_instance_level(cuda):
     sc = _instanced_scene().to(cuda)
     pool = {k: v for k, v in tc.scene_pool(sc).items()
