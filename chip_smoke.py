@@ -230,7 +230,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-from hydracore_tpu_torch.utils import lab  # noqa: E402
+from hydracore_tpu_torch.utils import lab, spans  # noqa: E402
 
 SEED = 777
 WIDTH = HEIGHT = 1024
@@ -300,22 +300,19 @@ def needed_visits(scene, rays, t_end, lanes=None) -> int:
 
 
 def two_level_box_tests(scene, rays, t_end) -> int:
-    """Box tests the two-level walk needs: one per active ray and box of the
-    upper level (an instanced scene's instances, any other's groups of
-    clusters), and one per active ray and member (instance-cluster,
-    cluster) of each upper box the ray enters before its final t."""
-    from hydracore_tpu_torch.ops.intersect import safe_inv
-    from hydracore_tpu_torch.ops.traverse_cluster import BIG, slab_enters
+    """Box tests the two-level walk needs: for each active ray the upper
+    boxes its own walk votes on (B1/B2: every group; B3: the tree's root
+    and the children of each node the ray enters) and the members (cluster,
+    instance-cluster) of each upper box it enters, all before its final t
+    (walk_counts over blocks of one ray)."""
+    from hydracore_tpu_torch.ops.traverse_cluster import (BIG, scene_pool,
+                                                          walk_counts)
 
-    boxes, start = scene.lvl_bounds, scene.lvl_start
     flat = rays.reshape(-1, 8)
     act = flat[:, 7] > 0
     te = torch.where(t_end <= -BIG * 0.5, flat[:, 6], t_end)
-    ent = slab_enters(flat[:, 0:3], safe_inv(flat[:, 3:6]), boxes,
-                      te) & act[:, None]
-    sizes = (start[1:] - start[:-1]).to(torch.int64)
-    return (int(act.sum()) * sizes.numel()
-            + int((ent.to(torch.int64) * sizes).sum()))
+    votes, members = walk_counts(flat[:, None], scene_pool(scene), te)
+    return int(((votes + members) * act).sum())
 
 
 def block_visits(scene, rays, t_end) -> torch.Tensor:
@@ -518,17 +515,32 @@ def check_kernels(tag, tc, scene, cases, card, flat_scene=None) -> dict:
         # (instance-cluster): at most (each ray's t limit) and at least (its
         # final t; an occluded ray adds nothing)
         def walk(t=None):
-            return tc.walk_positions(rays, pool, t).float()
-        what = (f"{int(scene.lvl_start[-1])} clusters under "
-                f"{scene.lvl_start.numel() - 1} upper boxes (a walk over "
-                f"every position: {scene.cl_bounds_oct.numel() // 64})")
-        most, least = walk(), walk(tk.reshape(-1))
+            return [x.float() for x in tc.walk_counts(rays, pool, t)]
+        N = scene.lvl_start.numel() - 1
+        what = (f"{int(scene.lvl_start[-1])} clusters under {N} upper boxes "
+                f"(a walk over every position: "
+                f"{scene.cl_bounds_oct.numel() // 64})")
+        (mv, mm), (lv, lm) = walk(), walk(tk.reshape(-1))
+        most, least = mv + mm, lv + lm
         visits = block_visits(scene, rays, tk.reshape(-1)).float()
         log(f"{tag} {name}: positions a block walks, of {what}: at most "
             f"mean {float(most.mean()):.1f}, largest {int(most.max())}; at "
             f"least mean {float(least.mean()):.1f}, largest "
             f"{int(least.max())}; Woop blocks a block needs: mean "
             f"{float(visits.mean()):.1f}, largest {int(visits.max())}")
+        if scene.cl_map is not None:
+            # B3's upper level: votes a block on the card (the kernel's
+            # counter) against the twin's bounds and the flat vote's N
+            with spans.recording():
+                tc.cluster_traverse(rays, any_hit_mode=any_hit_mode, **pool)
+            got = spans.take().counters[tc.VOTES_COUNTER]
+            log(f"{tag} {name}: upper votes a block on the card "
+                f"{got / rays.shape[0]:.1f} (the tree walk at least "
+                f"{float(lv.mean()):.1f}, at most {float(mv.mean()):.1f}, "
+                f"largest {int(mv.max())}; a flat vote on every instance: "
+                f"{N})")
+            if not int(lv.sum()) <= got <= int(mv.sum()):
+                raise AssertionError(f"{tag} {name}: {got} upper votes")
         if flat_scene is not None:
             tf, sf = tc.cluster_traverse(rays, any_hit_mode=any_hit_mode,
                                          **tc.scene_pool(flat_scene))

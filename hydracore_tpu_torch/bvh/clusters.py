@@ -237,7 +237,9 @@ def group_tables(bounds_lane, oct_perm, group: int = CL_GROUP) -> dict:
       lvl_member_bounds (8, 8, Cr) f32 the clusters' boxes in
                         lvl_members[o]'s order;
       lvl_start         (Gn + 1,) i32 the groups' offsets into
-                        lvl_members[o] (the same in every octant).
+                        lvl_members[o] (the same in every octant);
+      lvl_nodes         (8, 0) i32 and lvl_node_bounds (8, 0) f32: no tree
+                        (B1/B2 vote on every group in lvl_oct_perm's order).
     Each cluster box lies inside its group's box, so a ray that misses the
     group box misses every cluster box in it."""
     b = np.asarray(bounds_lane, np.float32)
@@ -278,4 +280,5 @@ def group_tables(bounds_lane, oct_perm, group: int = CL_GROUP) -> dict:
     return dict(lvl_bounds=boxes, lvl_oct_perm=order_g, lvl_members=members,
                 lvl_member_bounds=np.ascontiguousarray(
                     np.stack([flat[:, members[o]] for o in range(8)])),
-                lvl_start=start)
+                lvl_start=start, lvl_nodes=np.zeros((8, 0), np.int32),
+                lvl_node_bounds=np.zeros((8, 0), np.float32))

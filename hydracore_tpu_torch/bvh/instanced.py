@@ -274,17 +274,187 @@ def build_instanced_layout(world: MeshTris | None,
     )
 
 
+# children of an inner node of the instance tree (instance_tables;
+# csrc/traverse_cluster.cu kTreeFan): of 2, 4 and 8, timed on an H100, 4
+# was the fastest or within about 1% on every wavefront of the sphereflake
+# and of a 25-instance scene
+TREE_FAN = 4
+# the most stack entries B3's tree walk may hold (csrc/traverse_cluster.cu
+# kTreeStack): depth x (TREE_FAN - 1) + 1 of the deepest leaf
+TREE_STACK = 64
+
+
+def _area(lo, hi):
+    """Half the surface area of the boxes [lo, hi] (..., 3)."""
+    e = hi - lo
+    return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
+
+
+def _seg_scan(v, rank, big, op, sign):
+    """Running `op` (np.minimum / np.maximum) of v (n, ...) along axis 0
+    within runs of equal `rank` (ascending, step 1): each run is shifted by
+    sign * rank * big, with big above v's range, so that no value of an
+    earlier run wins. Exact to the rounding of the shift (the costs of the
+    surface area heuristic need no more)."""
+    shift = (sign * big * rank.astype(np.float64)).reshape(
+        (-1,) + (1,) * (v.ndim - 1))
+    return op.accumulate(v + shift, axis=0) - shift
+
+
+def _binary_sah(lo, hi):
+    """A binary tree over m boxes (lo, hi (m, 3) float64) by the surface
+    area heuristic, built top down one depth at a time: every node of more
+    than one box is cut where the boxes sorted by centre along one axis
+    split with the least area x count summed over both sides. Where that
+    cut gains nothing on the node's own area x count (boxes that share one
+    centre: every cut costs the same), the node is cut at its median
+    instead, into halves of its count, so that such boxes make no chain.
+    Returns (left, right, area, item) over the tree's nodes (node 0 the
+    root): a leaf has left = right = -1 and its box in `item`, an inner
+    node item = -1; area is half the surface area of each node's box."""
+    m = lo.shape[0]
+    cen = lo + hi
+    big = 2.0 * float(max(hi.max() - lo.min(), 1.0)) + 1.0
+    seg = np.zeros(m, np.int64)  # each box's node
+    left = np.full(2 * m - 1, -1, np.int64)  # a binary tree of m leaves
+    right = np.full(2 * m - 1, -1, np.int64)
+    area = np.zeros(2 * m - 1)
+    area[0] = _area(lo.min(0), hi.max(0))
+    base = 1  # the next free node
+    while True:
+        sizes = np.bincount(seg)
+        idx = np.flatnonzero(sizes[seg] > 1)
+        if not idx.size:
+            break
+        s = seg[idx]
+        nodes, size = np.unique(s, return_counts=True)
+        starts = np.cumsum(size) - size  # the runs, in node order
+        S = nodes.size
+        r = np.repeat(np.arange(S), size)  # each position's run
+        pos = np.arange(idx.size) - starts[r]
+        cost = np.empty((3, idx.size))
+        orders, pre, suf = [], [], []
+        for a in range(3):
+            o = idx[np.lexsort((cen[idx, a], s))]  # runs by node, then centre
+            bl, bh = lo[o], hi[o]
+            p = _area(_seg_scan(bl, r, big, np.minimum, -1.0),
+                      _seg_scan(bh, r, big, np.maximum, 1.0))
+            q = _area(_seg_scan(bl[::-1], r[::-1], big, np.minimum, 1.0),
+                      _seg_scan(bh[::-1], r[::-1], big, np.maximum, -1.0))[::-1]
+            nxt = np.append(q[1:], 0.0)
+            cost[a] = np.where(pos < size[r] - 1,
+                               p * (pos + 1) + nxt * (size[r] - pos - 1), np.inf)
+            orders.append(o)
+            pre.append(p)
+            suf.append(nxt)
+        best = np.lexsort((cost, np.broadcast_to(r, cost.shape)), axis=1)
+        best = np.take_along_axis(best, starts[None].repeat(3, 0), axis=1)
+        least = np.take_along_axis(cost, best, axis=1)
+        ax = np.argmin(least, axis=0)  # (S,)
+        at = best[ax, np.arange(S)]  # the cut: its last left position
+        whole = area[nodes] * size  # the cost of no cut
+        median = least[ax, np.arange(S)] >= whole * (1.0 - 1e-9)
+        at = np.where(median, starts + size // 2 - 1, at)
+        left[nodes] = base + 2 * np.arange(S)
+        right[nodes] = left[nodes] + 1
+        area[left[nodes]] = np.asarray(pre)[ax, at]
+        area[right[nodes]] = np.asarray(suf)[ax, at]
+        o = np.asarray(orders)[ax[r], np.arange(idx.size)]
+        seg[o] = base + 2 * r + (pos > pos[at][r])
+        base += 2 * S
+    item = np.full(2 * m - 1, -1, np.int64)
+    item[seg] = np.arange(m)
+    return left, right, area, item
+
+
+def instance_tree(inst_bounds):
+    """A bounding-volume tree over the instances whose box is real (the
+    others own no cluster and are left out): the binary tree of
+    _binary_sah with its nodes merged top down, each node opening its
+    child of the largest box (of equal boxes, the one over more instances)
+    until it has TREE_FAN children. Returns
+    (children (Nn, TREE_FAN) int64, the ids of each inner node's children:
+    an instance i < I, inner node j as I + j, -1 where a node has fewer;
+    node_bounds (8, Nn) float32, each the float32 union of its children's
+    boxes, bit for bit). Node 0 is the root; the nodes are numbered
+    breadth first. With at most TREE_FAN instances the root's children are
+    the instances themselves."""
+    b = np.asarray(inst_bounds, np.float32)
+    I = b.shape[1]
+    real = np.flatnonzero(b[0] < 1e29)
+    children, depth = [], []
+    if real.size:
+        left, right, area, item = _binary_sah(
+            b[0:3, real].T.astype(np.float64), b[3:6, real].T.astype(np.float64))
+        count = (left < 0).astype(np.int64)  # instances below each node
+        for j in np.flatnonzero(left >= 0)[::-1]:  # children after parents
+            count[j] = count[left[j]] + count[right[j]]
+        todo = [0]  # the binary node each inner node starts from
+        depth = [0]
+        for j, top in enumerate(todo):
+            parts = [top] if left[top] < 0 else [left[top], right[top]]
+            while len(parts) < TREE_FAN:
+                inner = [k for k, p in enumerate(parts) if left[p] >= 0]
+                if not inner:
+                    break
+                k = max(inner, key=lambda k: (area[parts[k]],
+                                              count[parts[k]]))
+                parts[k:k + 1] = [left[parts[k]], right[parts[k]]]
+            row = []
+            for p in parts:
+                if left[p] < 0:
+                    row.append(int(real[item[p]]))
+                else:
+                    row.append(I + len(todo))
+                    todo.append(p)
+                    depth.append(depth[j] + 1)
+            children.append(row + [-1] * (TREE_FAN - len(row)))
+    else:
+        children, depth = [[-1] * TREE_FAN], [0]
+    children = np.asarray(children, np.int64).reshape(-1, TREE_FAN)
+    depth = np.asarray(depth)
+    Nn = children.shape[0]
+    # bottom up, a depth at a time: each node's box from its children's
+    lo = np.full((3, I + Nn + 1), np.inf, np.float32)  # the last: no child
+    hi = np.full((3, I + Nn + 1), -np.inf, np.float32)
+    lo[:, real], hi[:, real] = b[0:3, real], b[3:6, real]
+    for d in range(int(depth.max()), -1, -1):
+        at = np.flatnonzero(depth == d)
+        kids = np.where(children[at] >= 0, children[at], I + Nn)
+        lo[:, I + at] = lo[:, kids].min(axis=2)
+        hi[:, I + at] = hi[:, kids].max(axis=2)
+    node_bounds = np.zeros((8, Nn), np.float32)
+    node_bounds[0:3], node_bounds[3:6] = lo[:, I:I + Nn], hi[:, I:I + Nn]
+    empty = ~np.isfinite(node_bounds[0])
+    node_bounds[0:6, empty] = 1e30  # no instance below: the far point box
+    return children, node_bounds
+
+
+def tree_stack(children, n_inst: int) -> int:
+    """The most entries B3's walk of the tree `children` (instance_tree)
+    can hold on its stack, whatever the order of the children: popping a
+    node pushes its c children, of which c - 1 wait while the first is
+    walked."""
+    need = np.ones(children.shape[0], np.int64)
+    for j in range(children.shape[0] - 1, -1, -1):
+        kids = children[j][children[j] >= 0]
+        if kids.size:
+            inner = kids[kids >= n_inst] - n_inst
+            below = int(need[inner].max()) if inner.size else 1
+            need[j] = kids.size - 1 + below
+    return int(need[0]) if children.shape[0] else 1
+
+
 def instance_tables(bounds_lane, oct_perm, cl_map, n_inst: int) -> dict:
     """The upper level of kernel B3's two-level walk (the tables
     ops/traverse_cluster.py:LEVEL_TABLES names), derived from the
     instance-cluster tables alone (a layout from either package gets the
-    same tables). Its boxes are the instances:
+    same tables). Its leaves are the instances, under a tree:
       lvl_bounds        (8, I) f32 each instance's world AABB, the union of
                         its instance-clusters' boxes, laid out like
                         bounds_lane; an instance without a cluster gets the
-                        1e30 point box;
-      lvl_oct_perm      (8, I) i32 each octant's front-to-back instance
-                        order, by the centre key of the cluster order;
+                        1e30 point box (and is in no node of the tree);
+      lvl_oct_perm      (8, 0) i32: no flat order (B3 walks the tree);
       lvl_members       (8, Ci) i32 per octant the real instance-clusters
                         grouped by instance id, each group in that octant's
                         front-to-back order (a stable filter of
@@ -292,9 +462,21 @@ def instance_tables(bounds_lane, oct_perm, cl_map, n_inst: int) -> dict:
       lvl_member_bounds (8, 8, Ci) f32 bounds_lane in lvl_members[o]'s
                         order;
       lvl_start         (I + 1,) i32 the groups' offsets into lvl_members[o]
-                        (the same in every octant).
-    Each cluster box lies inside its instance's box, so a ray that misses
-    the instance box misses every cluster box in it."""
+                        (the same in every octant);
+      lvl_nodes         (8, Nn * TREE_FAN) i32 the tree (instance_tree):
+                        per octant, inner node j's children at
+                        [j * TREE_FAN, (j + 1) * TREE_FAN), front to back
+                        (by s . centre of each child's box, s the octant's
+                        signs), the empty slots (-1) last; a child is an instance i < I or inner
+                        node j' as I + j'; node 0 is the root;
+      lvl_node_bounds   (8, Nn) f32 each inner node's box, the float32
+                        union of its children's boxes, laid out like
+                        lvl_bounds.
+    Each cluster box lies inside its instance's box and each box inside its
+    parent node's, and the slab test is monotone under rounding, so a ray
+    that misses a node misses every instance and cluster under it: the walk
+    from the root drops nothing the flat vote over every instance would
+    enter. Its depth is bounded by TREE_STACK, the kernel's stack."""
     bounds = np.asarray(bounds_lane, np.float32)
     oct_perm = np.asarray(oct_perm, np.int32)
     inst = np.asarray(cl_map, np.int32)[1]
@@ -312,20 +494,31 @@ def instance_tables(bounds_lane, oct_perm, cl_map, n_inst: int) -> dict:
     inst_bounds[0:3, has] = lo[has].T
     inst_bounds[3:6, has] = hi[has].T
 
+    children, node_bounds = instance_tree(inst_bounds)
+    need = tree_stack(children, n_inst)
+    if need > TREE_STACK:
+        raise ValueError(f"the instance tree needs a stack of {need}, the "
+                         f"kernel holds {TREE_STACK}")
     center = (inst_bounds[0:3] + inst_bounds[3:6]) * 0.5
-    inst_oct_perm = np.zeros((8, n_inst), np.int32)
+    kid_center = np.concatenate(
+        [center, (node_bounds[0:3] + node_bounds[3:6]) * 0.5, np.zeros((3, 1))],
+        axis=1)[:, children]  # (3, Nn, TREE_FAN); -1 reads the zero column
     icl_oct = np.zeros((8, bounds.shape[1]), np.int32)
+    nodes = np.zeros((8,) + children.shape, np.int32)
     for o in range(8):
         s = np.array([1.0 if o & 1 else -1.0,
                       1.0 if o & 2 else -1.0,
                       1.0 if o & 4 else -1.0])
-        key = s @ center
-        key[~has] = np.inf
-        inst_oct_perm[o] = np.argsort(key, kind="stable")
         ids = oct_perm[o]
         group = np.where(real[ids], inst[ids], n_inst)
         icl_oct[o] = ids[np.argsort(group, kind="stable")]
+        kk = np.einsum("a,anf->nf", s, kid_center)
+        kk[children < 0] = np.inf
+        nodes[o] = np.take_along_axis(
+            children, np.argsort(kk, axis=1, kind="stable"), axis=1)
     return dict(
-        lvl_bounds=inst_bounds, lvl_oct_perm=inst_oct_perm, lvl_members=icl_oct,
+        lvl_bounds=inst_bounds, lvl_oct_perm=np.zeros((8, 0), np.int32),
+        lvl_members=icl_oct,
         lvl_member_bounds=np.stack([bounds[:, icl_oct[o]] for o in range(8)]),
-        lvl_start=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+        lvl_start=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        lvl_nodes=nodes.reshape(8, -1), lvl_node_bounds=node_bounds)

@@ -21,15 +21,20 @@
 // All three (hydra_cluster_traverse) read the pool through an upper level
 // (ops/traverse_cluster.py:LEVEL_TABLES): lvl_bounds (8, N) f32 the AABBs
 // of its N boxes, lvl_oct_perm (8, N) i32 per octant the boxes in one
-// front-to-back order, lvl_members (8, M) i32 per octant the members
+// front-to-back order (B1/B2; B3 has none: (8, 0)), lvl_members (8, M)
+// i32 per octant the members
 // grouped by box (box u at [lvl_start[u], lvl_start[u + 1])), each group
-// front to back, and lvl_member_bounds (8, 8, M) f32 their AABBs in that
-// order. B1/B2's boxes (bvh/clusters.py:group_tables) are groups: runs of
-// at most CL_GROUP (8) consecutive real clusters of one chunk, each box the union of
-// its clusters', the groups of all chunks in one order (by their nearest
-// cluster's centre key: a group comes up where its first cluster would in
-// a walk over every cluster); a member is a pool block, chunk * Cp +
-// cluster. Instanced (B3): the boxes are the instances' world AABBs
+// front to back, lvl_member_bounds (8, 8, M) f32 their AABBs in that
+// order, and a tree over the N boxes: lvl_nodes (8, Nn * kTreeFan) i32 per
+// octant the children of each of Nn inner nodes front to back (box u < N,
+// inner node j as N + j, -1 none; node 0 the root) and lvl_node_bounds
+// (8, Nn) f32 their AABBs. B1/B2's boxes (bvh/clusters.py:group_tables)
+// are groups: runs of at most CL_GROUP (8) consecutive real clusters of one
+// chunk, each box the union of its clusters', the groups of all chunks in
+// one order (by their nearest cluster's centre key: a group comes up where
+// its first cluster would in a walk over every cluster), and no tree
+// (Nn = 0); a member is a pool block, chunk * Cp + cluster. Instanced (B3):
+// the boxes are the instances' world AABBs under a tree
 // (bvh/instanced.py:instance_tables), a member an instance-cluster; tris is
 // the shared pool (Cpool, 4, 384) in mesh-local space, cl_map (2, Ci) i32
 // names each instance-cluster's [pool block; instance] and inst_woop
@@ -40,13 +45,28 @@
 // its mantissa.
 //
 // Design, one two-level walk for all three (two_level_kernel): one CTA
-// per ray block, one thread per ray. The CTA walks the upper level's boxes (B1/B2: the groups of
-// clusters of all chunks; B3: the instances) in the octant's front-to-back
-// order; each live thread slab-tests the box against its own current t,
-// and one __syncthreads_or vote decides whether the CTA walks the box's
-// members at all, so closest hit also drops whole groups (instances) that
-// lie behind every ray's hit, across chunks. Inside an entered box the CTA
-// walks only its members (walk_members): one vote per member on the
+// per ray block, one thread per ray. B1/B2's CTA walks every group of
+// clusters of all chunks in the octant's front-to-back order; B3's walks
+// the tree over the instances from its root, with a stack of ids that
+// every thread keeps alike (each decision is a CTA vote). Each popped box
+// (group, node, instance) is one vote: each live thread slab-tests it
+// against its own current t, and one __syncthreads_or decides whether the
+// CTA goes below it. An entered inner node pushes its children far to
+// near, so the nearest is walked first, and each is tested when popped,
+// against the t its walk has shortened so far (testing a node's children
+// in one pass with one vote on their mask took 5-14% longer on the H100:
+// a child pushed on an older t is walked even where the live t rules it
+// out). An entered group or instance has its members walked. So closest
+// hit also drops whole groups (instances, subtrees) that lie behind every
+// ray's hit, across chunks, and a block without a live ray leaves at its
+// first vote (B3: the root). Exact: each box lies inside its node's (the
+// float32 union of its children's) and the slab test is monotone under
+// rounding, so a ray that enters an instance box enters every node above
+// it, and the tree drops no instance that a vote on every instance would
+// enter. Its bound: the stack holds at most depth x (kTreeFan - 1) + 1
+// ids, which the build keeps within kTreeStack (64; the sphereflake's
+// 7,382 instances need 30). Inside an entered box the CTA walks only its
+// members (walk_members): one vote per member on the
 // per-thread box test against the current t, and for each voted member the
 // 128-lane Moller-Trumbore in Woop form by the threads whose test passed (a
 // broadcast read of shared memory, no bank conflicts). The member's 6 KiB
@@ -81,8 +101,11 @@
 // the card's 20 operations per byte of f32 balance; the pool (a few MiB)
 // stays in L2. What the design does about it: the upper level cuts the
 // positions a block walks (a box test and a CTA vote each, entered or not)
-// from every cluster of every chunk to the groups plus the members of the
-// groups its rays enter (chip_smoke.py phases 3, 6 and 7 log them); the
+// from every cluster of every chunk to the groups (B3: the root and the
+// children of the nodes its rays enter, ~50 of the sphereflake's 7,382
+// instances a primary block) plus the members of the boxes its rays enter
+// (chip_smoke.py phases 3, 6 and 7 log them; on the card the counter
+// traverse_cluster.b3_upper_votes counts B3's votes); the
 // member test prunes clusters behind each ray's current hit, so a ray runs
 // the Moller-Trumbore only on clusters it may still hit; a warp still steps
 // through a cluster when any of its threads needs it, which costs
@@ -106,6 +129,10 @@ constexpr int kLanes = 128;
 constexpr int kRow = 3 * kLanes;   // one Woop row: [u | v | w] lanes
 constexpr int kWoop = 4 * kRow;    // floats per cluster block
 constexpr int kMaxBlock = 256;
+// children of a node of B3's tree (bvh/instanced.py:TREE_FAN) and the
+// entries of its walk's stack (TREE_STACK, which the tree's build checks)
+constexpr int kTreeFan = 4;
+constexpr int kTreeStack = 64;
 
 __device__ __forceinline__ float safe_inv(float d) {
   const float eps = 1e-12f;
@@ -284,6 +311,40 @@ __device__ __forceinline__ bool walk_members(
 // entered instance's mesh-local space and reads a member's pool block
 // through cl_map; B1/B2's members are pool blocks themselves.
 
+// One entered upper box u of the walk (in_up: this thread entered it): its
+// members [lvl_start[u], lvl_start[u + 1]), B3's after the ray's move into
+// instance u's mesh-local space. Returns true when the CTA is done (any hit:
+// no live thread left).
+template <bool kAnyHit, bool kInst>
+__device__ __forceinline__ bool walk_box(
+    float (*woop)[kWoop], const float* __restrict__ tris,
+    const int* __restrict__ cl_map, const float* __restrict__ inst_woop,
+    const int* __restrict__ co, const float* __restrict__ bo,
+    const int* __restrict__ lvl_start, int M, int u, bool in_up,
+    const float (&o)[3], const float (&d)[3], float ix, float iy, float iz,
+    float oxix, float oyiy, float oziz, bool& live, float& t_cur, int& slot) {
+  // the ray the members' Woop blocks are tested against: B3 moves it once
+  // into the instance's mesh-local space (in scalars: an array cost B3
+  // registers and a spill)
+  float lox = o[0], loy = o[1], loz = o[2], ldx = d[0], ldy = d[1], ldz = d[2];
+  if (kInst) {
+    lox = 0.f; loy = 0.f; loz = 0.f; ldx = 0.f; ldy = 0.f; ldz = 0.f;
+    if (in_up) {
+      const float* a = inst_woop + (size_t)u * 16;
+      lox = o[0] * __ldg(a + 0) + o[1] * __ldg(a + 4) + o[2] * __ldg(a + 8) + __ldg(a + 12);
+      loy = o[0] * __ldg(a + 1) + o[1] * __ldg(a + 5) + o[2] * __ldg(a + 9) + __ldg(a + 13);
+      loz = o[0] * __ldg(a + 2) + o[1] * __ldg(a + 6) + o[2] * __ldg(a + 10) + __ldg(a + 14);
+      ldx = d[0] * __ldg(a + 0) + d[1] * __ldg(a + 4) + d[2] * __ldg(a + 8);
+      ldy = d[0] * __ldg(a + 1) + d[1] * __ldg(a + 5) + d[2] * __ldg(a + 9);
+      ldz = d[0] * __ldg(a + 2) + d[1] * __ldg(a + 6) + d[2] * __ldg(a + 10);
+    }
+  }
+  return walk_members<kAnyHit>(woop, tris, kInst ? cl_map : nullptr, co, bo, M,
+                               __ldg(lvl_start + u), __ldg(lvl_start + u + 1),
+                               in_up, ix, iy, iz, oxix, oyiy, oziz, lox, loy,
+                               loz, ldx, ldy, ldz, live, t_cur, slot);
+}
+
 template <bool kAnyHit, bool kInst>
 __global__ void __launch_bounds__(kMaxBlock)
 two_level_kernel(const float* __restrict__ rays,
@@ -295,9 +356,12 @@ two_level_kernel(const float* __restrict__ rays,
                  const int* __restrict__ lvl_members,
                  const float* __restrict__ lvl_member_bounds,
                  const int* __restrict__ lvl_start,
+                 const int* __restrict__ lvl_nodes,
+                 const float* __restrict__ lvl_node_bounds,
                  float* __restrict__ t_out,
                  int* __restrict__ slot_out,
-                 int n_rays, int r_blk, int M, int N) {
+                 unsigned long long* __restrict__ votes_out,
+                 int n_rays, int r_blk, int M, int N, int Nn) {
   __shared__ __align__(16) float woop[2][kWoop];
 
   const int first = blockIdx.x * r_blk;
@@ -309,41 +373,65 @@ two_level_kernel(const float* __restrict__ rays,
   const float ix = safe_inv(d[0]), iy = safe_inv(d[1]), iz = safe_inv(d[2]);
   const float oxix = o[0] * ix, oyiy = o[1] * iy, oziz = o[2] * iz;
 
-  const int* uo = lvl_oct_perm + (size_t)oct * N;
   const float* bo = lvl_member_bounds + (size_t)oct * 8 * M;
   const int* co = lvl_members + (size_t)oct * M;
   int slot = -1;
-  // B1/B2: a block without a live ray (the dead tail of a sorted
-  // wavefront) leaves at once; B3 keeps the entry it was measured with
-  bool done = kInst ? false : !__syncthreads_or(live);
 
-  for (int k = 0; k < N && !done; ++k) {
-    const int u = __ldg(uo + k);
-    const bool in_up = live && enters(lvl_bounds, N, u, ix, iy, iz, oxix,
-                                      oyiy, oziz, t_cur);
-    if (!__syncthreads_or(in_up)) continue;
-
-    // the ray the members' Woop blocks are tested against: B3 moves it
-    // once into the instance's mesh-local space (in scalars: an array cost
-    // B3 registers and a spill)
-    float lox = o[0], loy = o[1], loz = o[2], ldx = d[0], ldy = d[1], ldz = d[2];
-    if (kInst) {
-      lox = 0.f; loy = 0.f; loz = 0.f; ldx = 0.f; ldy = 0.f; ldz = 0.f;
-      if (in_up) {
-        const float* a = inst_woop + (size_t)u * 16;
-        lox = o[0] * __ldg(a + 0) + o[1] * __ldg(a + 4) + o[2] * __ldg(a + 8) + __ldg(a + 12);
-        loy = o[0] * __ldg(a + 1) + o[1] * __ldg(a + 5) + o[2] * __ldg(a + 9) + __ldg(a + 13);
-        loz = o[0] * __ldg(a + 2) + o[1] * __ldg(a + 6) + o[2] * __ldg(a + 10) + __ldg(a + 14);
-        ldx = d[0] * __ldg(a + 0) + d[1] * __ldg(a + 4) + d[2] * __ldg(a + 8);
-        ldy = d[0] * __ldg(a + 1) + d[1] * __ldg(a + 5) + d[2] * __ldg(a + 9);
-        ldz = d[0] * __ldg(a + 2) + d[1] * __ldg(a + 6) + d[2] * __ldg(a + 10);
+  if constexpr (kInst) {
+    // B3: the tree over the instances from its root (inner node j is id
+    // N + j, an instance its own id). Each popped id is one vote on its
+    // box against each thread's live t; an entered inner node pushes its
+    // children far to near (lvl_nodes holds them front to back), an
+    // entered instance walks its members. The stack is the same in every
+    // thread (every decision is a CTA vote), so each thread keeps it (one
+    // in shared memory, every thread writing the same ids, ran within 4%
+    // either way on the H100).
+    const int* kids = lvl_nodes + (size_t)oct * Nn * kTreeFan;
+    int stack[kTreeStack];
+    int sp = 0;
+    stack[sp++] = N;  // the root: a block without a live ray leaves here
+    unsigned votes = 0;
+    bool done = false;
+    while (sp > 0 && !done) {
+      const int id = stack[--sp];
+      const bool inner = id >= N;
+      const bool in_box =
+          live && enters(inner ? lvl_node_bounds : lvl_bounds,
+                         inner ? Nn : N, inner ? id - N : id, ix, iy, iz,
+                         oxix, oyiy, oziz, t_cur);
+      ++votes;
+      if (!__syncthreads_or(in_box)) continue;
+      if (inner) {
+        const int* k = kids + (size_t)(id - N) * kTreeFan;
+        for (int c = kTreeFan - 1; c >= 0; --c) {
+          const int child = __ldg(k + c);
+          if (child < 0) continue;
+          if (sp == kTreeStack) __trap();  // deeper than the build allows
+          stack[sp++] = child;
+        }
+        continue;
       }
+      done = walk_box<kAnyHit, true>(woop, tris, cl_map, inst_woop, co, bo,
+                                     lvl_start, M, id, in_box, o, d, ix, iy,
+                                     iz, oxix, oyiy, oziz, live, t_cur, slot);
     }
-    done = walk_members<kAnyHit>(woop, tris, kInst ? cl_map : nullptr, co,
-                                 bo, M, __ldg(lvl_start + u),
-                                 __ldg(lvl_start + u + 1), in_up, ix, iy, iz,
-                                 oxix, oyiy, oziz, lox, loy, loz, ldx, ldy,
-                                 ldz, live, t_cur, slot);
+    if (votes_out != nullptr && threadIdx.x == 0)
+      atomicAdd(votes_out, (unsigned long long)votes);
+  } else {
+    // B1/B2: every group in the octant's front-to-back order; a block
+    // without a live ray (the dead tail of a sorted wavefront) leaves at
+    // once
+    const int* uo = lvl_oct_perm + (size_t)oct * N;
+    bool done = !__syncthreads_or(live);
+    for (int k = 0; k < N && !done; ++k) {
+      const int u = __ldg(uo + k);
+      const bool in_up = live && enters(lvl_bounds, N, u, ix, iy, iz, oxix,
+                                        oyiy, oziz, t_cur);
+      if (!__syncthreads_or(in_up)) continue;
+      done = walk_box<kAnyHit, false>(woop, tris, cl_map, inst_woop, co, bo,
+                                      lvl_start, M, u, in_up, o, d, ix, iy,
+                                      iz, oxix, oyiy, oziz, live, t_cur, slot);
+    }
   }
   if (valid) {
     t_out[idx] = t_cur;
@@ -357,29 +445,39 @@ extern "C" {
 
 // Launches the two-level walk on `stream` over an upper level of N boxes
 // and M members: B1 (any_hit == 0) or B2 over a flat or partitioned pool
-// (cl_map and inst_woop null), B3 in either hit mode over an instanced one.
+// (cl_map and inst_woop null, no tree: Nn == 0), B3 in either hit mode over
+// an instanced one, walking its tree of Nn inner nodes of kTreeFan
+// children.
+// votes, where not null, gains the upper-level votes B3's blocks took.
 // Returns cudaGetLastError() right after the launch (0 on success).
 int hydra_cluster_traverse(const float* rays, const float* tris,
                            const int* cl_map, const float* inst_woop,
                            const float* lvl_bounds, const int* lvl_oct_perm,
                            const int* lvl_members,
                            const float* lvl_member_bounds,
-                           const int* lvl_start, float* t_out, int* slot_out,
-                           int n_rays, int r_blk, int M, int N, int any_hit,
-                           void* stream) {
+                           const int* lvl_start, const int* lvl_nodes,
+                           const float* lvl_node_bounds, float* t_out,
+                           int* slot_out, unsigned long long* votes,
+                           int n_rays, int r_blk, int M, int N, int Nn,
+                           int any_hit, void* stream) {
   if (n_rays <= 0) return 0;
+  const bool inst = cl_map != nullptr;
   if (r_blk <= 0 || r_blk > kMaxBlock || M < 0 || N < 0 ||
-      (cl_map == nullptr) != (inst_woop == nullptr))
+      (cl_map == nullptr) != (inst_woop == nullptr) ||
+      (inst ? Nn < 1 || lvl_nodes == nullptr ||
+                  lvl_node_bounds == nullptr
+            : Nn != 0))
     return (int)cudaErrorInvalidValue;
   const int grid = (n_rays + r_blk - 1) / r_blk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto kernel) {
     kernel<<<grid, r_blk, 0, s>>>(rays, tris, cl_map, inst_woop, lvl_bounds,
                                   lvl_oct_perm, lvl_members,
-                                  lvl_member_bounds, lvl_start, t_out,
-                                  slot_out, n_rays, r_blk, M, N);
+                                  lvl_member_bounds, lvl_start, lvl_nodes,
+                                  lvl_node_bounds, t_out, slot_out, votes,
+                                  n_rays, r_blk, M, N, Nn);
   };
-  if (cl_map != nullptr)
+  if (inst)
     any_hit ? go(two_level_kernel<true, true>)
             : go(two_level_kernel<false, true>);
   else

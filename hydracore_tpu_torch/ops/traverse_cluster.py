@@ -11,8 +11,10 @@ ONE launch. They compute the same function, not its TPU block structure:
 one two-level walk. It votes on the boxes of an upper level first and walks
 a box's clusters only when a ray of the block enters it: groups of clusters
 for B1/B2 (bvh/clusters.py:group_tables, all chunks in one front-to-back
-order), instances for B3 (bvh/instanced.py:instance_tables). The source
-note in the .cu file gives the design and its bound.
+order, every group in turn), instances for B3 under a tree that it walks
+from the root (bvh/instanced.py:instance_tables). The source note in the
+.cu file gives the design and its bound. walk_counts gives the votes and
+member positions a block's walk takes, at least and at most.
 
 cluster_traverse() is the wrapper: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs cluster_traverse_plain, the twin with
@@ -20,12 +22,15 @@ the same contract. It counts kernel launches in closest_launches /
 any_launches (B1/B2), opaque_any_launches (B2 over the opaque shadow pool
 of an alpha scene), ao_any_launches (B2 on the path tracer's AO probes)
 and inst_closest_launches / inst_any_launches (B3): module attributes
-read from the always-counted counters of utils/spans.py.
+read from the always-counted counters of utils/spans.py. While spans
+record, B3 also counts its blocks' upper-level votes on the card
+(VOTES_COUNTER).
 """
 from __future__ import annotations
 
 import torch
 
+from hydracore_tpu_torch.bvh.instanced import TREE_FAN
 from hydracore_tpu_torch.ops.intersect import (mt_refine, safe_inv,
                                                 want_double)
 from hydracore_tpu_torch.utils import spans
@@ -59,18 +64,26 @@ def reset_launch_counts() -> None:
 # the upper level of the two-level walk, in the order the kernel takes it:
 # the upper boxes (8, N), per octant their front-to-back order (8, N), per
 # octant the members grouped by upper box (8, M), the members' boxes in that
-# order (8, 8, M) and each box's offset into the members (N + 1,). B1/B2's
-# boxes are groups of clusters (bvh/clusters.py:group_tables), B3's the
-# instances (bvh/instanced.py:instance_tables).
+# order (8, 8, M), each box's offset into the members (N + 1,), and a tree
+# over the upper boxes: per octant the children of each of its Nn inner
+# nodes, front to back (8, Nn * TREE_FAN), and the nodes' boxes (8, Nn).
+# B1/B2's boxes are groups of clusters (bvh/clusters.py:group_tables), with
+# no tree (Nn = 0: they vote on every group in turn, in the flat order);
+# B3's the instances under a tree that B3 walks from its root, with no flat
+# order ((8, 0); bvh/instanced.py:instance_tables).
 LEVEL_TABLES = ("lvl_bounds", "lvl_oct_perm", "lvl_members",
-                "lvl_member_bounds", "lvl_start")
+                "lvl_member_bounds", "lvl_start", "lvl_nodes",
+                "lvl_node_bounds")
+# the counter of B3's upper-level votes (utils/spans.py), counted on the
+# card while spans record
+VOTES_COUNTER = "traverse_cluster.b3_upper_votes"
 
 
 def _kernel_lib():
     global _lib
     if _lib is None:
         _lib = load_lib("traverse_cluster.cu", "hydra_cluster_traverse",
-                        [VP] * 11 + [CI] * 5 + [VP])
+                        [VP] * 14 + [CI] * 6 + [VP])
     return _lib
 
 
@@ -126,18 +139,24 @@ def _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level):
     if given:
         N = level["lvl_bounds"].shape[-1]
         M = level["lvl_members"].shape[-1]
+        Nn = level["lvl_node_bounds"].shape[-1]
         if inst and N != inst_woop.shape[0]:
             raise ValueError(f"lvl_bounds holds {N} boxes, the instances "
                              f"{inst_woop.shape[0]}")
+        if inst != (Nn > 0):
+            raise ValueError("B3 walks a tree of at least one node, B1/B2 "
+                             f"none: lvl_node_bounds holds {Nn} nodes")
         if M > (lead[0] if lead else 1) * Cp:
             raise ValueError(f"lvl_members holds {M} clusters, the pool "
                              f"{(lead[0] if lead else 1) * Cp}")
         for name, shape, dt in (
                 ("lvl_bounds", (8, N), torch.float32),
-                ("lvl_oct_perm", (8, N), torch.int32),
+                ("lvl_oct_perm", (8, 0 if inst else N), torch.int32),
                 ("lvl_members", (8, M), torch.int32),
                 ("lvl_member_bounds", (8, 8, M), torch.float32),
-                ("lvl_start", (N + 1,), torch.int32)):
+                ("lvl_start", (N + 1,), torch.int32),
+                ("lvl_nodes", (8, Nn * TREE_FAN), torch.int32),
+                ("lvl_node_bounds", (8, Nn), torch.float32)):
             if tuple(level[name].shape) != shape:
                 raise ValueError(f"{name} must be {shape}, got "
                                  f"{tuple(level[name].shape)}")
@@ -153,6 +172,7 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
                      any_hit_mode: bool = False, cl_map=None, inst_woop=None,
                      lvl_bounds=None, lvl_oct_perm=None, lvl_members=None,
                      lvl_member_bounds=None, lvl_start=None,
+                     lvl_nodes=None, lvl_node_bounds=None,
                      opaque_pool: bool = False, ao_probes: bool = False):
     """rays (G, r_blk, 8) f32 [o d t_lim active] -> (t (G, r_blk) f32,
     slot (G, r_blk) i32). The pool is flat (tris (Cp, 4, 384)), partitioned
@@ -174,7 +194,8 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
         raise ValueError("tris is required")
     level = dict(lvl_bounds=lvl_bounds, lvl_oct_perm=lvl_oct_perm,
                  lvl_members=lvl_members, lvl_member_bounds=lvl_member_bounds,
-                 lvl_start=lvl_start)
+                 lvl_start=lvl_start, lvl_nodes=lvl_nodes,
+                 lvl_node_bounds=lvl_node_bounds)
     _check_inputs(rays, cbl_oct, tris, perm, cl_map, inst_woop, level)
     if not rays.is_cuda:
         if cbl_oct is None:
@@ -196,10 +217,20 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
     args = [x.contiguous() if x is not None else None
             for x in (rays, tris, cl_map, inst_woop)] \
         + [level[k].contiguous() for k in LEVEL_TABLES]
+    # B3's votes, into a device word of their own while spans record (the
+    # untraced walk runs no atomic)
+    votes = (torch.zeros(1, dtype=torch.int64, device=rays.device)
+             if inst and spans.is_recording() else None)
+    Nn = lvl_node_bounds.shape[1]
     launch(_kernel_lib(), "hydra_cluster_traverse", "cluster traversal",
-           rays.device, *(None if x is None else x.data_ptr() for x in args),
-           t.data_ptr(), slot.data_ptr(), G * r_blk, r_blk,
-           lvl_members.shape[1], lvl_bounds.shape[1], int(any_hit_mode))
+           rays.device,
+           *(None if x is None or x.numel() == 0 else x.data_ptr()
+             for x in args),
+           t.data_ptr(), slot.data_ptr(),
+           None if votes is None else votes.data_ptr(), G * r_blk, r_blk,
+           lvl_members.shape[1], lvl_bounds.shape[1], Nn, int(any_hit_mode))
+    if votes is not None:
+        spans.count(VOTES_COUNTER, votes)
     pool = ("inst_" if inst else "opaque_" if opaque_pool
             else "ao_" if ao_probes else "")
     hit = "any" if any_hit_mode else "closest"
@@ -212,46 +243,96 @@ def cluster_traverse(rays, cbl_oct=None, tris=None, perm=None,
 _TWIN_STEP_ELEMS = 1 << 22
 
 
+def _slab(oi, inv, lo, hi, t_lim):
+    """The kernels' slab test, broadcast over all but the first axis (x, y,
+    z) of o * inv, inv and the box corners lo and hi, and t_lim: lo * inv -
+    o * inv, each operation rounded."""
+    t_a = lo * inv - oi
+    t_b = hi * inv - oi
+    t0, t1 = torch.minimum(t_a, t_b), torch.maximum(t_a, t_b)
+    tn = torch.maximum(torch.maximum(t0[0], t0[1]), t0[2])
+    tf = torch.minimum(torch.minimum(t1[0], t1[1]), t1[2])
+    return (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim)
+
+
 def slab_enters(o, inv, bounds, t_lim):
     """(n, C) bool: ray k (origin o[k], inv[k] = safe_inv of its direction)
     enters box c of `bounds` (8, C) [min max 0 0] before t_lim[k], in the
-    kernels' arithmetic: b * inv - o * inv, each operation rounded."""
-    oi = o * inv
-    t_a = bounds[None, 0:3] * inv[:, :, None] - oi[:, :, None]  # (n, 3, C)
-    t_b = bounds[None, 3:6] * inv[:, :, None] - oi[:, :, None]
-    tmin = torch.minimum(t_a, t_b)
-    tmax = torch.maximum(t_a, t_b)
-    tn = torch.maximum(torch.maximum(tmin[:, 0], tmin[:, 1]), tmin[:, 2])
-    tf = torch.minimum(torch.minimum(tmax[:, 0], tmax[:, 1]), tmax[:, 2])
-    return (tf >= torch.clamp(tn, min=0.0)) & (tn < t_lim[:, None])
+    kernels' arithmetic."""
+    return _slab((o * inv).T[:, :, None], inv.T[:, :, None],
+                 bounds[0:3, None], bounds[3:6, None], t_lim[:, None])
 
 
-def walk_positions(rays, level, t=None):
-    """Positions B1/B2/B3 walk in each block of `rays` (G, r_blk, 8): one
-    vote per box of the upper level `level` (lvl_bounds (8, N) and
-    lvl_start: a scene's scene_pool, say), plus the members [lvl_start[i],
-    lvl_start[i + 1]) of every box i that some active ray of the block
-    enters before its t (`t` (G * r_blk,) where given, else each ray's
-    t_lim). Against t_lim this is the most the walk can take (no hit
-    shortens t), against the final t of a closest-hit walk the least.
-    Returns (G,) int64."""
+def _any_enters(flat, inv, act, t, blk, box, RB):
+    """(P,) bool: some active ray of block blk[p] (RB rays from row blk[p] *
+    RB of flat) enters box[:, p] of (8, P) before its t, in the kernels'
+    arithmetic."""
+    out = torch.zeros(blk.numel(), dtype=torch.bool, device=flat.device)
+    lane = torch.arange(RB, device=flat.device)
+    step = max(1, _TWIN_STEP_ELEMS // (8 * RB))  # pairs a step
+    for s in range(0, blk.numel(), step):
+        rows = (blk[s:s + step, None] * RB + lane).reshape(-1)
+        b = box[:, s:s + step].repeat_interleave(RB, dim=1)  # (8, n)
+        iv = inv[rows]
+        e = _slab((flat[rows, 0:3] * iv).T, iv.T, b[0:3], b[3:6],
+                  t[rows]) & act[rows]
+        out[s:s + step] = e.reshape(-1, RB).any(dim=1)
+    return out
+
+
+def walk_counts(rays, level, t=None):
+    """What B1/B2/B3 walk in each block of `rays` (G, r_blk, 8) over the
+    upper level `level` (a scene's scene_pool, say), each active ray tested
+    against its t (`t` (G * r_blk,) where given, else its t_lim). Returns
+    (votes, members), (G,) int64 each: the upper boxes the block votes on,
+    and the members [lvl_start[i], lvl_start[i + 1]) of every upper box i
+    that some active ray of the block enters, which the block votes on in
+    turn. B1/B2 (no tree) vote on every box, a block without an active ray
+    on none. B3 walks its tree (lvl_nodes) from the root: one vote for the
+    root and one for each child of every inner node that some active ray
+    enters, so a block without an active ray votes once. Against t_lim
+    this is the most the walk can take (no hit shortens t), against the
+    final t of a closest-hit walk the least: a box test is monotone in
+    t."""
     boxes, start = level["lvl_bounds"], level["lvl_start"]
+    nodes, node_bounds = level["lvl_nodes"], level["lvl_node_bounds"]
     G, RB, _ = rays.shape
+    dev = rays.device
     flat = rays.reshape(-1, 8)
     act = flat[:, 7] > 0.0
     if t is None:
         t = torch.clamp(flat[:, 6], max=BIG)
+    inv = safe_inv(flat[:, 3:6])
     sizes = (start[1:] - start[:-1]).to(torch.int64)
-    N = sizes.numel()
-    out = torch.full((G,), N, dtype=torch.int64, device=rays.device)
-    step = max(1, _TWIN_STEP_ELEMS // (RB * max(N, 1)))  # blocks a step
-    for g in range(0, G, step):
-        nb = min(step, G - g)
-        sl = slice(g * RB, (g + nb) * RB)
-        ent = slab_enters(flat[sl, 0:3], safe_inv(flat[sl, 3:6]), boxes, t[sl])
-        ent = (ent & act[sl, None]).reshape(nb, RB, N).any(dim=1)
-        out[g:g + nb] += (ent.to(torch.int64) * sizes).sum(dim=1)
-    return out
+    N, Nn = sizes.numel(), node_bounds.shape[1]
+    members = torch.zeros(G, dtype=torch.int64, device=dev)
+    if Nn == 0:  # B1/B2: every box in turn
+        blk = torch.arange(G, device=dev).repeat_interleave(N)
+        box = torch.arange(N, device=dev).repeat(G)
+        ent = _any_enters(flat, inv, act, t, blk, boxes[:, box], RB)
+        members.index_add_(0, blk[ent], sizes[box[ent]])
+        live = act.reshape(G, RB).any(dim=1)
+        return torch.where(live, N, 0).to(torch.int64), members
+    kids = nodes.reshape(8, Nn, TREE_FAN).long()
+    d0 = flat[::RB, 3:6]  # a block's octant: its first ray's
+    octant = ((d0[:, 0] > 0).long() + 2 * (d0[:, 1] > 0).long()
+              + 4 * (d0[:, 2] > 0).long())
+    every = torch.cat([boxes, node_bounds], dim=1)  # ids [0, N), N + node
+    votes = torch.zeros(G, dtype=torch.int64, device=dev)
+    blk = torch.arange(G, device=dev)
+    ids = torch.full((G,), N, dtype=torch.int64, device=dev)  # the root
+    while blk.numel():
+        votes.index_add_(0, blk, torch.ones_like(blk))
+        ent = _any_enters(flat, inv, act, t, blk, every[:, ids], RB)
+        blk, ids = blk[ent], ids[ent]
+        leaf = ids < N
+        members.index_add_(0, blk[leaf], sizes[ids[leaf]])
+        blk, ids = blk[~leaf], ids[~leaf]
+        ch = kids[octant[blk], ids - N]  # (P, TREE_FAN)
+        real = ch >= 0
+        blk = blk[:, None].expand(-1, TREE_FAN)[real]
+        ids = ch[real]
+    return votes, members
 
 
 def _pairs_mt(o, d, t_lim, blk):

@@ -121,14 +121,17 @@ class SceneData:
     inst_woop: object = None  # (I, 4, 4) f32 A^T (world -> mesh-local)
     # the upper level of the cluster kernels' two-level walk, derived from
     # cl_bounds / cl_oct_perm (and cl_map): the instances of an instanced
-    # pool (bvh/instanced.py:instance_tables, kernel B3), groups of clusters
-    # of any other (bvh/clusters.py:group_tables, B1/B2); never read from a
-    # compiled scene
+    # pool under a tree (bvh/instanced.py:instance_tables, kernel B3),
+    # groups of clusters of any other, with no tree
+    # (bvh/clusters.py:group_tables, B1/B2); never read from a compiled
+    # scene
     lvl_bounds: object = None  # (8, N) f32 AABB of each upper box
-    lvl_oct_perm: object = None  # (8, N) i32 front-to-back per octant
+    lvl_oct_perm: object = None  # (8, N) i32 front-to-back per octant; B3 (8, 0)
     lvl_members: object = None  # (8, M) i32 clusters grouped by upper box
     lvl_member_bounds: object = None  # (8, 8, M) f32 their boxes, that order
     lvl_start: object = None  # (N + 1,) i32 group offsets into lvl_members
+    lvl_nodes: object = None  # (8, Nn * TREE_FAN) i32 B3's tree, children a node
+    lvl_node_bounds: object = None  # (8, Nn) f32 its nodes' boxes
     # split shadow sets of alpha scenes (None unless has_alpha)
     cl_tris_shadow: object = None  # (Cp, 4, 384) f32
     alpha_tri9f: object = None  # (9, A) f32
@@ -155,7 +158,7 @@ _INSTANCED = ("cl_map", "cl_slot_inst", "inst_attr", "inst_orig", "inst_woop")
 # derived from the cluster tables: not leaves of a compiled scene (the
 # upper level of the two-level walk)
 _DERIVED = ("lvl_bounds", "lvl_oct_perm", "lvl_members", "lvl_member_bounds",
-            "lvl_start")
+            "lvl_start", "lvl_nodes", "lvl_node_bounds")
 _OPTIONAL = _INSTANCED + _DERIVED + ("cl_tris_shadow", "alpha_tri9f",
                                      "alpha_tri_id", "env_back")
 

@@ -25,6 +25,9 @@ Counters:
   * `bump(name)` / `value(name)` / `reset(*names)`: host ints counted
     always (the traversal kernels' launch counters); a recording reports
     how far each moved while it ran.
+  * `is_recording()`: whether a recording runs, for a counter that its
+    caller gathers on the device only then (kernel B3's upper-level votes,
+    `traverse_cluster.b3_upper_votes`).
   * host syncs: while recording on a CUDA build, torch's sync debug mode
     warns at every synchronizing CUDA operation; each is counted by its
     site, the innermost frame under this package (`path:line`), and by the
@@ -190,6 +193,12 @@ def count(name: str, n) -> None:
         n = n.sum(dtype=torch.int64)
     prev = rec.counts.get(name)
     rec.counts[name] = n if prev is None else prev + n
+
+
+def is_recording() -> bool:
+    """True inside recording(): a caller may then gather a counter on the
+    device that it would not pay for otherwise."""
+    return _rec is not None
 
 
 def bump(name: str) -> None:

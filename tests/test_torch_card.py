@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: kernels B1/B2 (flat and
 partitioned pools, a two-level walk over groups of clusters; B2 also over
 the opaque shadow pool of an alpha scene), B3
-(instanced pools) and B4 (warp packets over the
+(instanced pools: a walk of the tree over the instances, whose vote counter
+reads 1 a dead block and lies between the twin's least and most on the
+sphereflake) and B4 (warp packets over the
 8-wide BVH; B2 also on the path tracer's AO probes) against their plain
 twins, the path tracer on the card against the CPU twins, by the cluster
 and by the packet route (SSS, fog and AO-dirt materials too), the render
@@ -75,9 +77,12 @@ def _rects_scene(n: int = 350, part_cap: int = 1024, traversal: str = "auto"):
                    part_cap=part_cap, traversal=traversal)
 
 
-def _instanced_scene(size: int = 32, instancing: str = "force"):
+def _instanced_scene(size: int = 32, instancing: str = "force",
+                     same: int = 0):
     """40 instances (rotated, non-uniformly scaled, one mirrored) of a mesh
-    of 2,000 random triangles over a ground plane, under a sky."""
+    of 2,000 random triangles over a ground plane, under a sky; with
+    `same`, that many instances of the mesh at the identity in their
+    place."""
     rng = np.random.default_rng(11)
 
     def mesh(v, idx, mat):
@@ -106,6 +111,9 @@ def _instanced_scene(size: int = 32, instancing: str = "force"):
             M[:3, 0] *= -1.0
         M[:3, 3] = rng.uniform([-12, 0, -12], [12, 4, 12])
         instances.append(sf.InstanceDesc(mesh_id=2, matrix=M))
+    if same:
+        instances[1:] = [sf.InstanceDesc(mesh_id=2, matrix=np.eye(4, dtype=np.float32))
+                         for _ in range(same)]
     mats = {k: ET.fromstring(
         f'<material id="{k}" type="hydra_material"><diffuse brdf_type="lambert">'
         f'<color val="{col}"/></diffuse></material>')
@@ -230,7 +238,9 @@ def _instanced_blocks(sc, r_blk):
 
     ib = sc.lvl_bounds.cpu().numpy()
     ctr = (ib[0:3] + ib[3:6]).T * 0.5  # (I, 3)
-    first = next(int(i) for i in sc.lvl_oct_perm[7].tolist() if i > 0)
+    # front to back in that octant: by the sum of the box centre's x, y, z
+    key = np.where(ib[0] < 1e29, np.ones(3) @ ctr.T, np.inf)
+    first = next(int(i) for i in np.argsort(key, kind="stable") if i > 0)
     d_aim = unit(r_blk, positive=True)
     d_aim[0] = 1.0 / np.sqrt(3.0)
     o_aim = rng.uniform(-14, 14, (r_blk, 3))
@@ -362,6 +372,85 @@ def test_b3_on_the_sphereflake_equals_its_twin(cuda, sphereflake, kind,
         assert torch.equal(s_k >= 0, s_t >= 0)
     else:
         assert torch.equal(s_k, s_t)
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+def test_b3_dead_blocks_vote_once(cuda, any_hit_mode):
+    """B3 on a wavefront whose rays are all dead: every block fails the
+    vote on the tree's root and leaves, one vote a block (counter
+    traverse_cluster.b3_upper_votes, gathered only while spans record)."""
+    from hydracore_tpu_torch.utils import spans
+
+    sc = _instanced_scene().to(cuda)
+    blocks, _, _ = _instanced_blocks(sc, tc.R_BLK)
+    blocks[:, :, 7] = 0.0
+    with spans.recording():
+        t, s = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode,
+                                   **tc.scene_pool(sc))
+    got = spans.take().counters
+    assert got[tc.VOTES_COUNTER] == blocks.shape[0]
+    assert bool((s == -1).all()) and bool((t == -tc.BIG).all())
+    tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode, **tc.scene_pool(sc))
+    assert tc.VOTES_COUNTER not in spans.take().counters  # not recording
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+@pytest.mark.parametrize("kind", ["primary", "bounce"])
+def test_b3_votes_on_the_sphereflake_lie_between_its_twins(
+        cuda, sphereflake, kind, any_hit_mode):
+    """B3's upper-level votes on the wavefronts of
+    test_b3_on_the_sphereflake_equals_its_twin, counted on the card, lie
+    between the tree walk's least (walk_counts against the kernel's final
+    t) and most (against t_lim) over all blocks; primary blocks vote far
+    less than on each of the 7,382 instances."""
+    from hydracore_tpu_torch.utils import spans
+
+    sc = sphereflake.to(cuda)
+    o, d, active, r_blk = _flake_wavefront(sc, kind)
+    t_max = (3.0 if kind == "primary" else 0.3) if any_hit_mode else 1e30
+    blocks, _ = tc._to_blocks(o, d, t_max, active, r_blk)
+    pool = tc.scene_pool(sc)
+    with spans.recording():
+        t_k, _ = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode, **pool)
+    got = spans.take().counters[tc.VOTES_COUNTER]
+    least, _ = tc.walk_counts(blocks, pool, t_k.reshape(-1))
+    most, _ = tc.walk_counts(blocks, pool)
+    assert int(least.sum()) <= got <= int(most.sum())
+    G = blocks.shape[0]
+    assert int(most.sum()) < G * 7382
+    if kind == "primary":
+        assert got < G * 7382 // 20
+
+
+@pytest.mark.parametrize("any_hit_mode", [False, True])
+def test_b3_on_coincident_instances_equals_its_twin(cuda, any_hit_mode):
+    """B3 on 200 instances of one mesh at one matrix (boxes of one centre,
+    which the tree cuts at the median) over the ground plane: the scene
+    assembles, and every hit and t equals the twin's; a block that enters
+    the boxes votes on fewer than every node and instance."""
+    from hydracore_tpu_torch.utils import spans
+
+    sc = _instanced_scene(same=200).to(cuda)
+    assert sc.inst_woop.shape[0] == 201
+    blocks, R = _random_blocks(sc.cl_tris.device, [-3, -1, -3], [3, 3, 3],
+                               tc.R_BLK, 3.0)
+    pool = tc.scene_pool(sc)
+    twin_pool = {k: v for k, v in pool.items() if k not in tc.LEVEL_TABLES}
+    with spans.recording():
+        t_k, s_k = tc.cluster_traverse(blocks, any_hit_mode=any_hit_mode,
+                                       **pool)
+    got = spans.take().counters[tc.VOTES_COUNTER]
+    t_t, s_t = tc.cluster_traverse_plain(blocks, any_hit_mode=any_hit_mode,
+                                         **twin_pool)
+    hit = s_k >= 0
+    assert int(hit.sum()) > 100
+    assert torch.equal(hit, s_t >= 0)
+    assert torch.equal(t_k, t_t)
+    least, _ = tc.walk_counts(blocks, pool, t_k.reshape(-1))
+    most, _ = tc.walk_counts(blocks, pool)
+    assert int(least.sum()) <= got <= int(most.sum())
+    Nn = sc.lvl_node_bounds.shape[1]
+    assert int(most.max()) <= 201 + Nn
 
 
 def test_instanced_kernel_needs_the_instance_level(cuda):

@@ -20,7 +20,7 @@ the same recipe.
     in a group whose box it enters;
   * scene_from_arrays over the JAX package's partitioned arrays derives the
     same tables as the port's own build (bit for bit);
-  * walk_positions against a direct count, and the wrapper's checks of the
+  * walk_counts against a direct count, and the wrapper's checks of the
     upper level (they run on the CPU).
 """
 import numpy as np
@@ -287,9 +287,9 @@ def test_walk_positions_count_the_entered_groups(scenes):
     o, d, t = _rays(sc, 2048, 256, 256, 512)
     act = torch.arange(o.shape[0]) % 5 != 0
     blocks, _ = tc._to_blocks(o, d, t, act, 64)
-    most = tc.walk_positions(blocks, pool)
+    most = sum(tc.walk_counts(blocks, pool))  # votes + members
     short = torch.clamp(blocks[:, :, 6].reshape(-1), max=0.5)
-    least = tc.walk_positions(blocks, pool, short)
+    least = sum(tc.walk_counts(blocks, pool, short))
     Gn = sc.lvl_bounds.shape[1]
     sizes = sc.lvl_start.long().diff().tolist()
     for g in range(blocks.shape[0]):
